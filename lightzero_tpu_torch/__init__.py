@@ -1,0 +1,13 @@
+"""PyTorch/CUDA port of ``lightzero_tpu``.
+
+The package mirrors the JAX package's module names so that each ported part
+sits where its counterpart does (``search/puct.py`` beside
+``lightzero_tpu/search/puct.py``). It imports ``torch``, ``numpy`` and the
+standard library only. The TPU kernel of the pUCT descent is a hand-written
+CUDA kernel for Hopper (``csrc/fused_traverse.cu``), compiled with ``nvcc``
+at first use into ``_build/`` and loaded with ``ctypes``.
+
+Entry points (``MuZeroPolicy``, ``Evaluator``, ``batch_puct_search``) run on
+``cuda`` unless the caller passes ``device="cpu"``; with no GPU and no
+explicit CPU request they raise.
+"""

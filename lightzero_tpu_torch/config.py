@@ -1,0 +1,61 @@
+"""Attribute-accessible config tree (counterpart of
+``lightzero_tpu/config/core.py``: ``Config`` and ``deep_merge``).
+
+A copy, not an import: the port loads nothing of the JAX package."""
+from __future__ import annotations
+
+import copy
+from typing import Any, Dict, Optional
+
+
+class Config(dict):
+    """Attribute-accessible nested dict (EasyDict-like, self-contained)."""
+
+    def __init__(self, d: Optional[Dict] = None, **kwargs):
+        super().__init__()
+        d = dict(d or {})
+        d.update(kwargs)
+        for k, v in d.items():
+            self[k] = v
+
+    @staticmethod
+    def _wrap(v: Any) -> Any:
+        if isinstance(v, Config):
+            return v
+        if isinstance(v, dict):
+            return Config(v)
+        if isinstance(v, (list, tuple)):
+            return type(v)(Config._wrap(x) for x in v)
+        return v
+
+    def __setitem__(self, k, v):
+        super().__setitem__(k, Config._wrap(v))
+
+    def __setattr__(self, k, v):
+        self[k] = v
+
+    def __getattr__(self, k):
+        try:
+            return self[k]
+        except KeyError:
+            raise AttributeError(k)
+
+    def __delattr__(self, k):
+        del self[k]
+
+    def __deepcopy__(self, memo):
+        return Config({k: copy.deepcopy(v, memo) for k, v in self.items()})
+
+    def to_dict(self) -> Dict:
+        return {k: v.to_dict() if isinstance(v, Config) else v for k, v in self.items()}
+
+
+def deep_merge(base: Dict, override: Dict) -> Config:
+    """Return a new Config = base with override recursively applied on top."""
+    out = Config(copy.deepcopy(dict(base)))
+    for k, v in override.items():
+        if k in out and isinstance(out[k], dict) and isinstance(v, dict):
+            out[k] = deep_merge(out[k], v)
+        else:
+            out[k] = copy.deepcopy(v)
+    return out

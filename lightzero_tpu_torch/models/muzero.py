@@ -1,0 +1,132 @@
+"""MuZero model, MLP branch (``lightzero_tpu/models/muzero.py:31``):
+representation + dynamics + prediction.
+
+Not ported in this slice: the conv branch, the SSL projector (training
+only), the HarmonyDream loss weights and the multitask task embedding.
+"""
+from __future__ import annotations
+
+from typing import Any, Optional, Sequence
+
+import torch
+from torch import nn
+
+from lightzero_tpu_torch.models.common import (
+    DynamicsNetworkMLP,
+    NetworkOutput,
+    PredictionNetworkMLP,
+    RepresentationNetworkMLP,
+)
+
+
+class MuZeroModel(nn.Module):
+    def __init__(
+        self,
+        observation_shape: int = 4,
+        action_space_size: int = 2,
+        latent_state_dim: int = 256,
+        value_support_size: int = 601,
+        reward_support_size: int = 601,
+        common_layer_num: int = 2,
+        reward_head_hidden_channels: Sequence[int] = (32,),
+        value_head_hidden_channels: Sequence[int] = (32,),
+        policy_head_hidden_channels: Sequence[int] = (32,),
+        res_connection_in_dynamics: bool = False,
+        norm_type: str = "LN",
+        last_linear_layer_init_zero: bool = True,
+        discrete_action_encoding_type: str = "one_hot",
+        generator: Optional[torch.Generator] = None,
+    ):
+        super().__init__()
+        self.action_space_size = action_space_size
+        self.reward_support_size = reward_support_size
+        self.discrete_action_encoding_type = discrete_action_encoding_type
+        enc_dim = action_space_size if discrete_action_encoding_type == "one_hot" else 1
+        self.representation_network = RepresentationNetworkMLP(
+            int(observation_shape), latent_state_dim, norm_type, generator=generator
+        )
+        self.dynamics_network = DynamicsNetworkMLP(
+            enc_dim,
+            latent_state_dim=latent_state_dim,
+            reward_support_size=reward_support_size,
+            common_layer_num=common_layer_num,
+            reward_head_hidden_channels=reward_head_hidden_channels,
+            norm_type=norm_type,
+            res_connection_in_dynamics=res_connection_in_dynamics,
+            last_linear_layer_init_zero=last_linear_layer_init_zero,
+            generator=generator,
+        )
+        self.prediction_network = PredictionNetworkMLP(
+            action_space_size,
+            latent_state_dim,
+            value_support_size=value_support_size,
+            common_layer_num=common_layer_num,
+            value_head_hidden_channels=value_head_hidden_channels,
+            policy_head_hidden_channels=policy_head_hidden_channels,
+            norm_type=norm_type,
+            last_linear_layer_init_zero=last_linear_layer_init_zero,
+            generator=generator,
+        )
+
+    def _encode_action_mlp(self, action: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        if self.discrete_action_encoding_type == "one_hot":
+            return nn.functional.one_hot(action.long(), self.action_space_size).to(dtype)
+        # 'not_one_hot': scalar action / A (reference muzero_model_mlp.py:91)
+        return (action.to(dtype) / self.action_space_size)[:, None]
+
+    def representation(self, obs: torch.Tensor) -> torch.Tensor:
+        return self.representation_network(obs)
+
+    def dynamics(self, latent: torch.Tensor, action: torch.Tensor):
+        return self.dynamics_network(latent, self._encode_action_mlp(action, latent.dtype))
+
+    def prediction(self, latent: torch.Tensor):
+        return self.prediction_network(latent)
+
+    def initial_inference(self, obs: torch.Tensor) -> NetworkOutput:
+        """The reward at the root is a zero pad."""
+        latent = self.representation(obs)
+        value_logits, policy_logits = self.prediction(latent)
+        return NetworkOutput(
+            value_logits=value_logits,
+            reward_logits=torch.zeros_like(value_logits[..., : self.reward_support_size]),
+            policy_logits=policy_logits,
+            latent_state=latent,
+        )
+
+    def recurrent_inference(self, latent: torch.Tensor, action: torch.Tensor) -> NetworkOutput:
+        next_latent, reward_logits = self.dynamics(latent, action)
+        value_logits, policy_logits = self.prediction(next_latent)
+        return NetworkOutput(
+            value_logits=value_logits,
+            reward_logits=reward_logits,
+            policy_logits=policy_logits,
+            latent_state=next_latent,
+        )
+
+    @staticmethod
+    def from_config(model_cfg: Any, generator: Optional[torch.Generator] = None) -> "MuZeroModel":
+        """Build from a ``cfg.policy.model`` tree (the JAX package's key names)."""
+        if model_cfg.get("model_type", "mlp") != "mlp":
+            raise NotImplementedError(
+                "only model_type='mlp' is ported (ROADMAP queue 1, slice 16: conv stack)"
+            )
+        kwargs = dict(
+            observation_shape=model_cfg.get("observation_shape", 4),
+            action_space_size=model_cfg.get("action_space_size", 2),
+            latent_state_dim=model_cfg.get("latent_state_dim", 256),
+            norm_type=model_cfg.get("norm_type", "LN"),
+            discrete_action_encoding_type=model_cfg.get("discrete_action_encoding_type", "one_hot"),
+            res_connection_in_dynamics=model_cfg.get("res_connection_in_dynamics", False),
+        )
+        for k in (
+            "value_support_size",
+            "reward_support_size",
+            "reward_head_hidden_channels",
+            "value_head_hidden_channels",
+            "policy_head_hidden_channels",
+        ):
+            if k in model_cfg:
+                v = model_cfg[k]
+                kwargs[k] = tuple(v) if isinstance(v, list) else v
+        return MuZeroModel(generator=generator, **kwargs)

@@ -6,7 +6,12 @@ setup(
     name="lightzero_tpu",
     version="0.1.0",
     description="TPU-native MCTS+RL framework (LightZero capability surface, JAX/XLA)",
-    packages=find_packages(include=["lightzero_tpu", "lightzero_tpu.*"]),
+    # lightzero_tpu_torch: the PyTorch/CUDA port; its CUDA sources are
+    # compiled with nvcc at first use (lightzero_tpu_torch/_build.py)
+    packages=find_packages(
+        include=["lightzero_tpu", "lightzero_tpu.*", "lightzero_tpu_torch", "lightzero_tpu_torch.*"]
+    ),
+    package_data={"lightzero_tpu_torch": ["csrc/*.cu"]},
     python_requires=">=3.10",
     install_requires=[
         "jax",

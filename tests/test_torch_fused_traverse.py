@@ -1,0 +1,88 @@
+"""The fused pUCT descent: the port's plain version
+(lightzero_tpu_torch/search/fused_traverse.py:fused_traverse_reference)
+against the TPU kernel lightzero_tpu/search/pallas_traverse.py run in
+interpret mode, as tests/test_pallas_traverse.py runs it, on the same packed
+tables and the same noise_u. The tables are valid random trees with illegal
+actions, terminal children, exact score ties and deep chains.
+
+Path, action, depth, leaf, parent and the leaf flag must be exactly equal;
+the recorded stats allclose to 1e-6 (they are copies, so in practice equal).
+The CUDA kernel is held against the plain version on the card by
+chip_smoke.py (it cannot run here: no nvcc, no GPU)."""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from lightzero_tpu.search.pallas_traverse import pallas_traverse
+from lightzero_tpu_torch.search.fused_traverse import (
+    check_inputs,
+    fused_traverse,
+    fused_traverse_reference,
+)
+
+pytestmark = pytest.mark.unittest
+
+SHAPES = [(8, 2, 26), (6, 4, 13), (4, 5, 9)]  # (B, A, N): CartPole, bench-like A, odd A
+
+
+def _kwargs(A, N, first):
+    return dict(
+        A=A, N=N, max_depth=N + 1, discount=0.997, pb_c_base=19652.0, pb_c_init=1.25,
+        value_delta_max=0.01, tie_break_first=first, tie_break_epsilon=1e-6,
+    )
+
+
+def _torch_inputs(d):
+    return [None if d[k] is None else torch.from_numpy(d[k])
+            for k in ("packed", "vmin", "vmax", "root_stats", "noise_u")]
+
+
+@pytest.mark.parametrize("B,A,N", SHAPES)
+@pytest.mark.parametrize("tie_break", ["first", "noise"])
+def test_reference_matches_pallas_kernel(B, A, N, tie_break):
+    first = tie_break == "first"
+    d = check_inputs(np.random.default_rng(B * 100 + A), B, A, N, with_noise=not first)
+    kw = _kwargs(A, N, first)
+    exp = pallas_traverse(
+        *(None if d[k] is None else jnp.asarray(d[k])
+          for k in ("packed", "vmin", "vmax", "root_stats", "noise_u")),
+        interpret=True, **kw,
+    )
+    exp = [np.asarray(x) for x in exp]
+    got = [x.numpy() for x in fused_traverse_reference(*_torch_inputs(d), **kw)]
+    # scalars: node, parent, last action, depth, leaf flag
+    np.testing.assert_array_equal(got[0], exp[0])
+    np.testing.assert_array_equal(got[1], exp[1], err_msg="path")
+    np.testing.assert_array_equal(got[2], exp[2], err_msg="path action")
+    for name, g, e in zip(("reward", "value_sum", "visit"), got[3:], exp[3:]):
+        np.testing.assert_allclose(g, e, rtol=1e-6, atol=1e-6, err_msg=name)
+    assert exp[0][:, 3].max() >= N // 3, "no deep descent among the cases"
+
+
+def test_tables_exercise_terminal_stops_and_ties():
+    B, A, N = 32, 4, 51
+    d = check_inputs(np.random.default_rng(7), B, A, N, with_noise=True)
+    out_first = fused_traverse_reference(*_torch_inputs(d), **_kwargs(A, N, True))
+    out_noise = fused_traverse_reference(*_torch_inputs(d), **_kwargs(A, N, False))
+    assert out_first[0][:, 4].sum() > 0, "no descent stopped at a terminal child"
+    # exact ties among unvisited children are decided by the noise table
+    assert not torch.equal(out_first[0][:, 2], out_noise[0][:, 2])
+
+
+def test_wrapper_takes_plain_version_for_cpu_tensors():
+    B, A, N = 4, 2, 7
+    d = check_inputs(np.random.default_rng(3), B, A, N, with_noise=True)
+    before = fused_traverse.launches
+    got = fused_traverse(*_torch_inputs(d), **_kwargs(A, N, False))
+    exp = fused_traverse_reference(*_torch_inputs(d), **_kwargs(A, N, False))
+    for g, e in zip(got, exp):
+        assert torch.equal(g, e)
+    assert fused_traverse.launches == before  # only kernel launches count
+
+
+def test_wrapper_rejects_other_devices():
+    d = check_inputs(np.random.default_rng(4), 2, 2, 5, with_noise=False)
+    args = [None if x is None else x.to("meta") for x in _torch_inputs(d)]
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        fused_traverse(*args, **_kwargs(2, 5, True))

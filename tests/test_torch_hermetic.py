@@ -1,0 +1,128 @@
+"""The port stands alone and never falls back quietly:
+
+- every module of lightzero_tpu_torch imports with jax, flax, optax and
+  lightzero_tpu made unimportable, and no source of the port or
+  chip_smoke.py names them (nor pytest or gymnasium) in an import;
+- with no CUDA device, the entry points built without ``device=`` raise;
+- the kernel loader raises a clear error when nvcc is absent or fails, and
+  never hands back the plain version.
+"""
+import ast
+import os
+import pathlib
+import stat
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from lightzero_tpu_torch import _build
+from lightzero_tpu_torch.envs import CartPoleEnv
+from lightzero_tpu_torch.policy import MuZeroPolicy
+from lightzero_tpu_torch.search import RootOutput, SearchConfig, batch_puct_search
+from lightzero_tpu_torch.search import fused_traverse as fused_traverse_module
+from lightzero_tpu_torch.workers import Evaluator
+
+pytestmark = pytest.mark.unittest
+
+REPO = pathlib.Path(__file__).resolve().parent.parent
+PACKAGE = REPO / "lightzero_tpu_torch"
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "lightzero_tpu")
+
+_IMPORT_ALL = """
+import importlib, pkgutil, sys
+for name in {forbidden!r}:
+    sys.modules[name] = None
+import lightzero_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(lightzero_tpu_torch.__path__, "lightzero_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+import chip_smoke
+leaked = [m for m in sys.modules if m.split(".")[0] in {forbidden!r} and sys.modules[m] is not None]
+assert not leaked, leaked
+print(len(names))
+"""
+
+
+def test_every_module_imports_without_jax_or_the_jax_package():
+    proc = subprocess.run(
+        [sys.executable, "-c", _IMPORT_ALL.format(forbidden=FORBIDDEN)],
+        cwd=REPO, capture_output=True, text=True, timeout=120,
+        env=dict(os.environ, PYTHONPATH=str(REPO)),
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert int(proc.stdout.split()[-1]) >= 20  # modules walked
+
+
+def _imported_roots(path: pathlib.Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0]
+
+
+@pytest.mark.parametrize(
+    "path",
+    [REPO / "chip_smoke.py", *sorted(PACKAGE.rglob("*.py"))],
+    ids=lambda p: str(p.relative_to(REPO)),
+)
+def test_no_source_imports_jax_or_test_only_packages(path):
+    bad = set(_imported_roots(path)) & set(FORBIDDEN + ("pytest", "gymnasium"))
+    assert not bad, f"{path} imports {bad}"
+
+
+@pytest.fixture
+def no_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_policy_without_device_raises_with_no_cuda(no_cuda):
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        MuZeroPolicy()
+
+
+def test_evaluator_without_device_raises_with_no_cuda(no_cuda):
+    policy = MuZeroPolicy(dict(num_simulations=2), device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Evaluator(CartPoleEnv(), policy)
+
+
+def test_search_without_device_raises_with_no_cuda(no_cuda):
+    root = RootOutput(prior_logits=torch.zeros(2, 3), value=torch.zeros(2),
+                      embedding=torch.zeros(2, 4))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        batch_puct_search(root, None, SearchConfig(num_simulations=2),
+                          torch.ones(2, 3, dtype=torch.bool))
+
+
+@pytest.fixture
+def no_nvcc(monkeypatch, tmp_path):
+    monkeypatch.setenv("PATH", str(tmp_path / "empty"))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no_cuda"))
+    monkeypatch.setattr(_build, "DEFAULT_CUDA_HOME", str(tmp_path / "no_cuda"))
+    monkeypatch.setattr(_build, "BUILD_DIR", str(tmp_path / "build"))
+    monkeypatch.setattr(_build, "_loaded", {})
+    return tmp_path
+
+
+def test_loader_raises_when_nvcc_is_absent(no_nvcc):
+    with pytest.raises(_build.BuildError, match="nvcc not found"):
+        _build.load("fused_traverse")
+    # the kernel module's loader raises too: no plain version comes back
+    with pytest.raises(_build.BuildError, match="nvcc not found"):
+        fused_traverse_module._library()
+    assert not (no_nvcc / "build").exists()
+
+
+def test_loader_raises_with_the_compiler_output_when_nvcc_fails(no_nvcc):
+    bindir = no_nvcc / "empty"
+    bindir.mkdir()
+    fake = bindir / "nvcc"
+    fake.write_text("#!/bin/sh\necho 'fused_traverse.cu(1): error: made-up failure' >&2\nexit 2\n")
+    fake.chmod(fake.stat().st_mode | stat.S_IEXEC)
+    with pytest.raises(_build.BuildError, match="made-up failure"):
+        _build.load("fused_traverse")
+    assert not list((no_nvcc / "build").glob("*.so"))
