@@ -6,15 +6,32 @@
 Phases, each of a fixed size, in one process:
   1. card: the GPU's name and power limit (nvidia-smi);
   2. build: nvcc compiles every kernel of the port into lightzero_tpu_torch/_build/;
-  3. kernel vs plain: each kernel against its plain PyTorch version on the card,
-     on numpy-seeded inputs at the shapes the main path gives it;
+  3. kernel vs plain: the descent kernel's branch-free division against '/'
+     on 4M operand pairs; each kernel against its plain PyTorch version on
+     the card, on numpy-seeded inputs at the shapes the main path gives it,
+     at the Atari action count (A=18), with more actions than a warp has
+     lanes (A=37), and with values at the edges of float32; each kernel's
+     device time from the replay of a CUDA graph of launches (the wrapper's
+     host time left out), its time per depth level, and a latency figure:
+     (deepest descent + 1) x one dependent L2 load, timed with
+     csrc/latency_probe.cu, which also gives the floor of one launch;
   4. the main path: the Evaluator plays CartPole with the CartPole MuZero config
      at full width (25 simulations, 3 envs) until each env ends an episode,
      with the launch counters read around it; then a small batch searched on
      the card agrees with the same search on the CPU;
   5. bench shape: batch_puct_search through MuZeroPolicy at bench.py's shapes
-     (B=1024, 50 simulations), once through the kernel and once through the
-     plain descent on the card; equal visit counts.
+     (B=1024, 50 simulations): the median of 5 searches through the kernel
+     after a warm-up, one through the plain descent; equal visit counts. One
+     more search under torch.profiler gives the kernel's device time per
+     simulation and the device's busy share of the search wall. The warm-up
+     search keeps the descent's inputs of simulations 1, 25 and 50, and
+     phase 3 is run once more on those tables.
+
+    python3 chip_smoke.py --compare-source OLD.cu
+
+also builds OLD.cu (another version of csrc/fused_traverse.cu with the same
+C interface, e.g. from an unpacked parent commit) and times it against the
+current kernel on every phase-3 case, in turns old, new, new, old.
 
 The last lines are the card's name and power limit, one JSON object with a
 record per kernel, and {"ok": true, "device": {...}}; that last line is printed
@@ -23,7 +40,10 @@ and prints no result. A watchdog ends a run that has not finished in 290 s.
 """
 from __future__ import annotations
 
+import argparse
+import concurrent.futures
 import copy
+import ctypes
 import dataclasses
 import faulthandler
 import json
@@ -42,11 +62,13 @@ from lightzero_tpu_torch.configs.cartpole_muzero import main_config
 from lightzero_tpu_torch.envs import CartPoleEnv
 from lightzero_tpu_torch.models.common import lecun_normal_
 from lightzero_tpu_torch.policy import MuZeroPolicy
+from lightzero_tpu_torch.search import fused_traverse as fused_traverse_module
 from lightzero_tpu_torch.search import puct
 from lightzero_tpu_torch.search.fused_traverse import (
     check_inputs,
     fused_traverse,
     fused_traverse_reference,
+    kernel_route,
 )
 from lightzero_tpu_torch.workers import Evaluator
 
@@ -65,6 +87,19 @@ OPS_PER_ACTION = {True: 30, False: 52}
 STATS_RTOL = STATS_ATOL = 1e-6
 # card vs CPU search on the same weights: float32 matmuls in another order
 VALUE_TOL = 1e-4
+# launches in one CUDA graph when timing a kernel, and searches timed at the
+# bench shape (the median is reported)
+GRAPH_REPS = 50
+BENCH_SEARCHES = 5
+# simulations of the bench search whose descent inputs phase 3 reruns
+CAPTURED_SIMS = (1, 25, 50)
+# phase 3's (B, A, N) on check_inputs' trees, case i from seed
+# SYNTHETIC_SEED + i: the CartPole eval (3 envs, 25 sims), the CartPole
+# batch of 8, bench.py's shape (B=1024, A=4, 50 sims), the Atari action set
+# at the bench batch, and more actions than a warp has lanes
+SYNTHETIC_SHAPES = [(3, 2, 26), (8, 2, 26), (1024, 4, 51), (1024, 18, 51), (64, 37, 26)]
+SYNTHETIC_SEED = 100
+EDGE_SHAPES = [(256, 4, 26), (256, 18, 26)]
 
 MAIN_SEED = 0
 
@@ -94,6 +129,60 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
+def graph_ms(fn, reps: int = GRAPH_REPS, replays: int = 4) -> float:
+    """Device time per call of fn(): CUDA events around replays of a CUDA
+    graph that holds `reps` calls. The host's dispatch is left out, so for a
+    small kernel this times the kernel and not the wrapper that launches it."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / (replays * reps)
+    del graph
+    return ms
+
+
+def phase_latency_probe(card: str) -> dict:
+    """One dependent load that hits in L2, in ns: a single thread chases a
+    random cycle through 4 MB (one int per 128-byte line), loads bypassing L1.
+    And the floor of a launch: the same kernel with no loads, timed in a
+    CUDA graph as the descent is."""
+    steps = 20000
+    lib = _build.load("latency_probe")
+    fn = lib.latency_probe_launch
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    stride, lines = 32, (4 << 20) // 128
+    order = np.random.default_rng(0).permutation(lines)
+    nxt = np.zeros(lines * stride, np.int32)
+    nxt[order * stride] = np.roll(order, -1) * stride
+    nxt = torch.from_numpy(nxt).cuda()
+    out = torch.empty(1, dtype=torch.int32, device="cuda")
+
+    def run(n):
+        rc = fn(nxt.data_ptr(), n, out.data_ptr(), torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"latency probe launch failed with CUDA error {rc}")
+
+    run(lines)  # brings the buffer into L2
+    ms = cuda_ms(lambda: run(steps), reps=3, warmup=1)
+    rec = dict(phase="latency_probe", l2_dependent_load_ns=ms * 1e6 / steps,
+               empty_launch_ms=graph_ms(lambda: run(0)), card=card)
+    emit(rec)
+    return rec
+
+
 def randomize_heads(model, seed: int) -> None:
     """Draw every head's last layer (zero at init, which would make each
     search a tie) from a seeded generator."""
@@ -114,24 +203,47 @@ def phase_card() -> str:
     return out
 
 
-def phase_build() -> dict:
+def phase_build(compare_source) -> dict:
+    """Every source at once, one nvcc each."""
+    sources = {"fused_traverse": None, "latency_probe": None}
+    if compare_source:
+        sources["fused_traverse_compared"] = os.path.abspath(compare_source)
     t0 = time.perf_counter()
-    path = _build.compile_library("fused_traverse")
+    with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
+        paths = dict(zip(sources, pool.map(_build.compile_library, sources, sources.values())))
     _build.load("fused_traverse")
+    _build.load("latency_probe")
     seconds = time.perf_counter() - t0
-    log_path = path[: -len(".so")] + ".log"
-    log = open(log_path).read() if os.path.exists(log_path) else ""
+    output = {}
+    for name, path in paths.items():
+        log_path = path[: -len(".so")] + ".log"
+        log = open(log_path).read() if os.path.exists(log_path) else ""
+        output[name] = [line for line in log.splitlines()
+                        if "registers" in line or "spill" in line]
     rec = dict(phase="build", seconds=seconds, nvcc_seconds=_build.build_seconds,
-               library=os.path.relpath(path), compiler_output=log.strip().splitlines()[-6:])
+               libraries={k: os.path.relpath(v) for k, v in paths.items()},
+               compiler_output=output)
     emit(rec)
-    return rec
+    return dict(rec, paths=paths)
 
 
-def traverse_case(B: int, A: int, N: int, first: bool, seed: int) -> dict:
-    """The kernel and its plain version on the card on the same inputs."""
-    d = check_inputs(np.random.default_rng(seed), B, A, N, with_noise=not first)
-    args = [None if d[k] is None else torch.from_numpy(d[k]).cuda()
-            for k in ("packed", "vmin", "vmax", "root_stats", "noise_u")]
+def compared_library(path: str) -> ctypes.CDLL:
+    """Another build of fused_traverse.cu, with the wrapper's C interface."""
+    lib = ctypes.CDLL(path)
+    lib.fused_traverse_launch.argtypes = fused_traverse_module._ARGTYPES
+    lib.fused_traverse_launch.restype = ctypes.c_int
+    return lib
+
+
+def traverse_case(B: int, A: int, N: int, first: bool, l2_ns: float, seed: int = 0,
+                  inputs=None, label: str = "synthetic", compared=None) -> dict:
+    """The kernel and its plain version on the card on the same inputs:
+    check_inputs' random trees from `seed`, or `inputs` (tensors on the card)."""
+    if inputs is None:
+        d = check_inputs(np.random.default_rng(seed), B, A, N, with_noise=not first)
+        inputs = [None if d[k] is None else torch.from_numpy(d[k]).cuda()
+                  for k in ("packed", "vmin", "vmax", "root_stats", "noise_u")]
+    args = inputs
     kw = dict(A=A, N=N, max_depth=N + 1, discount=0.997, pb_c_base=19652.0, pb_c_init=1.25,
               value_delta_max=0.01, tie_break_first=first, tie_break_epsilon=1e-6)
     got = fused_traverse(*args, **kw)
@@ -144,42 +256,149 @@ def traverse_case(B: int, A: int, N: int, first: bool, seed: int) -> dict:
         for g, e in zip(got[3:], exp[3:])
     )
     max_abs_err = max(float((g - e).abs().max()) for g, e in zip(got, exp))
-    ms = cuda_ms(lambda: fused_traverse(*args, **kw), reps=200)
+    ms = graph_ms(lambda: fused_traverse(*args, **kw))
+    # launch to launch through the Python wrapper, host dispatch included: at a
+    # small batch this is the wrapper's host time
+    wrapper_ms = cuda_ms(lambda: fused_traverse(*args, **kw), reps=200)
     plain_ms = cuda_ms(lambda: fused_traverse_reference(*args, **kw), reps=3, warmup=1)
 
     # the least the card could take: the rows each descent visits (depth+1
     # distinct rows), the per-tree inputs and noise rows it reads, its outputs
     D = N + 1
     depth = exp[0][:, 3].double()
+    deepest = int(depth.max())
     C = 7 * A + 2
     bytes_moved = 4 * (
         float((depth + 1).sum()) * C + B * (1 + 1 + 4)
         + (0 if first else (D - 1) * B * A) + B * (8 + 5 * D)
     )
-    ops = (D - 1) * B * (OPS_PER_LEVEL + OPS_PER_ACTION[first] * A)
+    # what these trees need: depth+1 levels and the scoring of the stop row
+    ops = float((depth + 2).sum()) * (OPS_PER_LEVEL + OPS_PER_ACTION[first] * A)
     bound_s = max(bytes_moved / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S)
     rec = dict(
-        phase="kernel_vs_plain", kernel="fused_traverse", B=B, A=A, N=N,
-        tie_break="first" if first else "noise", mismatches=mismatches,
-        max_abs_err=max_abs_err, ms=ms, plain_ms=plain_ms, bound_ms=bound_s * 1e3,
+        phase="kernel_vs_plain", kernel="fused_traverse", tables=label, B=B, A=A, N=N,
+        tie_break="first" if first else "noise", route=kernel_route(A), mismatches=mismatches,
+        max_abs_err=max_abs_err, ms=ms, wrapper_ms=wrapper_ms, plain_ms=plain_ms,
+        bound_ms=bound_s * 1e3,
         bound_by="bytes" if bytes_moved / HBM_BYTES_PER_S >= ops / FP32_OPS_PER_S else "operations",
-        bytes=bytes_moved, ops=ops, max_depth_reached=int(depth.max()),
+        bytes=bytes_moved, ops=ops, max_depth_reached=deepest,
+        mean_depth=float(depth.mean()), us_per_level=ms * 1e3 / (deepest + 1),
+        # a latency figure, not a bound: the deepest tree's chain of
+        # dependent row reads at one L2 round trip each
+        latency_ms=(deepest + 1) * l2_ns * 1e-6,
     )
+    if compared is not None:
+        own = fused_traverse_module._library
+        times = {}
+        for which in ("old", "new", "new", "old"):
+            fused_traverse_module._library = (lambda: compared) if which == "old" else own
+            try:
+                times.setdefault(which, []).append(graph_ms(lambda: fused_traverse(*args, **kw)))
+            finally:
+                fused_traverse_module._library = own
+        rec["compared_ms"] = times["old"]
+        rec["current_ms"] = times["new"]
     emit(rec)
     return rec
 
 
-def phase_kernel_vs_plain() -> list:
+def phase_kernel_vs_plain(l2_ns: float, compared) -> list:
     cases = []
-    # (B, A, N): the CartPole eval (3 envs, 25 sims), the CartPole batch of
-    # 8, and bench.py's shape (B=1024, A=4, 50 sims)
-    for i, (B, A, N) in enumerate([(3, 2, 26), (8, 2, 26), (1024, 4, 51)]):
+    for i, (B, A, N) in enumerate(SYNTHETIC_SHAPES):
         for first in (False, True):
-            cases.append(traverse_case(B, A, N, first, seed=100 + i))
+            cases.append(traverse_case(B, A, N, first, l2_ns, seed=SYNTHETIC_SEED + i,
+                                       compared=compared))
+    # one shape on each route, with values at the edges of float32
+    for i, (B, A, N) in enumerate(EDGE_SHAPES):
+        for first in (False, True):
+            cases.append(traverse_case(B, A, N, first, l2_ns, label="edge values",
+                                       inputs=edge_inputs(B, A, N, first, seed=200 + i),
+                                       compared=compared))
+    check_cases(cases)
+    return cases
+
+
+def phase_captured(captures: dict, l2_ns: float, compared) -> list:
+    """Phase 3 on the descent's inputs from the bench search, under both
+    tie-breaks (the 'noise' uniforms drawn from a seed)."""
+    cases = []
+    for sim, (inputs, (B, A, N)) in sorted(captures.items()):
+        noise = torch.from_numpy(
+            np.random.default_rng(sim).random((N + 1, B, A)).astype(np.float32)).cuda()
+        for first in (False, True):
+            args = list(inputs[:4]) + [None if first else noise]
+            cases.append(traverse_case(B, A, N, first, l2_ns, inputs=args,
+                                       label=f"bench search, simulation {sim}",
+                                       compared=compared))
+    check_cases(cases)
+    return cases
+
+
+def edge_inputs(B: int, A: int, N: int, first: bool, seed: int) -> list:
+    """check_inputs' trees with values at the edges of float32: zero and
+    negative-zero value sums, quotients far beyond 2^60, visit counts near
+    the denormals, zero rewards and a value bound near 1e30. They send the
+    kernel's fast division to its exact fallback."""
+    rng = np.random.default_rng(seed)
+    d = check_inputs(rng, B, A, N, with_noise=not first)
+    pk = d["packed"]
+    vsum = pk[:, :, 4 * A:5 * A]
+    m = rng.random(vsum.shape)
+    vsum[m < 0.1] = 0.0
+    vsum[(m >= 0.1) & (m < 0.2)] = -0.0
+    q = B // 8
+    pk[q:2 * q, :, 4 * A:5 * A] *= np.float32(1e32)
+    pk[2 * q:3 * q, :, 3 * A:4 * A] *= np.float32(1e-38)
+    pk[3 * q:4 * q, :, 5 * A:6 * A] = 0.0
+    d["vmin"][4 * q:5 * q] = 1e30
+    d["vmax"][4 * q:5 * q] = 3e30
+    return [None if d[k] is None else torch.from_numpy(d[k]).cuda()
+            for k in ("packed", "vmin", "vmax", "root_stats", "noise_u")]
+
+
+def phase_division_check(card: str, n: int = 1 << 22) -> dict:
+    """The kernel's branch-free division against '/' on the card: random
+    operands over the whole float32 range, zeros and special values. Where
+    the fast path takes a pair as exact the two must agree bit for bit."""
+    rng = np.random.default_rng(5)
+
+    def operands():
+        mant = rng.random(n).astype(np.float32) + np.float32(1.0)
+        x = np.ldexp(mant, rng.integers(-140, 127, n)).astype(np.float32)
+        x[rng.random(n) < 0.5] *= -1
+        special = rng.random(n)
+        x[special < 0.01] = 0.0
+        x[(special >= 0.01) & (special < 0.02)] = -0.0
+        x[(special >= 0.02) & (special < 0.025)] = np.inf
+        x[(special >= 0.025) & (special < 0.03)] = np.nan
+        return torch.from_numpy(x).cuda()
+
+    a, b = operands(), operands()
+    fast = torch.empty_like(a)
+    exact = torch.empty_like(a)
+    in_range = torch.empty(n, dtype=torch.int32, device="cuda")
+    fn = _build.load("fused_traverse").fused_traverse_check_div
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    rc = fn(a.data_ptr(), b.data_ptr(), fast.data_ptr(), exact.data_ptr(),
+            in_range.data_ptr(), n, torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"division check launch failed with CUDA error {rc}")
+    torch.cuda.synchronize()
+    taken = in_range.bool()
+    differ = (fast.view(torch.int32) != exact.view(torch.int32)) & taken
+    rec = dict(phase="division_check", pairs=n, taken_as_exact=int(taken.sum()),
+               mismatches=int(differ.sum()), card=card)
+    emit(rec)
+    if rec["mismatches"]:
+        raise AssertionError(f"the kernel's fast division differs from '/': {rec}")
+    return rec
+
+
+def check_cases(cases: list) -> None:
     bad = [c for c in cases if c["mismatches"]]
     if bad:
         raise AssertionError(f"fused_traverse disagrees with its plain version: {bad}")
-    return cases
 
 
 def phase_main_path(card: str) -> dict:
@@ -228,27 +447,72 @@ def phase_main_path(card: str) -> dict:
     return rec
 
 
-def phase_bench_shape(card: str) -> dict:
+def device_busy(prof) -> dict:
+    """Device time from a profiler trace: the union of the intervals of all
+    device activity, the descent kernel's own time and count, and the device
+    time by kernel name."""
+    spans, kernel_us, kernel_n, by_name = [], 0.0, 0, {}
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        spans.append((e.time_range.start, e.time_range.end))
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+        if "fused_traverse_kernel" in e.name:
+            kernel_us += e.time_range.elapsed_us()
+            kernel_n += 1
+    busy_us, reach = 0.0, -math.inf
+    for start, end in sorted(spans):
+        if end > reach:
+            busy_us += end - max(start, reach)
+            reach = end
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    return dict(device_events=len(spans), busy_us=busy_us, kernel_us=kernel_us,
+                kernel_launches=kernel_n, top=[(name[:80], us) for name, us in top])
+
+
+def phase_bench_shape(card: str) -> tuple:
     cfg = MuZeroPolicy.default_config()
     cfg.model.observation_shape = 8
     cfg.model.action_space_size = 4
     cfg.model.latent_state_dim = 128
     cfg.model.support_scale = 300
     cfg.num_simulations = 50
+    sims = cfg.num_simulations
     policy = MuZeroPolicy(cfg, device="cuda", seed=MAIN_SEED)
     randomize_heads(policy.model, MAIN_SEED + 2)
     policy.search_cfg = dataclasses.replace(policy.search_cfg, tie_break="first")
-    B = 1024
+    B, A = 1024, 4
     obs = torch.from_numpy(
         np.random.default_rng(MAIN_SEED).standard_normal((B, 8)).astype(np.float32)).cuda()
-    legal = torch.ones((B, 4), dtype=torch.bool, device="cuda")
+    legal = torch.ones((B, A), dtype=torch.bool, device="cuda")
 
-    policy.forward_eval(obs, legal)  # warm-up: cuBLAS handles, caching allocator
+    # warm-up (cuBLAS handles, caching allocator), keeping the descent's
+    # inputs of some simulations
+    captures = {}
+
+    def capturing(packed, vmin, vmax, root_stats, noise_u, **kw):
+        sim = len(calls) + 1
+        calls.append(sim)
+        if sim in CAPTURED_SIMS:
+            captures[sim] = ([x.clone() for x in (packed, vmin, vmax, root_stats)],
+                             (packed.shape[0], kw["A"], kw["N"]))
+        return fused_traverse(packed, vmin, vmax, root_stats, noise_u, **kw)
+
+    calls = []
+    puct.fused_traverse = capturing
+    try:
+        policy.forward_eval(obs, legal)
+    finally:
+        puct.fused_traverse = fused_traverse
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    with_kernel = policy.forward_eval(obs, legal)
-    torch.cuda.synchronize()
-    kernel_s = time.perf_counter() - t0
+
+    walls = []
+    for _ in range(BENCH_SEARCHES):
+        t0 = time.perf_counter()
+        with_kernel = policy.forward_eval(obs, legal)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    kernel_s = float(np.median(walls))
 
     puct.fused_traverse = fused_traverse_reference
     try:
@@ -259,18 +523,45 @@ def phase_bench_shape(card: str) -> dict:
     finally:
         puct.fused_traverse = fused_traverse
     equal = torch.equal(with_kernel["visit_counts"], plain["visit_counts"])
-    rec = dict(phase="bench_shape", B=B, A=4, num_simulations=50,
-               search_s_kernel=kernel_s, search_s_plain=plain_s,
-               sims_per_s_kernel=B * 50 / kernel_s, sims_per_s_plain=B * 50 / plain_s,
-               visit_counts_equal=equal, card=card)
+
+    # one more search under the profiler: where the device time goes
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        policy.forward_eval(obs, legal)
+        torch.cuda.synchronize()
+        profiled_s = time.perf_counter() - t0
+    busy = device_busy(prof)
+    measured = busy["device_events"] > 0
+    rec = dict(phase="bench_shape", B=B, A=A, num_simulations=sims,
+               search_s_kernel=kernel_s, search_s_kernel_all=walls, search_s_plain=plain_s,
+               sims_per_s_kernel=B * sims / kernel_s, sims_per_s_plain=B * sims / plain_s,
+               visit_counts_equal=equal,
+               profiled_search_s=profiled_s, profiler_device_events=busy["device_events"],
+               device_busy_ms=busy["busy_us"] / 1e3 if measured else None,
+               # busy share of the profiled search's wall, and of the median
+               # unprofiled wall (the profiler slows the host, not the device)
+               busy_share_profiled=busy["busy_us"] / 1e6 / profiled_s if measured else None,
+               busy_share=busy["busy_us"] / 1e6 / kernel_s if measured else None,
+               kernel_us_per_sim=busy["kernel_us"] / sims if measured else None,
+               kernel_launches_profiled=busy["kernel_launches"],
+               # device time per simulation of the kernels that take the most
+               top_device_us_per_sim=[(name, us / sims) for name, us in busy["top"]],
+               card=card)
     emit(rec)
     if not equal:
         diff = (with_kernel["visit_counts"] != plain["visit_counts"]).any(dim=1).sum().item()
         raise AssertionError(f"kernel and plain searches differ in {diff} of {B} trees")
-    return rec
+    if sorted(captures) != list(CAPTURED_SIMS):
+        raise AssertionError(f"captured simulations {sorted(captures)}, expected {CAPTURED_SIMS}")
+    return rec, captures
 
 
 def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--compare-source", metavar="OLD.cu",
+                        help="also time this version of csrc/fused_traverse.cu on phase 3's cases")
+    args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs on a GPU", file=sys.stderr)
         return 2
@@ -283,10 +574,15 @@ def main() -> int:
     t_start = time.perf_counter()
 
     card = phase_card()
-    build = phase_build()
-    cases = phase_kernel_vs_plain()
+    build = phase_build(args.compare_source)
+    compared = (compared_library(build["paths"]["fused_traverse_compared"])
+                if args.compare_source else None)
+    l2_ns = phase_latency_probe(card)["l2_dependent_load_ns"]
+    phase_division_check(card)
+    cases = phase_kernel_vs_plain(l2_ns, compared)
     main_rec = phase_main_path(card)
-    bench = phase_bench_shape(card)
+    bench, captures = phase_bench_shape(card)
+    cases += phase_captured(captures, l2_ns, compared)
 
     main_case = next(c for c in cases if (c["B"], c["A"], c["N"], c["tie_break"]) == (3, 2, 26, "noise"))
     kernels = [dict(

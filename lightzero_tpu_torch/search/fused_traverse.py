@@ -171,6 +171,17 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
+def kernel_route(A: int) -> str:
+    """The route the kernel takes for A actions, fixed at launch by A:
+    'prefetch' (the rows of a node's children are copied on chip while the
+    node is scored) or 'row read' (the next row is read after the pick).
+    Builds the kernel if it is not built yet."""
+    fn = _library().fused_traverse_route
+    fn.argtypes = [ctypes.c_int]
+    fn.restype = ctypes.c_int
+    return "prefetch" if fn(A) else "row read"
+
+
 def _check(name: str, x: torch.Tensor, shape: Tuple[int, ...], device: torch.device):
     if x.device != device:
         raise ValueError(f"{name} is on {x.device}, expected {device}")

@@ -7,12 +7,16 @@ actions, terminal children, exact score ties and deep chains.
 
 Path, action, depth, leaf, parent and the leaf flag must be exactly equal;
 the recorded stats allclose to 1e-6 (they are copies, so in practice equal).
-The CUDA kernel is held against the plain version on the card by
-chip_smoke.py (it cannot run here: no nvcc, no GPU)."""
+The shapes include A values the CUDA kernel's lane mapping has to handle
+(one action a lane, A=18, and more actions than lanes, A=37). The CUDA
+kernel is held against the plain version on the card by chip_smoke.py
+(it cannot run here: no nvcc, no GPU)."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+
+import chip_smoke
 
 from lightzero_tpu.search.pallas_traverse import pallas_traverse
 from lightzero_tpu_torch.search.fused_traverse import (
@@ -23,7 +27,9 @@ from lightzero_tpu_torch.search.fused_traverse import (
 
 pytestmark = pytest.mark.unittest
 
-SHAPES = [(8, 2, 26), (6, 4, 13), (4, 5, 9)]  # (B, A, N): CartPole, bench-like A, odd A
+# (B, A, N): CartPole, bench-like A, odd A, the Atari action set, more
+# actions than a warp has lanes
+SHAPES = [(8, 2, 26), (6, 4, 13), (4, 5, 9), (4, 18, 20), (3, 37, 12)]
 
 
 def _kwargs(A, N, first):
@@ -68,6 +74,27 @@ def test_tables_exercise_terminal_stops_and_ties():
     assert out_first[0][:, 4].sum() > 0, "no descent stopped at a terminal child"
     # exact ties among unvisited children are decided by the noise table
     assert not torch.equal(out_first[0][:, 2], out_noise[0][:, 2])
+
+
+@pytest.mark.parametrize("case", [i for i, (B, _, _) in enumerate(chip_smoke.SYNTHETIC_SHAPES)
+                                  if B >= 64])
+def test_phase3_noise_tables_vary_after_the_stop(case):
+    """Under 'noise', the columns after a tree stops take their actions from
+    each column's own noise_u row. chip_smoke.py's phase-3 tables must hold
+    trees whose columns after the stop carry different actions, so that a
+    kernel whose tail fill ignored noise_u[t] would disagree on the card."""
+    B, A, N = chip_smoke.SYNTHETIC_SHAPES[case]
+    d = check_inputs(np.random.default_rng(chip_smoke.SYNTHETIC_SEED + case), B, A, N,
+                     with_noise=True)
+    scal, _, paction, *_ = fused_traverse_reference(*_torch_inputs(d), **_kwargs(A, N, False))
+    # the last active column is t_stop + 1: depth counts the moves, and a
+    # stop on a terminal child moved into it
+    t_stop = (scal[:, 3] - scal[:, 4]).long()
+    col = torch.arange(N + 1)[None, :]
+    tail = col >= t_stop[:, None] + 2
+    lo = torch.where(tail, paction, torch.inf).amin(dim=1)
+    hi = torch.where(tail, paction, -torch.inf).amax(dim=1)
+    assert int((hi > lo).sum()) > 0, "no tree's tail columns carry different actions"
 
 
 def test_wrapper_takes_plain_version_for_cpu_tensors():

@@ -117,6 +117,12 @@ def test_loader_raises_when_nvcc_is_absent(no_nvcc):
     assert not (no_nvcc / "build").exists()
 
 
+def test_kernel_route_raises_when_nvcc_is_absent(no_nvcc):
+    # the route is the built kernel's answer; nothing guesses it without one
+    with pytest.raises(_build.BuildError, match="nvcc not found"):
+        fused_traverse_module.kernel_route(4)
+
+
 def test_loader_raises_with_the_compiler_output_when_nvcc_fails(no_nvcc):
     bindir = no_nvcc / "empty"
     bindir.mkdir()
