@@ -7,12 +7,14 @@ Phases, each of a fixed size, in one process:
   1. card: the GPU's name and power limit (nvidia-smi);
   2. build: nvcc compiles every kernel of the port into lightzero_tpu_torch/_build/;
   3. kernel vs plain: the descent kernel's branch-free division against '/'
-     on 4M operand pairs; each kernel against its plain PyTorch version on
+     on 4M random operand pairs and 4M pairs whose quotient lies next to a
+     rounding midpoint; each kernel against its plain PyTorch version on
      the card, on numpy-seeded inputs at the shapes the main path gives it,
      at the Atari action count (A=18), with more actions than a warp has
      lanes (A=37), and with values at the edges of float32; each kernel's
      device time from the replay of a CUDA graph of launches (the wrapper's
-     host time left out), its time per depth level, and a latency figure:
+     host time left out) and its time launch to launch through the wrapper
+     (host time included), its time per depth level, and a latency figure:
      (deepest descent + 1) x one dependent L2 load, timed with
      csrc/latency_probe.cu, which also gives the floor of one launch;
   4. the main path: the Evaluator plays CartPole with the CartPole MuZero config
@@ -27,12 +29,6 @@ Phases, each of a fixed size, in one process:
      search keeps the descent's inputs of simulations 1, 25 and 50, and
      phase 3 is run once more on those tables.
 
-    python3 chip_smoke.py --compare-source OLD.cu
-
-also builds OLD.cu (another version of csrc/fused_traverse.cu with the same
-C interface, e.g. from an unpacked parent commit) and times it against the
-current kernel on every phase-3 case, in turns old, new, new, old.
-
 The last lines are the card's name and power limit, one JSON object with a
 record per kernel, and {"ok": true, "device": {...}}; that last line is printed
 only when every phase passed. Without a CUDA device the script exits non-zero
@@ -40,7 +36,6 @@ and prints no result. A watchdog ends a run that has not finished in 290 s.
 """
 from __future__ import annotations
 
-import argparse
 import concurrent.futures
 import copy
 import ctypes
@@ -62,9 +57,10 @@ from lightzero_tpu_torch.configs.cartpole_muzero import main_config
 from lightzero_tpu_torch.envs import CartPoleEnv
 from lightzero_tpu_torch.models.common import lecun_normal_
 from lightzero_tpu_torch.policy import MuZeroPolicy
-from lightzero_tpu_torch.search import fused_traverse as fused_traverse_module
 from lightzero_tpu_torch.search import puct
 from lightzero_tpu_torch.search.fused_traverse import (
+    SYNTHETIC_SEED,
+    SYNTHETIC_SHAPES,
     check_inputs,
     fused_traverse,
     fused_traverse_reference,
@@ -93,12 +89,6 @@ GRAPH_REPS = 50
 BENCH_SEARCHES = 5
 # simulations of the bench search whose descent inputs phase 3 reruns
 CAPTURED_SIMS = (1, 25, 50)
-# phase 3's (B, A, N) on check_inputs' trees, case i from seed
-# SYNTHETIC_SEED + i: the CartPole eval (3 envs, 25 sims), the CartPole
-# batch of 8, bench.py's shape (B=1024, A=4, 50 sims), the Atari action set
-# at the bench batch, and more actions than a warp has lanes
-SYNTHETIC_SHAPES = [(3, 2, 26), (8, 2, 26), (1024, 4, 51), (1024, 18, 51), (64, 37, 26)]
-SYNTHETIC_SEED = 100
 EDGE_SHAPES = [(256, 4, 26), (256, 18, 26)]
 
 MAIN_SEED = 0
@@ -203,16 +193,14 @@ def phase_card() -> str:
     return out
 
 
-def phase_build(compare_source) -> dict:
+def phase_build() -> dict:
     """Every source at once, one nvcc each."""
-    sources = {"fused_traverse": None, "latency_probe": None}
-    if compare_source:
-        sources["fused_traverse_compared"] = os.path.abspath(compare_source)
+    sources = ["fused_traverse", "latency_probe"]
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
-        paths = dict(zip(sources, pool.map(_build.compile_library, sources, sources.values())))
-    _build.load("fused_traverse")
-    _build.load("latency_probe")
+        paths = dict(zip(sources, pool.map(_build.compile_library, sources)))
+    for name in sources:
+        _build.load(name)
     seconds = time.perf_counter() - t0
     output = {}
     for name, path in paths.items():
@@ -224,19 +212,11 @@ def phase_build(compare_source) -> dict:
                libraries={k: os.path.relpath(v) for k, v in paths.items()},
                compiler_output=output)
     emit(rec)
-    return dict(rec, paths=paths)
-
-
-def compared_library(path: str) -> ctypes.CDLL:
-    """Another build of fused_traverse.cu, with the wrapper's C interface."""
-    lib = ctypes.CDLL(path)
-    lib.fused_traverse_launch.argtypes = fused_traverse_module._ARGTYPES
-    lib.fused_traverse_launch.restype = ctypes.c_int
-    return lib
+    return rec
 
 
 def traverse_case(B: int, A: int, N: int, first: bool, l2_ns: float, seed: int = 0,
-                  inputs=None, label: str = "synthetic", compared=None) -> dict:
+                  inputs=None, label: str = "synthetic") -> dict:
     """The kernel and its plain version on the card on the same inputs:
     check_inputs' random trees from `seed`, or `inputs` (tensors on the card)."""
     if inputs is None:
@@ -287,38 +267,25 @@ def traverse_case(B: int, A: int, N: int, first: bool, l2_ns: float, seed: int =
         # dependent row reads at one L2 round trip each
         latency_ms=(deepest + 1) * l2_ns * 1e-6,
     )
-    if compared is not None:
-        own = fused_traverse_module._library
-        times = {}
-        for which in ("old", "new", "new", "old"):
-            fused_traverse_module._library = (lambda: compared) if which == "old" else own
-            try:
-                times.setdefault(which, []).append(graph_ms(lambda: fused_traverse(*args, **kw)))
-            finally:
-                fused_traverse_module._library = own
-        rec["compared_ms"] = times["old"]
-        rec["current_ms"] = times["new"]
     emit(rec)
     return rec
 
 
-def phase_kernel_vs_plain(l2_ns: float, compared) -> list:
+def phase_kernel_vs_plain(l2_ns: float) -> list:
     cases = []
     for i, (B, A, N) in enumerate(SYNTHETIC_SHAPES):
         for first in (False, True):
-            cases.append(traverse_case(B, A, N, first, l2_ns, seed=SYNTHETIC_SEED + i,
-                                       compared=compared))
+            cases.append(traverse_case(B, A, N, first, l2_ns, seed=SYNTHETIC_SEED + i))
     # one shape on each route, with values at the edges of float32
     for i, (B, A, N) in enumerate(EDGE_SHAPES):
         for first in (False, True):
             cases.append(traverse_case(B, A, N, first, l2_ns, label="edge values",
-                                       inputs=edge_inputs(B, A, N, first, seed=200 + i),
-                                       compared=compared))
+                                       inputs=edge_inputs(B, A, N, first, seed=200 + i)))
     check_cases(cases)
     return cases
 
 
-def phase_captured(captures: dict, l2_ns: float, compared) -> list:
+def phase_captured(captures: dict, l2_ns: float) -> list:
     """Phase 3 on the descent's inputs from the bench search, under both
     tie-breaks (the 'noise' uniforms drawn from a seed)."""
     cases = []
@@ -328,8 +295,7 @@ def phase_captured(captures: dict, l2_ns: float, compared) -> list:
         for first in (False, True):
             args = list(inputs[:4]) + [None if first else noise]
             cases.append(traverse_case(B, A, N, first, l2_ns, inputs=args,
-                                       label=f"bench search, simulation {sim}",
-                                       compared=compared))
+                                       label=f"bench search, simulation {sim}"))
     check_cases(cases)
     return cases
 
@@ -356,24 +322,53 @@ def edge_inputs(B: int, A: int, N: int, first: bool, seed: int) -> list:
             for k in ("packed", "vmin", "vmax", "root_stats", "noise_u")]
 
 
-def phase_division_check(card: str, n: int = 1 << 22) -> dict:
-    """The kernel's branch-free division against '/' on the card: random
-    operands over the whole float32 range, zeros and special values. Where
-    the fast path takes a pair as exact the two must agree bit for bit."""
-    rng = np.random.default_rng(5)
+def midpoint_operands(rng, n: int) -> tuple:
+    """n operand pairs whose quotient lies as close to a rounding midpoint
+    as two 24-bit significands allow: A / B = M / 2^k - s / (B 2^k) with M
+    odd, s = +-1, so M / 2^k is a midpoint of the quotient's binade, [1, 2)
+    for k = 24 and [1/2, 1) for k = 25. Scaled to random exponents within
+    2^+-60 and random signs, where the fast division takes every pair."""
+    m = 4 * n
+    B = 2 * rng.integers(1 << 22, 1 << 23, m, dtype=np.int64) + 1  # odd, in [2^23, 2^24)
+    s = rng.choice(np.array([-1, 1], np.int64), m)
+    k = np.where(rng.random(m) < 0.5, 24, 25).astype(np.int64)
+    mod = np.left_shift(np.int64(1), k)
+    inv = B.copy()  # B^-1 mod 2^k by Newton's iteration: 3, 6, 12, 24, 48 bits
+    for _ in range(5):
+        inv = inv * ((2 - B * inv) % mod) % mod
+    M = (s * inv) % mod
+    M = np.where(k == 24, M + mod, M)
+    A = (M * B - s) >> k
+    keep = np.flatnonzero((A >= 1 << 23) & (A < 1 << 24))[:n]
+    if keep.size < n:
+        raise AssertionError(f"only {keep.size} of {n} midpoint pairs drawn")
 
-    def operands():
-        mant = rng.random(n).astype(np.float32) + np.float32(1.0)
-        x = np.ldexp(mant, rng.integers(-140, 127, n)).astype(np.float32)
-        x[rng.random(n) < 0.5] *= -1
-        special = rng.random(n)
-        x[special < 0.01] = 0.0
-        x[(special >= 0.01) & (special < 0.02)] = -0.0
-        x[(special >= 0.02) & (special < 0.025)] = np.inf
-        x[(special >= 0.025) & (special < 0.03)] = np.nan
-        return torch.from_numpy(x).cuda()
+    def scaled(x):
+        e = rng.integers(-60, 60, n)
+        sign = np.where(rng.random(n) < 0.5, -1.0, 1.0)
+        return (sign * np.ldexp(x[keep].astype(np.float64), e - 23)).astype(np.float32)
 
-    a, b = operands(), operands()
+    return scaled(A), scaled(B)
+
+
+def random_operands(rng, n: int) -> np.ndarray:
+    """Operands over the whole float32 range, with zeros and special values."""
+    mant = rng.random(n).astype(np.float32) + np.float32(1.0)
+    x = np.ldexp(mant, rng.integers(-140, 127, n)).astype(np.float32)
+    x[rng.random(n) < 0.5] *= -1
+    special = rng.random(n)
+    x[special < 0.01] = 0.0
+    x[(special >= 0.01) & (special < 0.02)] = -0.0
+    x[(special >= 0.02) & (special < 0.025)] = np.inf
+    x[(special >= 0.025) & (special < 0.03)] = np.nan
+    return x
+
+
+def fast_division(a: np.ndarray, b: np.ndarray) -> tuple:
+    """The kernel's fast division and '/' on the card: (fast, exact, taken
+    as exact) as numpy arrays."""
+    n = a.size
+    a, b = torch.from_numpy(a).cuda(), torch.from_numpy(b).cuda()
     fast = torch.empty_like(a)
     exact = torch.empty_like(a)
     in_range = torch.empty(n, dtype=torch.int32, device="cuda")
@@ -385,12 +380,29 @@ def phase_division_check(card: str, n: int = 1 << 22) -> dict:
     if rc != 0:
         raise RuntimeError(f"division check launch failed with CUDA error {rc}")
     torch.cuda.synchronize()
-    taken = in_range.bool()
-    differ = (fast.view(torch.int32) != exact.view(torch.int32)) & taken
+    return fast.cpu().numpy(), exact.cpu().numpy(), in_range.cpu().numpy().astype(bool)
+
+
+def phase_division_check(card: str, n: int = 1 << 22) -> dict:
+    """The kernel's branch-free division against '/' on the card: random
+    operands over the whole float32 range, zeros and special values, where
+    the two must agree bit for bit wherever the fast path takes a pair as
+    exact; and quotients next to a rounding midpoint, which the fast path
+    must take and round as '/' and numpy do."""
+    rng = np.random.default_rng(5)
+    bits = lambda x: x.view(np.int32)  # noqa: E731
+    fast, exact, taken = fast_division(random_operands(rng, n), random_operands(rng, n))
+    a, b = midpoint_operands(rng, n)
+    mfast, mexact, mtaken = fast_division(a, b)
     rec = dict(phase="division_check", pairs=n, taken_as_exact=int(taken.sum()),
-               mismatches=int(differ.sum()), card=card)
+               mismatches=int(((bits(fast) != bits(exact)) & taken).sum()),
+               midpoint_pairs=n, midpoint_taken_as_exact=int(mtaken.sum()),
+               midpoint_mismatches=int((bits(mfast) != bits(mexact)).sum()),
+               midpoint_mismatches_numpy=int((bits(mfast) != bits(a / b)).sum()),
+               card=card)
     emit(rec)
-    if rec["mismatches"]:
+    if (rec["mismatches"] or rec["midpoint_mismatches"] or rec["midpoint_mismatches_numpy"]
+            or rec["midpoint_taken_as_exact"] != n):
         raise AssertionError(f"the kernel's fast division differs from '/': {rec}")
     return rec
 
@@ -558,10 +570,6 @@ def phase_bench_shape(card: str) -> tuple:
 
 
 def main() -> int:
-    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--compare-source", metavar="OLD.cu",
-                        help="also time this version of csrc/fused_traverse.cu on phase 3's cases")
-    args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs on a GPU", file=sys.stderr)
         return 2
@@ -574,15 +582,13 @@ def main() -> int:
     t_start = time.perf_counter()
 
     card = phase_card()
-    build = phase_build(args.compare_source)
-    compared = (compared_library(build["paths"]["fused_traverse_compared"])
-                if args.compare_source else None)
+    build = phase_build()
     l2_ns = phase_latency_probe(card)["l2_dependent_load_ns"]
     phase_division_check(card)
-    cases = phase_kernel_vs_plain(l2_ns, compared)
+    cases = phase_kernel_vs_plain(l2_ns)
     main_rec = phase_main_path(card)
     bench, captures = phase_bench_shape(card)
-    cases += phase_captured(captures, l2_ns, compared)
+    cases += phase_captured(captures, l2_ns)
 
     main_case = next(c for c in cases if (c["B"], c["A"], c["N"], c["tie_break"]) == (3, 2, 26, "noise"))
     kernels = [dict(
@@ -593,6 +599,9 @@ def main() -> int:
         launches=main_rec["launches"]["fused_traverse"],
         max_abs_err=max(c["max_abs_err"] for c in cases),
         ms=main_case["ms"],
+        # launch to launch through the wrapper, the host's dispatch included:
+        # what a launch costs the main path at this shape
+        wrapper_ms=main_case["wrapper_ms"],
         plain_ms=main_case["plain_ms"],
         bound_ms=main_case["bound_ms"],
         bound_by=main_case["bound_by"],

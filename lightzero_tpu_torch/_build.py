@@ -18,7 +18,7 @@ import shutil
 import subprocess
 import tempfile
 import time
-from typing import Dict, List, Optional
+from typing import Dict, List
 
 PACKAGE_DIR = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(PACKAGE_DIR, "csrc")
@@ -61,13 +61,12 @@ def find_nvcc() -> str:
     )
 
 
-def compile_library(name: str, src: Optional[str] = None) -> str:
-    """Compile ``csrc/<name>.cu`` (or the source ``src``, built under
-    ``name``) unless its library is already built; return the library's
-    path. The compiler's output is kept beside the library (``.log``):
-    ``-Xptxas=-v`` lists registers, shared memory and spills."""
+def compile_library(name: str) -> str:
+    """Compile ``csrc/<name>.cu`` unless its library is already built; return
+    the library's path. The compiler's output is kept beside the library
+    (``.log``): ``-Xptxas=-v`` lists registers, shared memory and spills."""
     nvcc = find_nvcc()
-    src = src or os.path.join(CSRC_DIR, f"{name}.cu")
+    src = os.path.join(CSRC_DIR, f"{name}.cu")
     with open(src, "rb") as f:
         digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     out = os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")

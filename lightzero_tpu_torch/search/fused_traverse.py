@@ -252,6 +252,14 @@ def fused_traverse(
 
 fused_traverse.launches = 0
 
+# The (B, A, N) of the check_inputs tables that chip_smoke.py holds the kernel
+# against its plain version on, case i from seed SYNTHETIC_SEED + i: the
+# CartPole eval (3 envs, 25 sims), the CartPole batch of 8, bench.py's shape
+# (B=1024, A=4, 50 sims), the Atari action set at the bench batch, and more
+# actions than a warp has lanes.
+SYNTHETIC_SHAPES = [(3, 2, 26), (8, 2, 26), (1024, 4, 51), (1024, 18, 51), (64, 37, 26)]
+SYNTHETIC_SEED = 100
+
 
 def check_inputs(
     rng: np.random.Generator, B: int, A: int, N: int, with_noise: bool

@@ -16,10 +16,10 @@ import numpy as np
 import pytest
 import torch
 
-import chip_smoke
-
 from lightzero_tpu.search.pallas_traverse import pallas_traverse
 from lightzero_tpu_torch.search.fused_traverse import (
+    SYNTHETIC_SEED,
+    SYNTHETIC_SHAPES,
     check_inputs,
     fused_traverse,
     fused_traverse_reference,
@@ -76,16 +76,14 @@ def test_tables_exercise_terminal_stops_and_ties():
     assert not torch.equal(out_first[0][:, 2], out_noise[0][:, 2])
 
 
-@pytest.mark.parametrize("case", [i for i, (B, _, _) in enumerate(chip_smoke.SYNTHETIC_SHAPES)
-                                  if B >= 64])
+@pytest.mark.parametrize("case", [i for i, (B, _, _) in enumerate(SYNTHETIC_SHAPES) if B >= 64])
 def test_phase3_noise_tables_vary_after_the_stop(case):
     """Under 'noise', the columns after a tree stops take their actions from
     each column's own noise_u row. chip_smoke.py's phase-3 tables must hold
     trees whose columns after the stop carry different actions, so that a
     kernel whose tail fill ignored noise_u[t] would disagree on the card."""
-    B, A, N = chip_smoke.SYNTHETIC_SHAPES[case]
-    d = check_inputs(np.random.default_rng(chip_smoke.SYNTHETIC_SEED + case), B, A, N,
-                     with_noise=True)
+    B, A, N = SYNTHETIC_SHAPES[case]
+    d = check_inputs(np.random.default_rng(SYNTHETIC_SEED + case), B, A, N, with_noise=True)
     scal, _, paction, *_ = fused_traverse_reference(*_torch_inputs(d), **_kwargs(A, N, False))
     # the last active column is t_stop + 1: depth counts the moves, and a
     # stop on a terminal child moved into it

@@ -21,6 +21,7 @@ from lightzero_tpu_torch import _build
 from lightzero_tpu_torch.envs import CartPoleEnv
 from lightzero_tpu_torch.policy import MuZeroPolicy
 from lightzero_tpu_torch.search import RootOutput, SearchConfig, batch_puct_search
+from lightzero_tpu_torch.search import check_fast_division
 from lightzero_tpu_torch.search import fused_traverse as fused_traverse_module
 from lightzero_tpu_torch.workers import Evaluator
 
@@ -96,6 +97,11 @@ def test_search_without_device_raises_with_no_cuda(no_cuda):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         batch_puct_search(root, None, SearchConfig(num_simulations=2),
                           torch.ones(2, 3, dtype=torch.bool))
+
+
+def test_division_check_exits_nonzero_with_no_cuda(no_cuda, capsys):
+    assert check_fast_division.main() == 2
+    assert "no CUDA device" in capsys.readouterr().err
 
 
 @pytest.fixture
