@@ -5,7 +5,8 @@
 
 Phases, each of a fixed size, in one process:
   1. card: the GPU's name and power limit (nvidia-smi);
-  2. build: nvcc compiles every kernel of the port into lightzero_tpu_torch/_build/;
+  2. build: nvcc compiles every kernel of the port, and g++ the replay
+     buffer's core, into lightzero_tpu_torch/_build/, all at once;
   3. kernel vs plain: the descent kernel's branch-free division against '/'
      on 4M random operand pairs and 4M pairs whose quotient lies next to a
      rounding midpoint; each kernel against its plain PyTorch version on
@@ -27,7 +28,16 @@ Phases, each of a fixed size, in one process:
      more search under torch.profiler gives the kernel's device time per
      simulation and the device's busy share of the search wall. The warm-up
      search keeps the descent's inputs of simulations 1, 25 and 50, and
-     phase 3 is run once more on those tables.
+     phase 3 is run once more on those tables;
+  6. train: train_muzero on the CartPole MuZero config at full width (batch
+     256, latent 128, projector 1024, 25 simulations, 8 collect envs), exp
+     dir under a temporary directory, for 200 learn steps with evals at
+     iter 0 and 100: finite losses, the target net equal to the online net
+     after the copy at iter 200, descent launches = (collect + eval
+     searches) x 25; one learn step on the card against one on the CPU from
+     the same params and batch; one sample at reanalyze_ratio=0.25 adds 25
+     launches; the median learn-step time over 20 steps (CUDA events), the
+     collect rate, and a torch.profiler pass over 5 learn steps.
 
 The last lines are the card's name and power limit, one JSON object with a
 record per kernel, and {"ok": true, "device": {...}}; that last line is printed
@@ -47,6 +57,7 @@ import os
 import signal
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -54,6 +65,7 @@ import torch
 
 from lightzero_tpu_torch import _build
 from lightzero_tpu_torch.configs.cartpole_muzero import main_config
+from lightzero_tpu_torch.entry import train_muzero
 from lightzero_tpu_torch.envs import CartPoleEnv
 from lightzero_tpu_torch.models.common import lecun_normal_
 from lightzero_tpu_torch.policy import MuZeroPolicy
@@ -90,6 +102,23 @@ BENCH_SEARCHES = 5
 # simulations of the bench search whose descent inputs phase 3 reruns
 CAPTURED_SIMS = (1, 25, 50)
 EDGE_SHAPES = [(256, 4, 26), (256, 18, 26)]
+# train phase: learn steps of the CartPole run, learn steps timed after it,
+# learn steps under the profiler
+TRAIN_ITERS = 200
+TIMED_LEARN_STEPS = 20
+PROFILED_LEARN_STEPS = 5
+# card vs CPU learn step from the same params and batch (TF32 off): the
+# logged terms to 1e-4 relative (float32 matmuls of batch 256 summed in
+# another order). Adam's first update is lr * g / (|g| + 1e-8), g the
+# gradient it sees (clipped gradient + wd * p): where the card's and the
+# CPU's g differ by d <= |g| / 100 the updates differ by at most lr / 400
+# (the worst case is |g| = 1e-8), under 1e-5, so those params are held to
+# 1e-5; where g is within 100 d of zero, rounding decides the update's
+# sign, and those params are held to 2 lr (their count is reported and must
+# be under a quarter of all)
+LEARN_LOG_RTOL = 1e-4
+LEARN_PARAM_ATOL = 1e-5
+GRAD_TO_ROUNDING = 100.0
 
 MAIN_SEED = 0
 
@@ -194,8 +223,9 @@ def phase_card() -> str:
 
 
 def phase_build() -> dict:
-    """Every source at once, one nvcc each."""
-    sources = ["fused_traverse", "latency_probe"]
+    """Every source at once, one compiler each (nvcc for the kernels, g++
+    for the replay buffer's core)."""
+    sources = ["fused_traverse", "latency_probe", "replay_core"]
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
         paths = dict(zip(sources, pool.map(_build.compile_library, sources)))
@@ -462,10 +492,12 @@ def phase_main_path(card: str) -> dict:
 def device_busy(prof) -> dict:
     """Device time from a profiler trace: the union of the intervals of all
     device activity, the descent kernel's own time and count, and the device
-    time by kernel name."""
+    time by kernel name. The spans that user annotations (record_function,
+    e.g. the optimizer's step) leave on the device timeline are not device
+    work and are left out."""
     spans, kernel_us, kernel_n, by_name = [], 0.0, 0, {}
     for e in prof.events():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
+        if e.device_type != torch.autograd.DeviceType.CUDA or getattr(e, "is_user_annotation", False):
             continue
         spans.append((e.time_range.start, e.time_range.end))
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
@@ -569,6 +601,152 @@ def phase_bench_shape(card: str) -> tuple:
     return rec, captures
 
 
+def learn_step_card_vs_cpu(policy, batch) -> tuple:
+    """One learn step on the card and one on the CPU, each from a fresh
+    optimizer over the same params, on the same batch: (record, agree)."""
+    results = {}
+    for dev in ("cuda", "cpu"):
+        p = MuZeroPolicy(policy.cfg, model=copy.deepcopy(policy.model), device=dev)
+        before = {k: v.detach().cpu().clone() for k, v in p.model.named_parameters()}
+        state = p.init_train_state()
+        on_dev = type(batch)(*(None if x is None else x.to(p.device) for x in batch))
+        _, logs, priority = p.forward_learn(state, on_dev)
+        g = {k: v.grad.cpu() + float(p.cfg.weight_decay) * before[k]
+             for k, v in p.model.named_parameters()}
+        results[dev] = dict(logs={k: float(v) for k, v in logs.items()}, priority=priority.cpu(),
+                            params={k: v.detach().cpu() for k, v in p.model.named_parameters()},
+                            g=g)
+    card, cpu = results["cuda"], results["cpu"]
+    lr = float(policy.cfg.learning_rate)
+    log_err = {k: abs(card["logs"][k] - v) / max(abs(v), 1e-6) for k, v in cpu["logs"].items()}
+    tight_err, loose_err, loose, total = 0.0, 0.0, 0, 0
+    for name, exp in cpu["params"].items():
+        err = (card["params"][name] - exp).abs()
+        rounding = (card["g"][name] - cpu["g"][name]).abs()
+        sensitive = cpu["g"][name].abs() <= GRAD_TO_ROUNDING * rounding
+        if (~sensitive).any():
+            tight_err = max(tight_err, float(err[~sensitive].max()))
+        if sensitive.any():
+            loose_err = max(loose_err, float(err[sensitive].max()))
+        loose += int(sensitive.sum())
+        total += sensitive.numel()
+    priorities_agree = torch.allclose(card["priority"], cpu["priority"], rtol=VALUE_TOL,
+                                      atol=VALUE_TOL)
+    rec = dict(phase="train_card_vs_cpu", batch=int(batch.obs.shape[0]),
+               max_log_rel_err=max(log_err.values()), log_rel_err=log_err,
+               priority_max_abs_err=float((card["priority"] - cpu["priority"]).abs().max()),
+               param_max_abs_err=tight_err, param_max_abs_err_rounding_bound=loose_err,
+               rounding_bound_elements=loose, elements=total,
+               total_loss_card=card["logs"]["total_loss"], total_loss_cpu=cpu["logs"]["total_loss"])
+    emit(rec)
+    agree = (rec["max_log_rel_err"] <= LEARN_LOG_RTOL and tight_err <= LEARN_PARAM_ATOL
+             and loose_err <= 2 * lr and priorities_agree and loose < total // 4)
+    return rec, agree
+
+
+def phase_train(card: str) -> dict:
+    """The CartPole config at full width through train_muzero on the card:
+    200 learn steps after the collect rounds they need, evals at iter 0 and
+    100, with the launch counter read around the call."""
+    cfg = copy.deepcopy(main_config)
+    sims = cfg.policy.num_simulations
+    n_envs = cfg.env.collector_env_num
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg.exp_name = os.path.join(tmp, "cartpole_muzero")
+        fused_traverse.launches = 0
+        t0 = time.perf_counter()
+        policy, state, stats = train_muzero(cfg, seed=MAIN_SEED, device="cuda",
+                                            max_train_iter=TRAIN_ITERS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = fused_traverse.launches
+        with open(os.path.join(cfg.exp_name, "log", "train.jsonl")) as f:
+            records = [json.loads(line) for line in f]
+    trained_iter = state.train_iter
+    losses = [r["learner/total_loss"] for r in records if "learner/total_loss" in r]
+    collect_sps = [r["collector/steps_per_sec"] for r in records if "collector/steps_per_sec" in r]
+    evals = [r["evaluator/eval_mean_return"] for r in records if "evaluator/eval_mean_return" in r]
+    collect_searches = stats["env_steps"] // n_envs
+    expected = (collect_searches + stats["eval_env_steps"]) * sims
+    params_finite = all(bool(torch.isfinite(p).all()) for p in state.model.parameters())
+    target_is_online = all(torch.equal(a, b) for a, b in zip(
+        state.model.state_dict().values(), state.target_model.state_dict().values()))
+    buffer = stats["buffer"]
+    batch_size = int(policy.cfg.batch_size)
+
+    # card vs CPU, on a batch of this run's buffer
+    batch, _ = buffer.sample(batch_size, state.target_model)
+    agreement, agree = learn_step_card_vs_cpu(policy, batch)
+
+    # one sample with reanalyze: one search over its roots
+    buffer.reanalyze_ratio = 0.25
+    before = fused_traverse.launches
+    buffer.sample(batch_size, state.target_model)
+    torch.cuda.synchronize()
+    reanalyze_launches = fused_traverse.launches - before
+    buffer.reanalyze_ratio = 0.0
+
+    # learn-step time: CUDA events around each of 20 steps on fresh samples
+    step_ms, sample_s, timed_losses = [], [], []
+    for _ in range(TIMED_LEARN_STEPS):
+        t1 = time.perf_counter()
+        batch, idx = buffer.sample(batch_size, state.target_model)
+        sample_s.append(time.perf_counter() - t1)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        state, logs, priority = policy.forward_learn(state, batch)
+        end.record()
+        buffer.update_priority(idx, priority.cpu().numpy())
+        torch.cuda.synchronize()
+        step_ms.append(start.elapsed_time(end))
+        timed_losses.append(float(logs["total_loss"]))
+
+    from torch.profiler import ProfilerActivity, profile
+    batches = [buffer.sample(batch_size, state.target_model)[0] for _ in range(PROFILED_LEARN_STEPS)]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        for batch in batches:
+            state, logs, _ = policy.forward_learn(state, batch)
+        torch.cuda.synchronize()
+        profiled_s = time.perf_counter() - t1
+    busy = device_busy(prof)
+    measured = busy["device_events"] > 0
+    rec = dict(
+        phase="train", config="cartpole_muzero", batch_size=batch_size, num_simulations=sims,
+        collect_envs=n_envs, train_iter=stats["train_iter"], state_train_iter=trained_iter,
+        env_steps=stats["env_steps"], collect_searches=collect_searches,
+        eval_searches=stats["eval_env_steps"], launches=launches, expected_launches=expected,
+        logged_total_losses=losses, eval_mean_returns=evals, collect_steps_per_s=collect_sps,
+        params_finite=params_finite, target_is_online=target_is_online,
+        reanalyze_launches=reanalyze_launches, wall_s=wall,
+        learn_step_ms_median=float(np.median(step_ms)), learn_step_ms=step_ms,
+        sample_ms_median=float(np.median(sample_s)) * 1e3, timed_losses=timed_losses,
+        profiled_steps=PROFILED_LEARN_STEPS, profiled_s=profiled_s,
+        device_busy_ms=busy["busy_us"] / 1e3 if measured else None,
+        busy_share_profiled=busy["busy_us"] / 1e6 / profiled_s if measured else None,
+        top_device_us_per_step=[(name, us / PROFILED_LEARN_STEPS) for name, us in busy["top"]],
+        card=card,
+    )
+    emit(rec)
+    problems = [] if agree else [f"card and CPU learn steps disagree: {agreement}"]
+    if stats["train_iter"] != TRAIN_ITERS or trained_iter != TRAIN_ITERS:
+        problems.append(f"train_iter {stats['train_iter']} (state {trained_iter}), expected {TRAIN_ITERS}")
+    if not losses or not all(math.isfinite(x) for x in losses + timed_losses) or not params_finite:
+        problems.append("non-finite loss or params")
+    if not target_is_online:
+        problems.append(f"the target net differs from the online net after the copy at iter {TRAIN_ITERS}")
+    if launches != expected:
+        problems.append(f"traverse launches {launches} != (collect + eval searches) x {sims}")
+    if reanalyze_launches != sims:
+        problems.append(f"a reanalyze sample launched {reanalyze_launches}, expected {sims}")
+    if problems:
+        raise AssertionError(f"train phase failed: {problems}")
+    rec["card_vs_cpu"] = agreement
+    return rec
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs on a GPU", file=sys.stderr)
@@ -589,6 +767,7 @@ def main() -> int:
     main_rec = phase_main_path(card)
     bench, captures = phase_bench_shape(card)
     cases += phase_captured(captures, l2_ns)
+    train = phase_train(card)
 
     main_case = next(c for c in cases if (c["B"], c["A"], c["N"], c["tie_break"]) == (3, 2, 26, "noise"))
     kernels = [dict(
@@ -597,6 +776,8 @@ def main() -> int:
         source="lightzero_tpu_torch/csrc/fused_traverse.cu",
         replaces="lightzero_tpu/search/pallas_traverse.py:74",
         launches=main_rec["launches"]["fused_traverse"],
+        # the training path's run (train phase): collect and eval searches
+        launches_train=train["launches"],
         max_abs_err=max(c["max_abs_err"] for c in cases),
         ms=main_case["ms"],
         # launch to launch through the wrapper, the host's dispatch included:
@@ -609,7 +790,8 @@ def main() -> int:
         shape=dict(B=3, A=2, N=26, tie_break="noise"),
     )]
     emit(dict(phase="done", wall_s=time.perf_counter() - t_start,
-              build_s=build["seconds"], bench_sims_per_s=bench["sims_per_s_kernel"]))
+              build_s=build["seconds"], bench_sims_per_s=bench["sims_per_s_kernel"],
+              train_wall_s=train["wall_s"], learn_step_ms=train["learn_step_ms_median"]))
     faulthandler.cancel_dump_traceback_later()
     signal.alarm(0)
     print(card, flush=True)

@@ -1,13 +1,15 @@
-"""Build and load the port's CUDA kernels.
+"""Build and load the port's native code.
 
-Each kernel is one source ``csrc/<name>.cu`` with a plain C interface
-(``extern "C"`` launchers that return ``cudaGetLastError()``). At first use
-it is compiled with ``nvcc`` into a shared library under ``_build/`` (listed
-in ``.gitignore``), named by a hash of the source and the flags, and loaded
-with ``ctypes``. No PyTorch header is compiled, so a build takes seconds.
+Each CUDA kernel is one source ``csrc/<name>.cu`` with a plain C interface
+(``extern "C"`` launchers that return ``cudaGetLastError()``), compiled with
+``nvcc``. Host C++ (``csrc/<name>.cpp``, the replay buffer's core) is
+compiled with ``g++ -O3 -std=c++17 -shared -fPIC``. At first use a source is
+compiled into a shared library under ``_build/`` (listed in ``.gitignore``),
+named by a hash of the source and the flags, and loaded with ``ctypes``. No
+PyTorch header is compiled, so a build takes seconds.
 
-If ``nvcc`` is missing or the build fails this raises ``BuildError`` with
-the compiler's output; nothing falls back to a plain version.
+If the compiler is missing or the build fails this raises ``BuildError``
+with the compiler's output; nothing falls back to a plain version.
 """
 from __future__ import annotations
 
@@ -32,11 +34,12 @@ NVCC_FLAGS = [
     "-Xptxas=-v",
     "-shared", "-Xcompiler", "-fPIC",
 ]
+GXX_FLAGS = ["-O3", "-std=c++17", "-shared", "-fPIC"]
 BUILD_TIMEOUT_S = 300
 DEFAULT_CUDA_HOME = "/usr/local/cuda"
 
 _loaded: Dict[str, ctypes.CDLL] = {}
-# seconds each kernel's nvcc run took in this process (absent when the
+# seconds each library's compiler run took in this process (absent when the
 # library was already built)
 build_seconds: Dict[str, float] = {}
 
@@ -61,31 +64,47 @@ def find_nvcc() -> str:
     )
 
 
+def find_gxx() -> str:
+    """Path of ``g++`` on PATH."""
+    found = shutil.which("g++")
+    if found:
+        return found
+    raise BuildError(
+        "g++ not found on PATH; the port's host C++ (csrc/*.cpp) is compiled at first use"
+    )
+
+
 def compile_library(name: str) -> str:
-    """Compile ``csrc/<name>.cu`` unless its library is already built; return
-    the library's path. The compiler's output is kept beside the library
-    (``.log``): ``-Xptxas=-v`` lists registers, shared memory and spills."""
-    nvcc = find_nvcc()
+    """Compile ``csrc/<name>.cu`` with nvcc, or else ``csrc/<name>.cpp`` with
+    g++, unless its library is already built; return the library's path. The
+    compiler's output is kept beside the library (``.log``): ``-Xptxas=-v``
+    lists a kernel's registers, shared memory and spills."""
     src = os.path.join(CSRC_DIR, f"{name}.cu")
+    if os.path.exists(src):
+        compiler, flags = find_nvcc(), NVCC_FLAGS
+    else:
+        src = os.path.join(CSRC_DIR, f"{name}.cpp")
+        compiler, flags = find_gxx(), GXX_FLAGS
     with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+        digest = hashlib.sha256(f.read() + " ".join(flags).encode()).hexdigest()[:16]
     out = os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
     if os.path.exists(out):
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    cmd: List[str] = [nvcc, *NVCC_FLAGS, "-o", tmp, src]
+    cmd: List[str] = [compiler, *flags, "-o", tmp, src]
+    tool = os.path.basename(compiler)
     t0 = time.perf_counter()
     try:
         proc = subprocess.run(cmd, capture_output=True, text=True, timeout=BUILD_TIMEOUT_S)
     except subprocess.TimeoutExpired as e:
         os.unlink(tmp)
-        raise BuildError(f"nvcc did not finish in {BUILD_TIMEOUT_S} s: {' '.join(cmd)}") from e
+        raise BuildError(f"{tool} did not finish in {BUILD_TIMEOUT_S} s: {' '.join(cmd)}") from e
     if proc.returncode != 0:
         os.unlink(tmp)
         raise BuildError(
-            f"nvcc failed (exit {proc.returncode}) for {src}:\n{proc.stdout}{proc.stderr}"
+            f"{tool} failed (exit {proc.returncode}) for {src}:\n{proc.stdout}{proc.stderr}"
         )
     build_seconds[name] = time.perf_counter() - t0
     with open(out[: -len(".so")] + ".log", "w") as f:
@@ -95,7 +114,7 @@ def compile_library(name: str) -> str:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of kernel ``name``, compiled on first use."""
+    """The loaded library of source ``name``, compiled on first use."""
     if name not in _loaded:
         path = compile_library(name)
         try:

@@ -1,0 +1,391 @@
+"""Replay buffer with priority sampling, n-step value targets and
+(optionally reanalyzed) policy targets: the MuZero path of
+``lightzero_tpu/buffers/game_buffer.py``.
+
+Whole episodes are stored on the host as numpy arrays, with one priority per
+transition. A batch is assembled on the host, by the native core
+(``csrc/replay_core.cpp``) or by the Python loops, then the target network's
+bootstrap values and, at ``reanalyze_ratio > 0``, the reanalyze search run
+on the policy's device, and the batch goes to that device once.
+
+Randomness: one ``np.random.RandomState(seed + 4096)``, drawn in the JAX
+buffer's order (the native sampler's seed, the padding actions, and once the
+seed of the reanalyze search's ``torch.Generator``), so that the same
+episodes give the same samples in both packages.
+
+Not ported yet, and refused with ``NotImplementedError``: board-game value
+targets and mirror augmentation (ROADMAP queue 1, slice 17), sampled-action
+episodes (slice 14) and ``reanalyze_buffer`` (slice 15).
+"""
+from __future__ import annotations
+
+from typing import List, NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from lightzero_tpu_torch.buffers import native
+from lightzero_tpu_torch.policy.muzero import TrainBatch
+
+
+class EpisodeRecord(NamedTuple):
+    """One finished (or truncated) episode, host numpy arrays of length T."""
+
+    obs: np.ndarray  # (T, *obs_shape) raw observation before action t
+    actions: np.ndarray  # (T,)
+    rewards: np.ndarray  # (T,)
+    child_visits: np.ndarray  # (T, A) root visit distributions (normalized)
+    root_values: np.ndarray  # (T,) searched root values
+    legal_mask: np.ndarray  # (T, A)
+    to_play: np.ndarray  # (T,)
+    truncated: bool = False  # episode cut by collection end (not terminal)
+    chance: Optional[np.ndarray] = None  # (T,) true chance codes
+    # (T, Ks, D) root sampled actions (Sampled MuZero; not ported yet)
+    root_sampled_actions: Optional[np.ndarray] = None
+    # (P, *obs_shape) observations of the P steps before this record's start
+    # when it continues a mid-episode flush; frame stacking reads them
+    # instead of zero padding
+    prefix_obs: Optional[np.ndarray] = None
+
+
+class GameBuffer:
+    """MuZero replay buffer, single-player."""
+
+    def __init__(self, cfg, policy):
+        self.cfg = cfg
+        self.policy = policy
+        self._episodes: List[EpisodeRecord] = []
+        self._priorities: List[np.ndarray] = []
+        self._total_transitions = 0
+        self.capacity = int(cfg.replay_buffer_size)
+        self.alpha = float(cfg.priority_prob_alpha)
+        self.beta = float(cfg.priority_prob_beta)
+        self.K = int(cfg.num_unroll_steps)
+        self.td_steps = int(cfg.td_steps)
+        self.discount = float(cfg.discount_factor)
+        self.use_priority = bool(cfg.get("use_priority", True))
+        self.reanalyze_ratio = float(cfg.get("reanalyze_ratio", 0.0))
+        self.frame_stack = int(cfg.get("frame_stack_num", 1))
+        if cfg.get("env_type", "not_board_games") == "board_games":
+            raise NotImplementedError(
+                "board-game buffers (winner-z value targets) are not ported yet "
+                "(ROADMAP queue 1, slice 17: board games)"
+            )
+        if bool(cfg.get("mirror_augmentation", False)):
+            raise NotImplementedError(
+                "mirror augmentation is not ported yet (ROADMAP queue 1, slice 17: board games)"
+            )
+        self._rng = np.random.RandomState(cfg.get("seed", 0) + 4096)
+        self._re_generator: Optional[torch.Generator] = None
+        # the native core assembles batches; the Python loops only when the
+        # config asks for them. A failed build of the core raises here.
+        self._use_native = bool(cfg.get("use_native_replay", True))
+        if self._use_native:
+            native.library()
+        self._flat_dirty = True
+        self._flat_priorities = np.zeros(0, np.float64)
+        self._flat_ep = np.zeros(0, np.int64)
+        self._flat_pos = np.zeros(0, np.int64)
+
+    # ------------------------------------------------------------------ push
+    def push_episodes(self, episodes: List[EpisodeRecord], priorities: Optional[List[np.ndarray]] = None):
+        for i, ep in enumerate(episodes):
+            T = len(ep.actions)
+            if T == 0:
+                continue
+            if (ep.root_sampled_actions is not None or ep.actions.dtype.kind == "f"
+                    or ep.actions.ndim > 1):
+                raise NotImplementedError(
+                    "sampled or continuous-action episodes are not ported yet "
+                    "(ROADMAP queue 1, slice 14: Sampled)"
+                )
+            if priorities is not None and priorities[i] is not None:
+                p = np.asarray(priorities[i], np.float64)
+            else:
+                p = np.full(T, self._max_priority(), np.float64)
+            self._episodes.append(ep)
+            self._priorities.append(np.maximum(p, 1e-6))
+            self._total_transitions += T
+        self._evict()
+        self._flat_dirty = True
+
+    def _max_priority(self) -> float:
+        if not self._priorities:
+            return 1.0
+        return max(float(p.max()) for p in self._priorities)
+
+    def _evict(self):
+        """Drop the oldest episodes until the buffer fits its capacity (one
+        episode always stays)."""
+        while self._total_transitions > self.capacity and len(self._episodes) > 1:
+            ep = self._episodes.pop(0)
+            self._priorities.pop(0)
+            self._total_transitions -= len(ep.actions)
+        self._flat_dirty = True
+
+    @property
+    def num_transitions(self) -> int:
+        return self._total_transitions
+
+    @property
+    def num_episodes(self) -> int:
+        return len(self._episodes)
+
+    # ---------------------------------------------------------------- sample
+    def _rebuild_flat(self):
+        if not self._flat_dirty:
+            return
+        lengths = [len(p) for p in self._priorities]
+        self._flat_ep = np.repeat(np.arange(len(lengths), dtype=np.int64), lengths)
+        self._flat_pos = (
+            np.concatenate([np.arange(T, dtype=np.int64) for T in lengths])
+            if lengths else np.zeros(0, np.int64)
+        )
+        self._flat_priorities = (
+            np.concatenate(self._priorities) if lengths else np.zeros(0, np.float64)
+        )
+        self._ep_start = np.cumsum([0] + lengths)[:-1].astype(np.int64)
+        self._ep_len = np.asarray(lengths, np.int64)
+        self._ep_trunc = np.asarray([ep.truncated for ep in self._episodes], np.uint8)
+        # contiguous pools for the native path's bulk gathers
+        if self._episodes and self._use_native:
+            self._flat_obs = np.concatenate([e.obs for e in self._episodes])
+            self._flat_actions = np.concatenate([e.actions for e in self._episodes])
+            self._flat_rewards = np.concatenate([e.rewards for e in self._episodes]).astype(
+                np.float32
+            )
+            self._flat_policies = np.concatenate([e.child_visits for e in self._episodes])
+            self._flat_chance = np.concatenate([
+                e.chance if e.chance is not None else np.zeros(len(e.actions), np.int64)
+                for e in self._episodes
+            ])
+        self._flat_dirty = False
+
+    def sample(self, batch_size: int, target_model: nn.Module) -> Tuple[TrainBatch, np.ndarray]:
+        """Returns (TrainBatch on the policy's device, flat sample indices
+        for ``update_priority``)."""
+        self._rebuild_flat()
+        n = len(self._flat_priorities)
+        if n == 0:
+            raise ValueError("the buffer is empty")
+        if self.use_priority and self._use_native:
+            idx, weights = native.sample_prioritized(
+                self._flat_priorities, self.alpha, self.beta, batch_size,
+                int(self._rng.randint(1 << 31)),
+            )
+        elif self.use_priority:
+            probs = self._flat_priorities ** self.alpha
+            probs = probs / probs.sum()
+            idx = self._rng.choice(n, size=batch_size, p=probs, replace=True)
+            weights = (n * probs[idx]) ** (-self.beta)
+            weights = weights / weights.max()
+        else:
+            idx = self._rng.randint(0, n, size=batch_size)
+            weights = np.ones(batch_size)
+        return self._make_batch(idx, target_model, np.asarray(weights, np.float32)), idx
+
+    def update_priority(self, idx: np.ndarray, new_priorities: np.ndarray):
+        """Priorities from |predicted - target| value of the learn step."""
+        self._rebuild_flat()
+        new_p = np.maximum(np.asarray(new_priorities, np.float64), 1e-6)
+        self._flat_priorities[idx] = new_p
+        for j, flat_i in enumerate(np.asarray(idx)):
+            self._priorities[self._flat_ep[flat_i]][self._flat_pos[flat_i]] = new_p[j]
+
+    def reanalyze_buffer(self, *args, **kwargs) -> int:
+        raise NotImplementedError(
+            "whole-buffer reanalyze is not ported yet (ROADMAP queue 1, slice 15: ReZero)"
+        )
+
+    # ------------------------------------------------------------- targets
+    def _stacked_obs(self, ep: EpisodeRecord, pos: int) -> np.ndarray:
+        """Frame-stacked observation window ending at pos (zero-padded
+        before the episode's start), concatenated on the last axis."""
+        if self.frame_stack == 1:
+            return ep.obs[pos]
+        frames = []
+        P = len(ep.prefix_obs) if ep.prefix_obs is not None else 0
+        for k in range(pos - self.frame_stack + 1, pos + 1):
+            if k >= 0:
+                frames.append(ep.obs[k])
+            elif P + k >= 0:
+                frames.append(ep.prefix_obs[P + k])
+            else:
+                frames.append(np.zeros_like(ep.obs[0]))
+        return np.concatenate(frames, axis=-1)
+
+    def _bootstrap_values(self, target_model: nn.Module, obs: np.ndarray) -> np.ndarray:
+        """(M, *obs) -> (M,) target-net root values, computed on the
+        policy's device."""
+        obs = torch.from_numpy(np.ascontiguousarray(obs, np.float32)).to(self.policy.device)
+        return self.policy._bootstrap_value_fn(target_model, obs).cpu().numpy()
+
+    def _apply_reanalyze(self, idx, target_policy, target_model):
+        """Reanalyze the first ceil(B * ratio) samples: fresh search policy
+        targets from the target net (reference reanalyze_ratio mixing,
+        game_buffer_muzero.py:179-190)."""
+        B = len(idx)
+        K = self.K
+        A = target_policy.shape[-1]
+        n_re = int(np.ceil(B * self.reanalyze_ratio)) if self.reanalyze_ratio > 0 else 0
+        if n_re == 0:
+            return target_policy
+        obs_shape = self._stacked_obs(self._episodes[0], 0).shape
+        re_obs = np.zeros((n_re, K + 1) + obs_shape, np.float32)
+        re_legal = np.zeros((n_re, K + 1, A), bool)
+        re_to_play = np.full((n_re, K + 1), -1, np.int64)
+        re_valid = np.zeros((n_re, K + 1), np.float32)
+        for b in range(n_re):
+            ep = self._episodes[self._flat_ep[idx[b]]]
+            pos = int(self._flat_pos[idx[b]])
+            T = len(ep.actions)
+            for k in range(K + 1):
+                t = pos + k
+                if t < T:
+                    re_obs[b, k] = self._stacked_obs(ep, t)
+                    re_legal[b, k] = ep.legal_mask[t]
+                    re_to_play[b, k] = ep.to_play[t]
+                    re_valid[b, k] = 1.0
+                else:
+                    re_legal[b, k, :] = True  # avoid an empty legal set
+        M = n_re * (K + 1)
+        if self._re_generator is None:
+            # the JAX buffer seeds its reanalyze PRNGKey with this one draw
+            self._re_generator = torch.Generator(self.policy.device).manual_seed(
+                int(self._rng.randint(1 << 30))
+            )
+        dev = self.policy.device
+        fresh_policy, _ = self.policy.forward_reanalyze(
+            target_model,
+            torch.from_numpy(re_obs.reshape((M,) + obs_shape)).to(dev),
+            torch.from_numpy(re_legal.reshape(M, A)).to(dev),
+            torch.from_numpy(re_to_play.reshape(M)).to(dev, torch.int32),
+            generator=self._re_generator,
+        )
+        fresh_policy = fresh_policy.cpu().numpy().reshape(n_re, K + 1, A)
+        target_policy = np.array(target_policy)
+        target_policy[:n_re] = fresh_policy * re_valid[..., None]
+        return target_policy
+
+    def _to_device(self, obs, actions, mask, target_reward, target_value, target_policy,
+                   weights, chance) -> TrainBatch:
+        dev = self.policy.device
+
+        def put(x, dtype):
+            return torch.from_numpy(np.ascontiguousarray(x)).to(dev, dtype)
+
+        return TrainBatch(
+            obs=put(obs, torch.float32),
+            actions=put(actions, torch.int64),
+            mask=put(mask, torch.float32),
+            target_reward=put(target_reward, torch.float32),
+            target_value=put(target_value, torch.float32),
+            target_policy=put(target_policy, torch.float32),
+            weights=put(weights, torch.float32),
+            chance=put(chance, torch.int64),
+        )
+
+    def _make_batch_native(self, idx: np.ndarray, target_model: nn.Module, weights: np.ndarray) -> TrainBatch:
+        """The native path: C++ index assembly and numpy bulk gathers."""
+        K, td, gamma = self.K, self.td_steps, self.discount
+        B = len(idx)
+        ep = self._flat_ep[idx]
+        out = native.assemble_unroll(
+            self._ep_start[ep], self._ep_len[ep], self._flat_pos[idx],
+            self._ep_trunc[ep], self._flat_rewards, K, td, gamma,
+        )
+        obs_valid = out["obs_valid"].astype(bool)
+        obs_shape = self._flat_obs.shape[1:]
+        obs = np.where(
+            obs_valid.reshape(B, K + 1, *([1] * len(obs_shape))),
+            self._flat_obs[out["obs_idx"]],
+            0.0,
+        ).astype(np.float32)
+        target_policy = np.where(
+            obs_valid[..., None], self._flat_policies[out["obs_idx"]], 0.0
+        ).astype(np.float32)
+        pad = out["action_pad"].astype(bool)
+        A = self._flat_policies.shape[1]
+        actions = np.where(
+            pad, self._rng.randint(0, A, size=(B, K)), self._flat_actions[out["action_idx"]]
+        )
+        target_reward = np.where(pad, 0.0, self._flat_rewards[out["action_idx"]]).astype(
+            np.float32
+        )
+        boot_obs = self._flat_obs[out["boot_idx"]].astype(np.float32)
+        boot_v = self._bootstrap_values(
+            target_model, boot_obs.reshape((B * (K + 1),) + obs_shape)
+        ).reshape(B, K + 1)
+        target_value = out["reward_sum"] + out["boot_disc"] * boot_v * out["boot_valid"]
+        target_policy = self._apply_reanalyze(idx, target_policy, target_model)
+        chance = np.where(pad, 0, self._flat_chance[out["action_idx"]])
+        return self._to_device(obs, actions, out["mask"], target_reward, target_value,
+                               target_policy, weights, chance)
+
+    def _make_batch(self, idx: np.ndarray, target_model: nn.Module, weights: np.ndarray) -> TrainBatch:
+        self._rebuild_flat()
+        K, td, gamma = self.K, self.td_steps, self.discount
+        B = len(idx)
+        if self._use_native and self.frame_stack == 1:
+            return self._make_batch_native(idx, target_model, weights)
+        obs_shape = self._stacked_obs(self._episodes[0], 0).shape
+        A = self._episodes[0].child_visits.shape[1]
+
+        obs = np.zeros((B, K + 1) + obs_shape, np.float32)
+        chance = np.zeros((B, K), np.int64)
+        actions = np.zeros((B, K), np.int64)
+        mask = np.zeros((B, K), np.float32)
+        target_reward = np.zeros((B, K), np.float32)
+        reward_sum = np.zeros((B, K + 1), np.float32)
+        boot_obs = np.zeros((B, K + 1) + obs_shape, np.float32)
+        boot_valid = np.zeros((B, K + 1), np.float32)
+        boot_discount = np.zeros((B, K + 1), np.float32)
+        target_policy = np.zeros((B, K + 1, A), np.float32)
+
+        for b, flat_i in enumerate(idx):
+            ep = self._episodes[self._flat_ep[flat_i]]
+            pos = int(self._flat_pos[flat_i])
+            T = len(ep.actions)
+            for k in range(K + 1):
+                t = pos + k
+                if t >= T:
+                    continue  # beyond the episode: all-zero (absorbing) targets
+                obs[b, k] = self._stacked_obs(ep, t)
+                cv = ep.child_visits[t]
+                s = cv.sum()
+                if s > 0:
+                    target_policy[b, k] = cv / s
+                # n-step value target pieces; a truncated (time-limit)
+                # episode caps the horizon at T-1 so that its tail
+                # bootstraps from the last stored obs
+                horizon = T - 1 if ep.truncated else T
+                td_eff = max(min(td, horizon - t), 0)
+                r = 0.0
+                for i in range(td_eff):
+                    r += (gamma ** i) * ep.rewards[t + i]
+                reward_sum[b, k] = r
+                boot_t = t + td_eff
+                if boot_t < T:
+                    boot_obs[b, k] = self._stacked_obs(ep, boot_t)
+                    boot_valid[b, k] = 1.0
+                    boot_discount[b, k] = gamma ** td_eff
+            for k in range(K):
+                t = pos + k
+                if t < T:
+                    actions[b, k] = ep.actions[t]
+                    target_reward[b, k] = ep.rewards[t]
+                    if ep.chance is not None:
+                        chance[b, k] = ep.chance[t]
+                    if t + 1 < T:
+                        mask[b, k] = 1.0
+                else:
+                    actions[b, k] = self._rng.randint(0, A)
+
+        boot_v = self._bootstrap_values(
+            target_model, boot_obs.reshape((B * (K + 1),) + obs_shape)
+        ).reshape(B, K + 1)
+        target_value = reward_sum + boot_discount * boot_v * boot_valid
+        target_policy = self._apply_reanalyze(idx, target_policy, target_model)
+        return self._to_device(obs, actions, mask, target_reward, target_value, target_policy,
+                               weights, chance)

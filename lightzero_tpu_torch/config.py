@@ -1,11 +1,17 @@
-"""Attribute-accessible config tree (counterpart of
-``lightzero_tpu/config/core.py``: ``Config`` and ``deep_merge``).
+"""Attribute-accessible config tree and experiment compilation (counterpart
+of ``lightzero_tpu/config/core.py``: ``Config``, ``deep_merge`` and
+``compile_config``).
 
 A copy, not an import: the port loads nothing of the JAX package."""
 from __future__ import annotations
 
 import copy
+import json
+import os
+import time
 from typing import Any, Dict, Optional
+
+import numpy as np
 
 
 class Config(dict):
@@ -59,3 +65,27 @@ def deep_merge(base: Dict, override: Dict) -> Config:
         else:
             out[k] = copy.deepcopy(v)
     return out
+
+
+def _json_default(o):
+    if isinstance(o, np.generic):
+        return o.item()
+    if isinstance(o, np.ndarray):
+        return o.tolist()
+    return repr(o)
+
+
+def compile_config(cfg: Dict, default_policy_config: Dict, seed: int = 0) -> Config:
+    """Merge the user's cfg over the policy's default config, stamp the seed
+    and the experiment directory, and write the merged tree to
+    ``<exp_name>/total_config.json`` (with ``ckpt/`` and ``log/`` beside it),
+    so that an experiment can be rerun from its directory."""
+    cfg = Config(copy.deepcopy(dict(cfg)))
+    cfg.policy = deep_merge(default_policy_config, cfg.get("policy", {}))
+    cfg.seed = seed
+    cfg.exp_name = cfg.get("exp_name", f"exp_{time.strftime('%y%m%d_%H%M%S')}")
+    for sub in ("ckpt", "log"):
+        os.makedirs(os.path.join(cfg.exp_name, sub), exist_ok=True)
+    with open(os.path.join(cfg.exp_name, "total_config.json"), "w") as f:
+        json.dump(cfg.to_dict(), f, indent=2, default=_json_default)
+    return cfg

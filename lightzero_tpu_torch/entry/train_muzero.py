@@ -1,0 +1,264 @@
+"""MuZero training entry (``lightzero_tpu/entry/train_muzero.py``, the MuZero
+branch of ``train_muzero``).
+
+Loop: [eval every ``eval_freq`` train iterations, stopping after
+``stop_consecutive_evals`` evals at ``stop_value``] -> collect (episode mode,
+or segment mode with ``num_segments``) -> push to the buffer ->
+``update_per_collect`` (or replay-ratio) learn steps, each on a fresh
+prioritized sample, once the buffer holds a batch and
+``train_start_after_envsteps`` env steps are done -> until ``max_env_step``
+or ``max_train_iter``. A non-finite loss saves ``ckpt/ckpt_nan`` and raises;
+checkpoints are written every ``save_ckpt_freq`` iterations with
+``ckpt/resume_meta.json``, which ``auto_resume`` reads; ``ckpt_best`` and
+``params_best`` on a new best eval, ``ckpt_final`` at the end.
+
+Usage (on the card, or with ``device="cpu"``)::
+
+    from lightzero_tpu_torch.configs.cartpole_muzero import main_config
+    from lightzero_tpu_torch.entry import train_muzero
+    policy, state, stats = train_muzero(main_config, seed=0, max_env_step=100_000)
+
+Not ported yet, and refused with ``NotImplementedError``: policies other than
+MuZero, envs other than CartPole, ``buffer_reanalyze_freq`` and the
+loss-landscape analysis (their ROADMAP slices are named in the errors).
+"""
+from __future__ import annotations
+
+import json
+import os
+from typing import Dict, Optional, Union
+
+import numpy as np
+import torch
+
+from lightzero_tpu_torch.buffers import GameBuffer
+from lightzero_tpu_torch.config import Config, compile_config
+from lightzero_tpu_torch.entry.utils import calculate_update_per_collect, random_collect, safe_eval
+from lightzero_tpu_torch.envs import CartPoleEnv
+from lightzero_tpu_torch.ops import visit_count_temperature
+from lightzero_tpu_torch.policy import MuZeroPolicy
+from lightzero_tpu_torch.utils.checkpoint import (
+    load_checkpoint_lenient,
+    save_checkpoint,
+    save_params_export,
+)
+from lightzero_tpu_torch.utils.device import resolve_device
+from lightzero_tpu_torch.utils.logger import ExperimentLogger
+from lightzero_tpu_torch.workers import Evaluator, RolloutCollector
+
+# env_id -> max_episode_steps (the gym ids the configs use)
+CARTPOLE_IDS = {"CartPole-v0": 200, "CartPole-v1": 500, "cartpole": 200}
+# the policy types of the JAX entry and the ROADMAP slice that ports each
+OTHER_POLICIES = {
+    "efficientzero": 11, "gumbel_muzero": 12, "stochastic_muzero": 13, "sampled_muzero": 14,
+    "sampled_efficientzero": 14, "muzero_rnn_full_obs": 15, "muzero_context": 15,
+    "unizero": 18, "sampled_unizero": 18, "muzero_multitask": 19, "unizero_multitask": 19,
+    "sampled_unizero_multitask": 19,
+}
+
+
+def create_env(env_cfg: Config) -> CartPoleEnv:
+    env_id = env_cfg.get("env_id", env_cfg.get("type"))
+    if env_id not in CARTPOLE_IDS:
+        raise NotImplementedError(
+            f"env {env_id!r} is not ported yet: the port has CartPole only (ROADMAP queue 1: "
+            "Pendulum in slice 14, 2048 in slice 13, image envs in slice 16, board games in "
+            "slice 17, host envs in slice 20)"
+        )
+    return CartPoleEnv(max_episode_steps=CARTPOLE_IDS[env_id])
+
+
+def _check_scope(pcfg: Config) -> None:
+    policy_type = pcfg.get("type", "muzero")
+    if policy_type != "muzero":
+        slice_ = OTHER_POLICIES.get(policy_type)
+        where = f"ROADMAP queue 1, slice {slice_}" if slice_ else "ROADMAP queue 1"
+        raise NotImplementedError(f"policy type {policy_type!r} is not ported yet ({where})")
+    if float(pcfg.get("buffer_reanalyze_freq", 0.0)) > 0:
+        raise NotImplementedError(
+            "buffer_reanalyze_freq (whole-buffer reanalyze) is not ported yet "
+            "(ROADMAP queue 1, slice 15: ReZero)"
+        )
+    if pcfg.get("analysis_loss_landscape", False):
+        raise NotImplementedError(
+            "the loss-landscape analysis is not ported yet (ROADMAP queue 1, slice 20)"
+        )
+
+
+def train_muzero(
+    cfg,
+    seed: int = 0,
+    model_path: Optional[str] = None,
+    max_env_step: int = int(1e6),
+    max_train_iter: int = int(1e9),
+    device: Optional[Union[str, torch.device]] = None,
+):
+    """Train MuZero on ``cfg`` (``{"env": ..., "policy": ...}``, or
+    ``[main_config, create_config]``). Runs on ``device``: ``cuda`` unless
+    the caller names another. ``model_path`` warm-starts from a checkpoint
+    or params export.
+
+    Returns ``(policy, state, stats)``: ``stats`` holds ``env_steps``,
+    ``train_iter``, ``best_return``, ``eval_env_steps`` (the evaluator's
+    batched steps over all evals) and ``buffer``, the replay buffer."""
+    if isinstance(cfg, (list, tuple)):
+        cfg = cfg[0]
+    dev = resolve_device(device)
+    _check_scope(Config(Config(cfg).get("policy", {})))
+    cfg = compile_config(cfg, MuZeroPolicy.default_config(), seed)
+    pcfg = cfg.policy
+    pcfg.seed = seed
+
+    env = create_env(cfg.env)
+    policy = MuZeroPolicy(pcfg, device=dev, seed=seed)
+    state = policy.init_train_state()
+    if model_path:
+        state = load_checkpoint_lenient(model_path, target=state)
+
+    buffer = GameBuffer(pcfg, policy)
+    n_collect_envs = cfg.env.get("collector_env_num", 8)
+    n_eval_envs = cfg.env.get("evaluator_env_num", 3)
+    collector = RolloutCollector(env, policy, n_collect_envs, seed=seed + 1, device=dev)
+    evaluator = Evaluator(env, policy, n_eval_envs, seed=seed + 2, device=dev)
+    logger = ExperimentLogger(cfg.exp_name, "train")
+    ckpt_dir = os.path.join(cfg.exp_name, "ckpt")
+    stop_value = cfg.env.get("stop_value", float("inf"))
+    stop_streak = 0
+    eval_freq = int(pcfg.get("eval_freq", 100))
+    batch_size = int(pcfg.batch_size)
+    n_episode = int(pcfg.get("n_episode", 8))
+    last_eval_iter = -eval_freq - 1
+    eval_env_steps = 0
+
+    train_iter = 0
+    # auto-resume: restore the last periodic checkpoint and the counters of
+    # this exp dir; the buffer is refilled by fresh self-play
+    if not model_path and pcfg.get("auto_resume", False):
+        meta_path = os.path.join(ckpt_dir, "resume_meta.json")
+        if os.path.exists(meta_path):
+            with open(meta_path) as f:
+                meta = json.load(f)
+            state = load_checkpoint_lenient(os.path.join(ckpt_dir, meta["last_ckpt"]), target=state)
+            train_iter = int(meta["train_iter"])
+            collector.total_env_steps = int(meta["env_steps"])
+            logger.info(
+                f"auto_resume: restored {meta['last_ckpt']} "
+                f"(iter={train_iter} envstep={collector.total_env_steps})"
+            )
+    logger.info(
+        f"train_muzero: exp={cfg.exp_name} device={dev} max_env_step={max_env_step} "
+        f"sims={pcfg.num_simulations} batch={batch_size}"
+    )
+    n_warmup = int(pcfg.get("random_collect_episode_num", 0))
+    if n_warmup > 0:
+        wstats = random_collect(collector, buffer, num_episodes=n_warmup)
+        logger.info(f"random_collect: {wstats['episodes']} episodes, {wstats['steps']} steps")
+    while collector.total_env_steps < max_env_step and train_iter < max_train_iter:
+        temperature = visit_count_temperature(
+            pcfg.get("manual_temperature_decay", False),
+            pcfg.get("fixed_temperature_value", 0.25),
+            pcfg.get("threshold_training_steps_for_final_temperature", int(1e5)),
+            train_iter,
+        )
+        # ---- eval ----
+        if train_iter - last_eval_iter >= eval_freq:
+            last_eval_iter = train_iter
+            res = safe_eval(
+                evaluator,
+                n_episodes=cfg.env.get("n_evaluator_episode", n_eval_envs),
+                timeout_s=float(pcfg.get("eval_timeout_s", 1800.0)),
+            )
+            if res is None:
+                logger.info("safe_eval: evaluation timed out; continuing training")
+                continue
+            eval_env_steps += res["env_steps"]
+            logger.log_scalars(
+                {"eval_mean_return": res["mean_return"], "eval_max_return": res["max_return"]},
+                collector.total_env_steps,
+                prefix="evaluator/",
+            )
+            logger.info(
+                f"iter={train_iter} envstep={collector.total_env_steps} "
+                f"EVAL mean_return={res['mean_return']:.1f}"
+            )
+            if res["new_best"]:
+                save_checkpoint(state, os.path.join(ckpt_dir, "ckpt_best"))
+                save_params_export(state, os.path.join(ckpt_dir, "params_best"))
+            # stop only after N consecutive evals at or above stop_value
+            if res["mean_return"] >= stop_value:
+                stop_streak += 1
+                if stop_streak >= int(pcfg.get("stop_consecutive_evals", 1)):
+                    logger.info(f"stop_value {stop_value} reached; stopping.")
+                    break
+            else:
+                stop_streak = 0
+        # ---- collect ----
+        num_segments = pcfg.get("num_segments", None)
+        if num_segments:
+            episodes, priorities, cstats = collector.collect(
+                temperature=temperature,
+                epsilon=pcfg.get("collect_epsilon", 0.0),
+                min_steps=int(num_segments) * int(pcfg.get("game_segment_length", 200)),
+            )
+        else:
+            episodes, priorities, cstats = collector.collect(
+                temperature=temperature,
+                epsilon=pcfg.get("collect_epsilon", 0.0),
+                num_episodes=n_episode,
+            )
+        buffer.push_episodes(episodes, priorities)
+        logger.log_scalars(
+            {
+                "collect_mean_return": cstats["mean_return"],
+                "steps_per_sec": cstats["steps_per_sec"],
+                "buffer_transitions": buffer.num_transitions,
+                "temperature": temperature,
+                "visit_entropy": cstats["visit_entropy"],
+                "searched_value": cstats["searched_value"],
+            },
+            collector.total_env_steps,
+            prefix="collector/",
+        )
+        # ---- train ----
+        upc = calculate_update_per_collect(pcfg, cstats["steps"])
+        if buffer.num_transitions < batch_size:
+            continue
+        if collector.total_env_steps < int(pcfg.get("train_start_after_envsteps", 0)):
+            continue
+        logs: Dict = {}
+        for _ in range(upc):
+            batch, idx = buffer.sample(batch_size, state.target_model)
+            state, logs, priority = policy.forward_learn(state, batch)
+            buffer.update_priority(idx, priority.cpu().numpy())
+            train_iter += 1
+        # numerical guard: a non-finite loss stops the run with its state
+        if logs and not np.isfinite(float(logs["total_loss"])):
+            save_checkpoint(state, os.path.join(ckpt_dir, "ckpt_nan"))
+            logger.close()
+            raise RuntimeError(
+                f"non-finite total_loss={float(logs['total_loss'])} at iter {train_iter} "
+                f"(state saved to ckpt/ckpt_nan)"
+            )
+        logger.log_scalars(logs, collector.total_env_steps, prefix="learner/")
+        logger.info(
+            f"iter={train_iter} envstep={collector.total_env_steps} "
+            f"loss={float(logs.get('total_loss', 0)):.3f} "
+            f"collect_return={cstats['mean_return']:.1f} "
+            f"sps={cstats['steps_per_sec']:.0f}"
+        )
+        if train_iter % int(pcfg.get("save_ckpt_freq", 10_000)) < upc:
+            name = f"iteration_{train_iter}"
+            save_checkpoint(state, os.path.join(ckpt_dir, name))
+            with open(os.path.join(ckpt_dir, "resume_meta.json"), "w") as f:
+                json.dump(dict(last_ckpt=name, train_iter=train_iter,
+                               env_steps=int(collector.total_env_steps)), f)
+
+    save_checkpoint(state, os.path.join(ckpt_dir, "ckpt_final"))
+    logger.close()
+    return policy, state, dict(
+        env_steps=collector.total_env_steps,
+        train_iter=train_iter,
+        best_return=evaluator.best_return,
+        eval_env_steps=eval_env_steps,
+        buffer=buffer,
+    )

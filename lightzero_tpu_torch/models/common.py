@@ -1,6 +1,6 @@
 """Shared neural building blocks, MLP family (``lightzero_tpu/models/common.py``
-:24-193): ``NetworkOutput``, ``_norm``, ``MLPTorso`` and the MuZero MLP
-representation, dynamics and prediction networks.
+:24-193, 345-377): ``NetworkOutput``, ``_norm``, ``MLPTorso``, the MuZero MLP
+representation, dynamics and prediction networks and the SSL projector.
 
 Parity with the flax modules: LayerNorm uses eps 1e-6 (flax's default, torch's
 is 1e-5); ``nn.Linear`` holds its weight as (out, in) where a flax Dense
@@ -187,3 +187,47 @@ class PredictionNetworkMLP(nn.Module):
     def forward(self, latent: torch.Tensor):
         x = self.torso(latent)
         return self.value_head(x), self.policy_head(x)
+
+
+class SSLProjector(nn.Module):
+    """SimSiam-style projector and predictor of the SSL consistency loss
+    (flax ``SSLProjector``, ``lightzero_tpu/models/common.py:345``).
+
+    ``forward(latent, with_grad=True)`` is predictor(projection(x)), the
+    online branch; ``with_grad=False`` is the projection alone, the target
+    branch (the caller stops its gradient). ``proj[i]``/``proj_norms[i]``,
+    ``pred[i]`` and ``pred_norm`` are flax's ``proj_i``, ``proj_norms_i``,
+    ``pred_i`` and ``pred_norm``."""
+
+    def __init__(
+        self,
+        in_dim: int,
+        proj_hid: int = 1024,
+        proj_out: int = 1024,
+        pred_hid: int = 512,
+        pred_out: int = 1024,
+        generator: Optional[torch.Generator] = None,
+    ):
+        super().__init__()
+        self.proj = nn.ModuleList(
+            [nn.Linear(in_dim, proj_hid), nn.Linear(proj_hid, proj_hid), nn.Linear(proj_hid, proj_out)]
+        )
+        self.proj_norms = nn.ModuleList(
+            nn.LayerNorm(d, eps=LAYER_NORM_EPS) for d in (proj_hid, proj_hid, proj_out)
+        )
+        self.pred = nn.ModuleList([nn.Linear(proj_out, pred_hid), nn.Linear(pred_hid, pred_out)])
+        self.pred_norm = nn.LayerNorm(pred_hid, eps=LAYER_NORM_EPS)
+        for layer in (*self.proj, *self.pred):
+            lecun_normal_(layer.weight, generator)
+            nn.init.zeros_(layer.bias)
+
+    def forward(self, latent: torch.Tensor, with_grad: bool = True) -> torch.Tensor:
+        x = latent.reshape(latent.shape[0], -1)
+        for i, (dense, norm) in enumerate(zip(self.proj, self.proj_norms)):
+            x = norm(dense(x))
+            if i < 2:
+                x = torch.relu(x)
+        if not with_grad:
+            return x
+        y = torch.relu(self.pred_norm(self.pred[0](x)))
+        return self.pred[1](y)

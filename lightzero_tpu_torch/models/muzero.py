@@ -1,8 +1,10 @@
 """MuZero model, MLP branch (``lightzero_tpu/models/muzero.py:31``):
-representation + dynamics + prediction.
+representation + dynamics + prediction, and the SSL projector when
+``self_supervised_learning_loss`` is set.
 
-Not ported in this slice: the conv branch, the SSL projector (training
-only), the HarmonyDream loss weights and the multitask task embedding.
+Not ported yet, and refused by ``from_config``: the conv branch (ROADMAP
+queue 1, slice 16), the HarmonyDream loss weights (slice 20) and the
+multitask task embedding (slice 19).
 """
 from __future__ import annotations
 
@@ -16,6 +18,7 @@ from lightzero_tpu_torch.models.common import (
     NetworkOutput,
     PredictionNetworkMLP,
     RepresentationNetworkMLP,
+    SSLProjector,
 )
 
 
@@ -35,6 +38,11 @@ class MuZeroModel(nn.Module):
         norm_type: str = "LN",
         last_linear_layer_init_zero: bool = True,
         discrete_action_encoding_type: str = "one_hot",
+        self_supervised_learning_loss: bool = False,
+        proj_hid: int = 1024,
+        proj_out: int = 1024,
+        pred_hid: int = 512,
+        pred_out: int = 1024,
         generator: Optional[torch.Generator] = None,
     ):
         super().__init__()
@@ -66,6 +74,12 @@ class MuZeroModel(nn.Module):
             norm_type=norm_type,
             last_linear_layer_init_zero=last_linear_layer_init_zero,
             generator=generator,
+        )
+        # as in flax, the projector exists only when the SSL loss is on
+        self.projector = (
+            SSLProjector(latent_state_dim, proj_hid, proj_out, pred_hid, pred_out, generator)
+            if self_supervised_learning_loss
+            else None
         )
 
     def _encode_action_mlp(self, action: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -104,12 +118,24 @@ class MuZeroModel(nn.Module):
             latent_state=next_latent,
         )
 
+    def project(self, latent: torch.Tensor, with_grad: bool = True) -> torch.Tensor:
+        """SSL projection (flax ``MuZeroModel.project``)."""
+        return self.projector(latent, with_grad)
+
     @staticmethod
     def from_config(model_cfg: Any, generator: Optional[torch.Generator] = None) -> "MuZeroModel":
         """Build from a ``cfg.policy.model`` tree (the JAX package's key names)."""
         if model_cfg.get("model_type", "mlp") != "mlp":
             raise NotImplementedError(
                 "only model_type='mlp' is ported (ROADMAP queue 1, slice 16: conv stack)"
+            )
+        if model_cfg.get("harmony_balance", False):
+            raise NotImplementedError(
+                "the HarmonyDream loss weights are not ported yet (ROADMAP queue 1, slice 20)"
+            )
+        if int(model_cfg.get("num_tasks", 0)) > 0:
+            raise NotImplementedError(
+                "the multitask task embedding is not ported yet (ROADMAP queue 1, slice 19)"
             )
         kwargs = dict(
             observation_shape=model_cfg.get("observation_shape", 4),
@@ -118,6 +144,7 @@ class MuZeroModel(nn.Module):
             norm_type=model_cfg.get("norm_type", "LN"),
             discrete_action_encoding_type=model_cfg.get("discrete_action_encoding_type", "one_hot"),
             res_connection_in_dynamics=model_cfg.get("res_connection_in_dynamics", False),
+            self_supervised_learning_loss=model_cfg.get("self_supervised_learning_loss", False),
         )
         for k in (
             "value_support_size",
@@ -125,6 +152,10 @@ class MuZeroModel(nn.Module):
             "reward_head_hidden_channels",
             "value_head_hidden_channels",
             "policy_head_hidden_channels",
+            "proj_hid",
+            "proj_out",
+            "pred_hid",
+            "pred_out",
         ):
             if k in model_cfg:
                 v = model_cfg[k]

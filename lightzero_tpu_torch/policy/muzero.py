@@ -1,24 +1,98 @@
-"""MuZero policy, serving half (``lightzero_tpu/policy/muzero.py``): initial
-inference -> batched pUCT search -> action from the visit counts, for
-collection (Dirichlet noise, temperature sampling, epsilon-greedy, or the
-no-search pure-policy mode) and evaluation (no noise, argmax).
+"""MuZero policy (``lightzero_tpu/policy/muzero.py``).
 
-Training (``_forward_learn``, the optimizer, the target network) waits for
-the next slice of the port (ROADMAP queue 1, items 5 and 9).
+Serving: initial inference -> batched pUCT search -> action from the visit
+counts, for collection (Dirichlet noise, temperature sampling,
+epsilon-greedy, or the no-search pure-policy mode) and evaluation (no noise,
+argmax).
+
+Training: ``forward_learn`` unrolls the model ``num_unroll_steps`` steps and
+takes one optimizer step on value, policy and reward cross-entropies, the
+optional SSL cosine consistency loss and the policy-entropy term, weighted
+by the batch's importance weights; the loss is divided by the unroll length,
+the gradients are clipped by their global norm as optax does, and the
+target network is copied from the online one every ``target_update_freq``
+steps. ``forward_reanalyze`` searches with the target network to refresh
+the buffer's policy targets.
+
+The JAX policy keeps all state in a ``TrainState`` pytree that its jitted
+functions take and return. Here the policy holds the online model, which
+collection and evaluation use, and ``TrainState`` holds that same module,
+the target copy, the optimizer and its learning-rate schedule; the learn
+step updates them in place.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Union
+import copy
+import functools
+import math
+from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple, Union
 
 import torch
+from torch import nn
 
 from lightzero_tpu_torch.config import Config, deep_merge
 from lightzero_tpu_torch.models import MuZeroModel
-from lightzero_tpu_torch.ops import DiscreteSupport, inverse_scalar_transform
+from lightzero_tpu_torch.ops import (
+    DiscreteSupport,
+    cross_entropy_loss,
+    inverse_scalar_transform,
+    phi_transform,
+    scalar_transform,
+)
 from lightzero_tpu_torch.ops.action import sample_from_visit_counts
 from lightzero_tpu_torch.search.puct import batch_puct_search
 from lightzero_tpu_torch.search.types import RecurrentOutput, RootOutput, SearchConfig
 from lightzero_tpu_torch.utils.device import resolve_device
+
+
+class TrainState(NamedTuple):
+    model: nn.Module  # the online network: the policy's own model
+    target_model: nn.Module
+    optimizer: torch.optim.Optimizer
+    lr_scheduler: torch.optim.lr_scheduler.LambdaLR
+    train_iter: int
+
+
+class TrainBatch(NamedTuple):
+    """One training batch (assembled by the game buffer), on the policy's
+    device.
+
+    obs: (B, K+1, *obs_shape) observations at the unroll steps
+    actions: (B, K) int64
+    mask: (B, K) 1.0 while unroll step k+1 is inside the trajectory
+    target_reward: (B, K) scalar rewards (transition k)
+    target_value: (B, K+1) scalar n-step value targets
+    target_policy: (B, K+1, A) visit-count distributions (zeros when masked)
+    weights: (B,) importance-sampling weights
+    chance: (B, K) true chance codes (zero for deterministic envs)
+    """
+
+    obs: torch.Tensor
+    actions: torch.Tensor
+    mask: torch.Tensor
+    target_reward: torch.Tensor
+    target_value: torch.Tensor
+    target_policy: torch.Tensor
+    weights: torch.Tensor
+    chance: Optional[torch.Tensor] = None
+
+
+def negative_cosine_similarity(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    a = a / torch.clamp(torch.linalg.vector_norm(a, dim=-1, keepdim=True), min=1e-9)
+    b = b / torch.clamp(torch.linalg.vector_norm(b, dim=-1, keepdim=True), min=1e-9)
+    return -torch.sum(a * b, dim=-1)
+
+
+def clip_by_global_norm_(grads, max_norm: float) -> torch.Tensor:
+    """optax ``clip_by_global_norm``: the gradients stay as they are while
+    their global norm is below ``max_norm`` and are scaled by
+    max_norm / norm otherwise (``clip_grad_norm_`` divides by norm + 1e-6
+    instead). Returns the norm before clipping."""
+    norm = torch.nn.utils.get_total_norm(grads)
+    scale = torch.where(norm < max_norm, 1.0, max_norm / norm)
+    for g in grads:
+        g.mul_(scale)
+    return norm
 
 
 class MuZeroPolicy:
@@ -27,7 +101,7 @@ class MuZeroPolicy:
 
     @staticmethod
     def default_config() -> Config:
-        """The serving keys of the JAX policy's defaults (muzero.py:99-167)."""
+        """The JAX policy's defaults (``lightzero_tpu/policy/muzero.py:99``)."""
         return Config(
             dict(
                 type="muzero",
@@ -40,7 +114,18 @@ class MuZeroPolicy:
                     categorical_distribution=True,
                     self_supervised_learning_loss=False,
                     norm_type="LN",
+                    harmony_balance=False,
                 ),
+                batch_size=256,
+                optim_type="Adam",  # 'SGD' | 'Adam' | 'AdamW'
+                learning_rate=0.003,
+                momentum=0.9,
+                weight_decay=1e-4,
+                grad_clip_value=10.0,
+                piecewise_decay_lr_scheduler=False,
+                threshold_training_steps_for_final_lr=int(5e4),
+                num_unroll_steps=5,
+                td_steps=5,
                 discount_factor=0.997,
                 num_simulations=50,
                 root_dirichlet_alpha=0.3,
@@ -48,10 +133,30 @@ class MuZeroPolicy:
                 pb_c_base=19652,
                 pb_c_init=1.25,
                 value_delta_max=0.01,
+                ssl_loss_weight=0.0,
+                policy_loss_weight=1.0,
+                value_loss_weight=0.25,
+                reward_loss_weight=1.0,
+                policy_entropy_weight=0.0,
+                target_update_freq=100,
+                use_priority=True,
+                priority_prob_alpha=0.6,
+                priority_prob_beta=0.4,
                 env_type="not_board_games",
+                battle_mode="play_with_bot_mode",
+                eval_freq=100,
+                replay_ratio=0.25,
+                n_episode=8,
+                game_segment_length=200,
+                replay_buffer_size=int(1e6),
                 collect_epsilon=0.0,
+                manual_temperature_decay=False,
                 fixed_temperature_value=0.25,
+                threshold_training_steps_for_final_temperature=int(1e5),
+                reanalyze_ratio=0.0,
+                reanalyze_noise=True,
                 collect_with_pure_policy=False,
+                reuse_search=False,
             )
         )
 
@@ -77,6 +182,7 @@ class MuZeroPolicy:
             model_cfg.reward_support_size = self.reward_support.size
             model = MuZeroModel.from_config(model_cfg, torch.Generator().manual_seed(seed))
         self.model = model.to(self.device).eval()
+        self.num_unroll_steps = int(cfg.num_unroll_steps)
         self.players = 2 if cfg.env_type == "board_games" else 1
         self.search_cfg = SearchConfig(
             num_simulations=cfg.num_simulations,
@@ -90,16 +196,74 @@ class MuZeroPolicy:
         )
         self.generator = torch.Generator(self.device).manual_seed(seed)
 
-    # ------------------------------------------------------------ inference
-    def _initial(self, obs: torch.Tensor):
-        return self.model.initial_inference(obs)
+    # ------------------------------------------------------------------ init
+    def _lr_schedule(self) -> Callable[[int], float]:
+        """The learning rate's factor at a step count (optax schedules,
+        muzero.py:197-212): constant; the cosine decay to ``alpha`` = 0.05
+        of the rate, held there after ``cos_lr_decay_steps``; or the
+        piecewise schedule, x0.1 from half and again from three quarters of
+        ``threshold_training_steps_for_final_lr``."""
+        cfg = self.cfg
+        if cfg.get("cos_lr_scheduler", False):
+            steps = int(cfg.get("cos_lr_decay_steps", 1e5))
+            alpha = 0.05
 
+            def cosine(count: int) -> float:
+                count = min(count, steps)
+                return (1.0 - alpha) * 0.5 * (1.0 + math.cos(math.pi * count / steps)) + alpha
+
+            return cosine
+        if cfg.piecewise_decay_lr_scheduler:
+            t = int(cfg.threshold_training_steps_for_final_lr)
+            first, second = int(0.5 * t), int(0.75 * t)
+            return lambda count: 0.1 ** ((count >= first) + (count >= second))
+        return lambda count: 1.0
+
+    def _make_optimizer(
+        self, model: nn.Module
+    ) -> Tuple[torch.optim.Optimizer, torch.optim.lr_scheduler.LambdaLR]:
+        """The optax chain of muzero.py:214-241 in torch: clip (done in the
+        learn step, as optax does it) -> L2 decay -> SGD or Adam; or AdamW
+        with decoupled decay, optionally only on tensors of rank >= 2
+        (``selective_weight_decay``)."""
+        cfg = self.cfg
+        lr = float(cfg.learning_rate)
+        wd = float(cfg.weight_decay)
+        params = list(model.parameters())
+        if cfg.optim_type == "SGD":
+            # torch adds wd * p to the gradient before the momentum, as
+            # optax's add_decayed_weights -> sgd does
+            opt = torch.optim.SGD(params, lr=lr, momentum=float(cfg.momentum), weight_decay=wd)
+        elif cfg.optim_type == "Adam":
+            opt = torch.optim.Adam(params, lr=lr, eps=1e-8, weight_decay=wd)
+        elif cfg.optim_type == "AdamW":
+            if bool(cfg.get("selective_weight_decay", False)):
+                groups = [
+                    dict(params=[p for p in params if p.ndim >= 2], weight_decay=wd),
+                    dict(params=[p for p in params if p.ndim < 2], weight_decay=0.0),
+                ]
+            else:
+                groups = [dict(params=params, weight_decay=wd)]
+            opt = torch.optim.AdamW(groups, lr=lr, eps=1e-8)
+        else:
+            raise ValueError(f"unknown optim_type {cfg.optim_type}")
+        return opt, torch.optim.lr_scheduler.LambdaLR(opt, self._lr_schedule())
+
+    def init_train_state(self) -> TrainState:
+        """The policy's model as the online network, a copy of it as the
+        target, and a fresh optimizer (the JAX version also draws the
+        params; here the policy drew them when it was built)."""
+        target = copy.deepcopy(self.model).requires_grad_(False)
+        optimizer, lr_scheduler = self._make_optimizer(self.model)
+        return TrainState(self.model, target, optimizer, lr_scheduler, 0)
+
+    # ------------------------------------------------------------ inference
     def _root_embedding(self, out0) -> Any:
         """Search embedding at the root; variants extend it."""
         return out0.latent_state
 
-    def _recurrent_fn(self, action: torch.Tensor, embedding: Any) -> RecurrentOutput:
-        out = self.model.recurrent_inference(embedding, action)
+    def _recurrent_fn(self, model: nn.Module, action: torch.Tensor, embedding: Any) -> RecurrentOutput:
+        out = model.recurrent_inference(embedding, action)
         return RecurrentOutput(
             reward=inverse_scalar_transform(out.reward_logits, self.reward_support),
             value=inverse_scalar_transform(out.value_logits, self.value_support),
@@ -107,6 +271,111 @@ class MuZeroPolicy:
             embedding=out.latent_state,
         )
 
+    @torch.no_grad()
+    def _bootstrap_value_fn(self, target_model: nn.Module, obs: torch.Tensor) -> torch.Tensor:
+        """Fresh target-net root values for the buffer's bootstrap targets."""
+        out = target_model.initial_inference(obs)
+        return inverse_scalar_transform(out.value_logits, self.value_support)
+
+    # ---------------------------------------------------------------- learn
+    def _sample_losses(self, model: nn.Module, batch: TrainBatch):
+        """Per-sample loss vector before importance weighting and reduction:
+        ``(loss (B,), logs, value_priority (B,))``. (The JAX version also
+        returns the HarmonyDream regularizer, which is not ported.)"""
+        cfg = self.cfg
+        K = self.num_unroll_steps
+        tv_cat = phi_transform(self.value_support, scalar_transform(batch.target_value))
+        tr_cat = phi_transform(self.reward_support, scalar_transform(batch.target_reward))
+
+        out0 = model.initial_inference(batch.obs[:, 0])
+        latent = out0.latent_state
+        value_loss = cross_entropy_loss(out0.value_logits, tv_cat[:, 0])
+        policy_loss = cross_entropy_loss(out0.policy_logits, batch.target_policy[:, 0])
+        prob = torch.softmax(out0.policy_logits, dim=-1)
+        entropy = -torch.sum(prob * torch.log(torch.clamp(prob, min=1e-9)), dim=-1)
+        policy_entropy_loss = -entropy
+        pred_value0 = inverse_scalar_transform(out0.value_logits.detach(), self.value_support)
+        value_priority = torch.abs(pred_value0 - batch.target_value[:, 0])
+
+        reward_loss = torch.zeros_like(value_loss)
+        consistency_loss = torch.zeros_like(value_loss)
+        ssl = cfg.model.get("self_supervised_learning_loss", False) and cfg.ssl_loss_weight > 0
+
+        for k in range(K):
+            rec = model.recurrent_inference(latent, batch.actions[:, k])
+            latent = rec.latent_state
+            if ssl:
+                proj_dyn = model.project(latent, with_grad=True)
+                # the target branch carries no gradient (stop_gradient of
+                # the projection of stop_gradient(representation))
+                with torch.no_grad():
+                    repr_k = model.representation(batch.obs[:, k + 1])
+                    proj_obs = model.project(repr_k, with_grad=False)
+                consistency_loss = consistency_loss + negative_cosine_similarity(
+                    proj_dyn, proj_obs
+                ) * batch.mask[:, k]
+            policy_loss = policy_loss + cross_entropy_loss(
+                rec.policy_logits, batch.target_policy[:, k + 1]
+            )
+            prob = torch.softmax(rec.policy_logits, dim=-1)
+            entropy = -torch.sum(prob * torch.log(torch.clamp(prob, min=1e-9)), dim=-1)
+            policy_entropy_loss = policy_entropy_loss - entropy
+            value_loss = value_loss + cross_entropy_loss(rec.value_logits, tv_cat[:, k + 1])
+            reward_loss = reward_loss + cross_entropy_loss(rec.reward_logits, tr_cat[:, k])
+
+        loss = (
+            cfg.ssl_loss_weight * consistency_loss
+            + cfg.policy_loss_weight * policy_loss
+            + cfg.value_loss_weight * value_loss
+            + cfg.reward_loss_weight * reward_loss
+            + cfg.policy_entropy_weight * policy_entropy_loss
+        )
+        logs = dict(
+            policy_loss=policy_loss.mean(),
+            value_loss=value_loss.mean(),
+            reward_loss=reward_loss.mean(),
+            consistency_loss=consistency_loss.mean(),
+            # the last unroll step's entropy, as in the JAX policy
+            policy_entropy=entropy.mean(),
+            predicted_value=pred_value0.mean(),
+            target_value=batch.target_value[:, 0].mean(),
+        )
+        return loss, {k: v.detach() for k, v in logs.items()}, value_priority
+
+    def _loss_fn(self, model: nn.Module, batch: TrainBatch):
+        loss, logs, value_priority = self._sample_losses(model, batch)
+        weighted_total_loss = torch.mean(batch.weights * loss)
+        logs["total_loss"] = weighted_total_loss.detach()
+        # the total gradient is scaled by 1/K (reference muzero.py:584-585)
+        return weighted_total_loss / self.num_unroll_steps, (logs, value_priority)
+
+    def forward_learn(self, state: TrainState, batch: TrainBatch):
+        """One optimizer step (the JAX policy's ``_forward_learn``, which it
+        jits as ``forward_learn``): ``(state, logs, value_priority (B,))``.
+        The logs are 0-d tensors on the policy's device (``cur_lr`` a
+        float)."""
+        model = state.model
+        state.optimizer.zero_grad(set_to_none=True)
+        loss, (logs, value_priority) = self._loss_fn(model, batch)
+        loss.backward()
+        params = list(model.parameters())
+        for p in params:
+            # a parameter the loss does not reach has a zero gradient in JAX
+            # and still takes the weight decay's step
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        logs["grad_norm"] = clip_by_global_norm_(
+            [p.grad for p in params], float(self.cfg.grad_clip_value)
+        )
+        logs["cur_lr"] = state.lr_scheduler.get_last_lr()[0]
+        state.optimizer.step()
+        state.lr_scheduler.step()
+        train_iter = state.train_iter + 1
+        if train_iter % int(self.cfg.target_update_freq) == 0:
+            state.target_model.load_state_dict(model.state_dict())
+        return state._replace(train_iter=train_iter), logs, value_priority
+
+    # -------------------------------------------------------------- collect
     @torch.no_grad()
     def _forward_collect(
         self,
@@ -120,7 +389,7 @@ class MuZeroPolicy:
         g = self.generator
         obs = obs.to(self.device, torch.float32)
         legal_mask = legal_mask.to(self.device)
-        out0 = self._initial(obs)
+        out0 = self.model.initial_inference(obs)
         pred_value = inverse_scalar_transform(out0.value_logits, self.value_support)
         if bool(self.cfg.get("collect_with_pure_policy", False)):
             # no-search mode (reference muzero.py:800-812): act from the
@@ -145,7 +414,7 @@ class MuZeroPolicy:
         )
         search_out = batch_puct_search(
             root,
-            self._recurrent_fn,
+            functools.partial(self._recurrent_fn, self.model),
             self.search_cfg,
             legal_mask,
             to_play=to_play.to(self.device),
@@ -190,3 +459,39 @@ class MuZeroPolicy:
         return self._forward_collect(
             obs, legal_mask, self._to_play(obs, to_play), 1.0, 0.0, deterministic=True
         )
+
+    # ------------------------------------------------------------ reanalyze
+    @torch.no_grad()
+    def forward_reanalyze(
+        self, target_model, obs, legal_mask, to_play=None, generator=None,
+        true_action=None, reuse_value=None,
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Search again with the target network on stored observations: the
+        normalized root visit distributions (the reanalyzed policy targets)
+        and the root values. Root noise per ``reanalyze_noise``;
+        ``generator`` (on the policy's device) draws it and the tie-break
+        uniforms, the policy's own generator by default."""
+        if true_action is not None or reuse_value is not None:
+            raise NotImplementedError(
+                "reanalyze with search reuse (true_action, reuse_value) is not ported yet "
+                "(ROADMAP queue 1, slice 15: ReZero)"
+            )
+        obs = obs.to(self.device, torch.float32)
+        out0 = target_model.initial_inference(obs)
+        root = RootOutput(
+            prior_logits=out0.policy_logits,
+            value=inverse_scalar_transform(out0.value_logits, self.value_support),
+            embedding=self._root_embedding(out0),
+        )
+        search_out = batch_puct_search(
+            root,
+            functools.partial(self._recurrent_fn, target_model),
+            self.search_cfg,
+            legal_mask.to(self.device),
+            to_play=self._to_play(obs, to_play).to(self.device),
+            with_noise=bool(self.cfg.get("reanalyze_noise", True)),
+            generator=generator or self.generator,
+            device=self.device,
+        )
+        counts = search_out.visit_counts.to(torch.float32)
+        return counts / torch.clamp(counts.sum(-1, keepdim=True), min=1e-9), search_out.root_value

@@ -7,11 +7,12 @@ setup(
     version="0.1.0",
     description="TPU-native MCTS+RL framework (LightZero capability surface, JAX/XLA)",
     # lightzero_tpu_torch: the PyTorch/CUDA port; its CUDA sources are
-    # compiled with nvcc at first use (lightzero_tpu_torch/_build.py)
+    # compiled with nvcc, its host C++ with g++, at first use
+    # (lightzero_tpu_torch/_build.py)
     packages=find_packages(
         include=["lightzero_tpu", "lightzero_tpu.*", "lightzero_tpu_torch", "lightzero_tpu_torch.*"]
     ),
-    package_data={"lightzero_tpu_torch": ["csrc/*.cu"]},
+    package_data={"lightzero_tpu_torch": ["csrc/*.cu", "csrc/*.cpp"]},
     python_requires=">=3.10",
     install_requires=[
         "jax",

@@ -5,7 +5,8 @@
   chip_smoke.py names them (nor pytest or gymnasium) in an import;
 - with no CUDA device, the entry points built without ``device=`` raise;
 - the kernel loader raises a clear error when nvcc is absent or fails, and
-  never hands back the plain version.
+  never hands back the plain version; the replay core's loader raises when
+  g++ is absent, and the buffer does not fall back to its Python path.
 """
 import ast
 import os
@@ -18,12 +19,14 @@ import pytest
 import torch
 
 from lightzero_tpu_torch import _build
+from lightzero_tpu_torch.buffers import GameBuffer, native
+from lightzero_tpu_torch.config import deep_merge
 from lightzero_tpu_torch.envs import CartPoleEnv
 from lightzero_tpu_torch.policy import MuZeroPolicy
 from lightzero_tpu_torch.search import RootOutput, SearchConfig, batch_puct_search
 from lightzero_tpu_torch.search import check_fast_division
 from lightzero_tpu_torch.search import fused_traverse as fused_traverse_module
-from lightzero_tpu_torch.workers import Evaluator
+from lightzero_tpu_torch.workers import Evaluator, RolloutCollector
 
 pytestmark = pytest.mark.unittest
 
@@ -91,6 +94,12 @@ def test_evaluator_without_device_raises_with_no_cuda(no_cuda):
         Evaluator(CartPoleEnv(), policy)
 
 
+def test_collector_without_device_raises_with_no_cuda(no_cuda):
+    policy = MuZeroPolicy(dict(num_simulations=2), device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        RolloutCollector(CartPoleEnv(), policy, num_envs=2)
+
+
 def test_search_without_device_raises_with_no_cuda(no_cuda):
     root = RootOutput(prior_logits=torch.zeros(2, 3), value=torch.zeros(2),
                       embedding=torch.zeros(2, 4))
@@ -138,3 +147,15 @@ def test_loader_raises_with_the_compiler_output_when_nvcc_fails(no_nvcc):
     with pytest.raises(_build.BuildError, match="made-up failure"):
         _build.load("fused_traverse")
     assert not list((no_nvcc / "build").glob("*.so"))
+
+
+def test_replay_core_raises_when_gxx_is_absent(no_nvcc):
+    with pytest.raises(_build.BuildError, match=r"g\+\+ not found"):
+        native.library()
+    policy = MuZeroPolicy(dict(num_simulations=2, model=dict(latent_state_dim=8)), device="cpu")
+    with pytest.raises(_build.BuildError, match=r"g\+\+ not found"):
+        GameBuffer(policy.cfg, policy)
+    # the Python path runs only when the config asks for it
+    buf = GameBuffer(deep_merge(policy.cfg, dict(use_native_replay=False)), policy)
+    assert not buf._use_native
+    assert not (no_nvcc / "build").exists()

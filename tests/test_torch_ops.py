@@ -80,3 +80,55 @@ def test_sample_from_visit_counts_samples_only_visited_actions():
     for _ in range(20):
         a, _ = sample_from_visit_counts(counts, 1.0, generator=g)
         assert counts[torch.arange(2), a].min() > 0
+
+
+# the training half: scalar_transform, phi_transform, cross_entropy_loss and
+# visit_count_temperature, to 1e-6 (elementwise float32 arithmetic in the
+# same order on both sides)
+
+
+@pytest.mark.parametrize("delta", [1.0, 2.5])
+def test_scalar_transform_matches(delta):
+    x = np.random.default_rng(3).uniform(-500, 500, 256).astype(np.float32)
+    x[:3] = [0.0, -0.0, 1e-7]
+    exp = np.asarray(jax_scaling.scalar_transform(jnp.asarray(x), delta=delta))
+    got = scaling.scalar_transform(torch.from_numpy(x), delta=delta).numpy()
+    np.testing.assert_allclose(got, exp, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("bounds", SUPPORTS)
+@pytest.mark.parametrize("smoothing", [0.0, 0.01])
+def test_phi_transform_matches_at_the_ends_and_with_smoothing(bounds, smoothing):
+    rng = np.random.default_rng(4)
+    lo, hi = bounds[0], bounds[0] + bounds[2] * (scaling.DiscreteSupport(*bounds).size - 1)
+    x = rng.uniform(lo * 1.5, hi * 1.5, (8, 32)).astype(np.float32)
+    # the support's ends, beyond them (clamped), and exact atoms
+    x[0, :6] = [lo, hi, lo - 100.0, hi + 100.0, 0.0, bounds[2]]
+    exp = np.asarray(jax_scaling.phi_transform(
+        jax_scaling.DiscreteSupport(*bounds), jnp.asarray(x), smoothing))
+    got = scaling.phi_transform(scaling.DiscreteSupport(*bounds), torch.from_numpy(x), smoothing)
+    np.testing.assert_allclose(got.numpy(), exp, rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(got.sum(-1).numpy(), 1.0, rtol=1e-5)
+    assert got[0, 2, 0] == pytest.approx(1.0 - smoothing + smoothing / got.shape[-1])
+
+
+def test_cross_entropy_loss_matches():
+    rng = np.random.default_rng(5)
+    pred = (rng.standard_normal((6, 5, 21)) * 3).astype(np.float32)
+    target = rng.dirichlet(np.ones(21), (6, 5)).astype(np.float32)
+    target[0, 0] = 0.0  # a masked target row: zero loss
+    exp = np.asarray(jax_scaling.cross_entropy_loss(jnp.asarray(pred), jnp.asarray(target)))
+    got = scaling.cross_entropy_loss(torch.from_numpy(pred), torch.from_numpy(target)).numpy()
+    np.testing.assert_allclose(got, exp, rtol=1e-6, atol=1e-6)
+    assert got[0, 0] == 0.0
+
+
+@pytest.mark.parametrize("decay", [True, False])
+def test_visit_count_temperature_matches_around_its_thresholds(decay):
+    threshold = 1000
+    for steps in (0, 499, 500, 501, 749, 750, 751, 10_000):
+        exp = jax_scaling.visit_count_temperature(decay, 0.25, threshold, steps)
+        assert scaling.visit_count_temperature(decay, 0.25, threshold, steps) == exp
+    if decay:
+        assert [scaling.visit_count_temperature(True, 0.25, threshold, s)
+                for s in (499, 500, 749, 750)] == [1.0, 0.5, 0.5, 0.25]

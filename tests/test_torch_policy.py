@@ -88,3 +88,58 @@ def test_evaluator_plays_episodes_on_cpu():
     assert out["episode_returns"] == [6.0, 6.0, 6.0]
     assert out["env_steps"] == 6 and out["new_best"]
     assert fused_traverse.launches == before  # the CPU runs the plain version
+
+
+def _three_action_policies(seed):
+    cfg = dict(main_config.policy, num_simulations=8,
+               model=dict(main_config.policy.model, action_space_size=3, latent_state_dim=32,
+                          self_supervised_learning_loss=False))
+    jax_policy = JaxMuZeroPolicy(jax_deep_merge(JaxMuZeroPolicy.default_config(), cfg))
+    params = perturbed_params(jax_policy.model, seed)
+    port = MuZeroPolicy(cfg, device="cpu", seed=seed)
+    port.model.load_state_dict(flax_to_state_dict(params))
+    return jax_policy, params, port, cfg
+
+
+def test_pure_policy_eval_matches_jax_with_an_illegal_action():
+    """collect_with_pure_policy under forward_eval: the argmax of the masked
+    policy and its softmax, against JAX (probabilities to 1e-6)."""
+    jax_policy, params, _, cfg = _three_action_policies(5)
+    cfg = dict(cfg, collect_with_pure_policy=True)
+    jax_policy = JaxMuZeroPolicy(jax_deep_merge(JaxMuZeroPolicy.default_config(), cfg))
+    port = MuZeroPolicy(cfg, device="cpu")
+    port.model.load_state_dict(flax_to_state_dict(params))
+    rng = np.random.default_rng(6)
+    obs = rng.standard_normal((16, 4)).astype(np.float32)
+    legal = np.ones((16, 3), bool)
+    legal[np.arange(16), rng.integers(0, 3, 16)] = False
+    exp = jax_policy.forward_eval(params, jax.random.PRNGKey(0), jnp.asarray(obs), jnp.asarray(legal))
+    before = fused_traverse.launches
+    got = port.forward_eval(torch.from_numpy(obs), torch.from_numpy(legal))
+    assert fused_traverse.launches == before  # no search in this mode
+    np.testing.assert_array_equal(got["action"].numpy(), np.asarray(exp["action"]))
+    assert legal[np.arange(16), got["action"].numpy()].all()
+    np.testing.assert_allclose(got["visit_counts"].numpy(), np.asarray(exp["visit_counts"]),
+                               rtol=1e-6, atol=1e-6)
+    assert (got["visit_counts"].numpy()[~legal] == 0).all()
+    np.testing.assert_allclose(got["distribution_entropy"].numpy(),
+                               np.asarray(exp["distribution_entropy"]), rtol=1e-5, atol=1e-6)
+
+
+def test_epsilon_greedy_collect():
+    """The streams differ from JAX's, so: at epsilon=1 every action is legal
+    and both legal actions of a row occur; at epsilon=0 the actions equal
+    those of a call without epsilon from the same generator state."""
+    _, _, port, _ = _three_action_policies(9)
+    obs = torch.from_numpy(np.random.default_rng(10).standard_normal((64, 4)).astype(np.float32))
+    legal = torch.ones((64, 3), dtype=torch.bool)
+    legal[:, 1] = False
+    out = port.forward_collect(obs, legal, temperature=0.25, epsilon=1.0)
+    assert legal[torch.arange(64), out["action"]].all()
+    assert set(out["action"].tolist()) == {0, 2}
+    port.generator.manual_seed(11)
+    plain = port.forward_collect(obs, legal, temperature=0.25)
+    port.generator.manual_seed(11)
+    eps0 = port.forward_collect(obs, legal, temperature=0.25, epsilon=0.0)
+    assert torch.equal(plain["action"], eps0["action"])
+    assert torch.equal(plain["visit_counts"], eps0["visit_counts"])

@@ -1,0 +1,215 @@
+"""The port's training entry on the CPU (lightzero_tpu_torch/entry/train_muzero.py),
+mirroring tests/test_train_pipeline.py at a size that runs in seconds:
+CartPole, 2 collect envs, latent 32, projector 64, support scale 10, 5
+simulations, batch 16, the SSL loss on.
+
+- a run of a few hundred env steps leaves total_config.json, log/train.jsonl
+  and the checkpoints in its exp dir, with finite losses;
+- a second run with auto_resume continues from the first's train_iter;
+- a poisoned (NaN) loss stops the run and writes ckpt/ckpt_nan;
+- checkpoints round-trip exactly, and the lenient load of a params export
+  keeps the fresh optimizer;
+- the entry refuses what is not ported and, with no GPU, a call without a
+  device.
+"""
+import json
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from lightzero_tpu_torch.config import Config
+from lightzero_tpu_torch.entry import train_muzero
+from lightzero_tpu_torch.policy import MuZeroPolicy
+from lightzero_tpu_torch.utils.checkpoint import (
+    load_checkpoint,
+    load_checkpoint_lenient,
+    save_checkpoint,
+    save_params_export,
+)
+
+pytestmark = pytest.mark.unittest
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """Eager ops this small gain nothing from intra-op threads, and the
+    suite runs several test processes at once: their thread pools would
+    fight over the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+MODEL = dict(observation_shape=4, action_space_size=2, model_type="mlp", latent_state_dim=32,
+             support_scale=10, self_supervised_learning_loss=True,
+             proj_hid=64, proj_out=64, pred_hid=32, pred_out=64)
+
+
+def tiny_cfg(exp_dir, **policy):
+    return Config(dict(
+        exp_name=str(exp_dir),
+        env=dict(env_id="CartPole-v0", stop_value=10_000, collector_env_num=2,
+                 evaluator_env_num=2, n_evaluator_episode=2),
+        policy=dict(dict(model=MODEL, num_simulations=5, batch_size=16, update_per_collect=4,
+                         n_episode=2, eval_freq=1000, ssl_loss_weight=2, learning_rate=0.003),
+                    **policy),
+    ))
+
+
+def read_jsonl(path):
+    with open(path) as f:
+        return [json.loads(line) for line in f]
+
+
+def test_train_muzero_runs_and_resumes(tmp_path):
+    exp = tmp_path / "exp"
+    cfg = tiny_cfg(exp, auto_resume=True, save_ckpt_freq=4)
+    policy, state, stats = train_muzero(cfg, seed=0, max_env_step=200, device="cpu")
+    # 2 chunks of 64 steps x 2 envs; 4 learn steps after each
+    assert stats["env_steps"] == 256 and stats["train_iter"] == 8 and state.train_iter == 8
+    assert stats["eval_env_steps"] > 0 and stats["buffer"].num_transitions > 16
+    assert os.path.exists(exp / "total_config.json")
+    with open(exp / "total_config.json") as f:
+        assert json.load(f)["policy"]["batch_size"] == 16
+    learner = [r for r in read_jsonl(exp / "log" / "train.jsonl") if "learner/total_loss" in r]
+    assert len(learner) == 2 and all(np.isfinite(r["learner/total_loss"]) for r in learner)
+    assert os.path.getsize(exp / "log" / "train.txt") > 0
+    for name in ("ckpt_final.pt", "ckpt_best.pt", "params_best.pt", "iteration_8.pt"):
+        assert os.path.exists(exp / "ckpt" / name), name
+    with open(exp / "ckpt" / "resume_meta.json") as f:
+        assert json.load(f) == dict(last_ckpt="iteration_8", train_iter=8, env_steps=256)
+    # the rerun restores iteration 8 and its env steps, then trains on
+    _, state2, stats2 = train_muzero(cfg, seed=0, max_env_step=300, device="cpu")
+    assert stats2["env_steps"] == 384 and stats2["train_iter"] == 12 and state2.train_iter == 12
+    assert "auto_resume: restored iteration_8" in (exp / "log" / "train.txt").read_text()
+
+
+def test_nan_loss_raises_with_ckpt_nan(tmp_path, monkeypatch):
+    original = MuZeroPolicy._loss_fn
+
+    def poisoned(self, model, batch):
+        loss, (logs, priority) = original(self, model, batch)
+        logs["total_loss"] = logs["total_loss"] * float("nan")
+        return loss * float("nan"), (logs, priority)
+
+    monkeypatch.setattr(MuZeroPolicy, "_loss_fn", poisoned)
+    exp = tmp_path / "exp_nan"
+    with pytest.raises(RuntimeError, match="non-finite total_loss"):
+        train_muzero(tiny_cfg(exp), seed=0, max_env_step=3000, device="cpu")
+    assert os.path.exists(exp / "ckpt" / "ckpt_nan.pt")
+    saved = load_checkpoint(str(exp / "ckpt" / "ckpt_nan"))
+    assert saved["train_iter"] == 4
+
+
+def _trained_state(seed=0):
+    policy = MuZeroPolicy(dict(model=MODEL, num_simulations=2), device="cpu", seed=seed)
+    state = policy.init_train_state()
+    for p in policy.model.parameters():
+        p.grad = torch.ones_like(p)
+    state.optimizer.step()
+    state.lr_scheduler.step()
+    return policy, state._replace(train_iter=1)
+
+
+def test_checkpoint_round_trip(tmp_path):
+    _, state = _trained_state()
+    path = save_checkpoint(state, str(tmp_path / "ckpt" / "iteration_1"))
+    assert path.endswith("iteration_1.pt")
+    _, fresh = _trained_state(seed=1)
+    fresh = fresh._replace(train_iter=0)
+    restored = load_checkpoint(str(tmp_path / "ckpt" / "iteration_1"), target=fresh)
+    assert restored.train_iter == 1
+    for a, b in zip(state.model.state_dict().values(), restored.model.state_dict().values()):
+        assert torch.equal(a, b)
+    sa, sb = state.optimizer.state_dict(), restored.optimizer.state_dict()
+    for i in sa["state"]:
+        assert all(torch.equal(sa["state"][i][k], sb["state"][i][k]) for k in sa["state"][i])
+    assert restored.lr_scheduler.last_epoch == 1
+
+
+def test_lenient_load_of_a_params_export_keeps_the_fresh_optimizer(tmp_path):
+    _, state = _trained_state()
+    save_params_export(state, str(tmp_path / "params_best"))
+    policy = MuZeroPolicy(dict(model=MODEL, num_simulations=2), device="cpu", seed=5)
+    fresh = policy.init_train_state()
+    with pytest.raises(KeyError):
+        load_checkpoint(str(tmp_path / "params_best"), target=fresh)
+    restored = load_checkpoint_lenient(str(tmp_path / "params_best"), target=fresh)
+    assert restored.train_iter == 0 and not restored.optimizer.state
+    for a, b in zip(state.model.state_dict().values(), restored.model.state_dict().values()):
+        assert torch.equal(a, b)
+    # a model of another width does not fit: nothing to fall back to
+    other = MuZeroPolicy(dict(model=dict(MODEL, latent_state_dim=16), num_simulations=2),
+                         device="cpu").init_train_state()
+    with pytest.raises(RuntimeError):
+        load_checkpoint_lenient(str(tmp_path / "params_best"), target=other)
+
+
+@pytest.mark.parametrize("override,match", [
+    (dict(policy=dict(type="efficientzero")), "slice 11"),
+    (dict(policy=dict(buffer_reanalyze_freq=0.5)), "slice 15"),
+    (dict(policy=dict(analysis_loss_landscape=True)), "slice 20"),
+    (dict(env=dict(env_id="Pendulum-v1")), "slice 14"),
+])
+def test_train_muzero_refuses_what_is_not_ported(tmp_path, override, match):
+    cfg = tiny_cfg(tmp_path / "exp")
+    for key, value in override.items():
+        cfg[key] = dict(cfg[key], **value)
+    with pytest.raises(NotImplementedError, match=match):
+        train_muzero(cfg, device="cpu")
+
+
+def test_train_muzero_without_device_raises_with_no_cuda(tmp_path, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train_muzero(tiny_cfg(tmp_path / "exp"))
+    assert not os.path.exists(tmp_path / "exp")
+
+
+def test_entry_utils():
+    import threading
+
+    from lightzero_tpu_torch.entry.utils import (
+        calculate_update_per_collect,
+        random_collect,
+        safe_eval,
+    )
+
+    assert calculate_update_per_collect(Config(dict(update_per_collect=7)), 1000) == 7
+    assert calculate_update_per_collect(Config(dict(replay_ratio=0.25)), 1000) == 250
+    assert calculate_update_per_collect(Config(dict(replay_ratio=0.25)), 2) == 1
+
+    class Collector:
+        def collect(self, temperature, epsilon, num_episodes):
+            assert (temperature, epsilon) == (1.0, 1.0)  # every action random
+            return ["ep"] * num_episodes, [None] * num_episodes, dict(episodes=num_episodes)
+
+    class Buffer:
+        def push_episodes(self, episodes, priorities):
+            self.pushed = episodes
+
+    buf = Buffer()
+    assert random_collect(Collector(), buf, num_episodes=3) == dict(episodes=3)
+    assert buf.pushed == ["ep"] * 3
+
+    release = threading.Event()
+
+    class Evaluator:
+        def __init__(self, mode):
+            self.mode = mode
+
+        def eval(self, n_episodes=None):
+            if self.mode == "hang":
+                release.wait(10)
+            if self.mode == "fail":
+                raise ValueError("eval failed")
+            return dict(mean_return=1.0, n=n_episodes)
+
+    assert safe_eval(Evaluator("ok"), n_episodes=2) == dict(mean_return=1.0, n=2)
+    assert safe_eval(Evaluator("hang"), timeout_s=0.05) is None
+    release.set()
+    with pytest.raises(ValueError, match="eval failed"):
+        safe_eval(Evaluator("fail"))
