@@ -37,7 +37,27 @@ Phases, each of a fixed size, in one process:
      searches) x 25; one learn step on the card against one on the CPU from
      the same params and batch; one sample at reanalyze_ratio=0.25 adds 25
      launches; the median learn-step time over 20 steps (CUDA events), the
-     collect rate, and a torch.profiler pass over 5 learn steps.
+     collect rate, and a torch.profiler pass over 5 learn steps;
+  7. efficientzero: the CartPole EfficientZero config at full width (latent
+     128, LSTM 128, supports of 601 atoms, 25 simulations), whose search is
+     the pUCT search through the descent kernel: the Evaluator on 3 envs
+     until each ends an episode (launches = env steps x 25); a batch of 4
+     searched on the card against the same search on the CPU; the descent
+     inputs of one eval search (simulations 1, 13 and 25) rerun kernel
+     against plain as in phase 3; train_muzero with the device left unset:
+     an eval at iter 0, one collect round and 20 learn steps, launches =
+     (collect + eval searches) x 25; one learn step on the card against one
+     on the CPU; the median learn-step time;
+  8. gumbel_muzero: the CartPole Gumbel MuZero config (10 simulations, 2
+     considered actions), whose collect and eval search is the Gumbel
+     search in plain PyTorch: the Evaluator on 3 envs adds no descent
+     launch (its wall as a user runs it), then a second eval with every
+     descent timed between two device syncs, for the descent's share of
+     that instrumented wall; a batch of 4 searched on
+     the card against the CPU with the same Gumbel table; a short
+     train_muzero run as in phase 7 (no launch) and one reanalyze sample,
+     which searches with the pUCT search (10 launches); one learn step on
+     the card against one on the CPU; the median learn-step time.
 
 The last lines are the card's name and power limit, one JSON object with a
 record per kernel, and {"ok": true, "device": {...}}; that last line is printed
@@ -64,12 +84,15 @@ import numpy as np
 import torch
 
 from lightzero_tpu_torch import _build
+from lightzero_tpu_torch.configs.cartpole_efficientzero import main_config as ez_config
+from lightzero_tpu_torch.configs.cartpole_gumbel_muzero import main_config as gumbel_config
 from lightzero_tpu_torch.configs.cartpole_muzero import main_config
 from lightzero_tpu_torch.entry import train_muzero
 from lightzero_tpu_torch.envs import CartPoleEnv
+from lightzero_tpu_torch.models import EfficientZeroModel
 from lightzero_tpu_torch.models.common import lecun_normal_
-from lightzero_tpu_torch.policy import MuZeroPolicy
-from lightzero_tpu_torch.search import puct
+from lightzero_tpu_torch.policy import EfficientZeroPolicy, GumbelMuZeroPolicy, MuZeroPolicy
+from lightzero_tpu_torch.search import gumbel, puct
 from lightzero_tpu_torch.search.fused_traverse import (
     SYNTHETIC_SEED,
     SYNTHETIC_SHAPES,
@@ -107,6 +130,11 @@ EDGE_SHAPES = [(256, 4, 26), (256, 18, 26)]
 TRAIN_ITERS = 200
 TIMED_LEARN_STEPS = 20
 PROFILED_LEARN_STEPS = 5
+# phases 7 and 8: learn steps of the short train_muzero run, the
+# simulations of the EfficientZero eval search whose descent inputs are
+# rerun kernel against plain
+SHORT_TRAIN_ITERS = 20
+EZ_CAPTURED_SIMS = (1, 13, 25)
 # card vs CPU learn step from the same params and batch (TF32 off): the
 # logged terms to 1e-4 relative (float32 matmuls of batch 256 summed in
 # another order). Adam's first update is lr * g / (|g| + 1e-8), g the
@@ -206,8 +234,9 @@ def randomize_heads(model, seed: int) -> None:
     """Draw every head's last layer (zero at init, which would make each
     search a tie) from a seeded generator."""
     g = torch.Generator().manual_seed(seed)
-    heads = (model.dynamics_network.reward_head, model.prediction_network.value_head,
-             model.prediction_network.policy_head)
+    first = (model.value_prefix_head if isinstance(model, EfficientZeroModel)
+             else model.dynamics_network.reward_head)
+    heads = (first, model.prediction_network.value_head, model.prediction_network.policy_head)
     for head in heads:
         w = head.dense[-1].weight
         w.data.copy_(lecun_normal_(torch.empty(w.shape), g))
@@ -315,8 +344,8 @@ def phase_kernel_vs_plain(l2_ns: float) -> list:
     return cases
 
 
-def phase_captured(captures: dict, l2_ns: float) -> list:
-    """Phase 3 on the descent's inputs from the bench search, under both
+def phase_captured(captures: dict, l2_ns: float, search: str = "bench search") -> list:
+    """Phase 3 on the descent's inputs captured from a search, under both
     tie-breaks (the 'noise' uniforms drawn from a seed)."""
     cases = []
     for sim, (inputs, (B, A, N)) in sorted(captures.items()):
@@ -325,7 +354,7 @@ def phase_captured(captures: dict, l2_ns: float) -> list:
         for first in (False, True):
             args = list(inputs[:4]) + [None if first else noise]
             cases.append(traverse_case(B, A, N, first, l2_ns, inputs=args,
-                                       label=f"bench search, simulation {sim}"))
+                                       label=f"{search}, simulation {sim}"))
     check_cases(cases)
     return cases
 
@@ -447,45 +476,13 @@ def phase_main_path(card: str) -> dict:
     policy = MuZeroPolicy(main_config.policy, device="cuda", seed=MAIN_SEED)
     randomize_heads(policy.model, MAIN_SEED + 1)
     sims = policy.search_cfg.num_simulations
-    evaluator = Evaluator(CartPoleEnv(), policy, num_envs=3, seed=MAIN_SEED, device="cuda")
-
-    fused_traverse.launches = 0
-    t0 = time.perf_counter()
-    result = evaluator.eval(max_steps=200)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = {"fused_traverse": fused_traverse.launches}
-
-    steps = result["env_steps"]
-    returns = result["episode_returns"]
-    rec = dict(phase="main_path", config="cartpole_muzero", num_envs=3, num_simulations=sims,
-               episode_returns=returns, env_steps=steps, searches=steps,
-               launches=launches, wall_s=wall, card=card)
+    rec = eval_episodes(policy, card, "main_path")
+    rec.update(config="cartpole_muzero", num_simulations=sims)
     emit(rec)
-    if launches["fused_traverse"] != steps * sims:
-        raise AssertionError(f"traverse launches {launches} != env steps {steps} x {sims}")
-    if len(returns) < 3 or not all(math.isfinite(r) and 1 <= r <= 200 for r in returns):
-        raise AssertionError(f"implausible CartPole returns {returns}")
-
-    # a small batch searched on the card agrees with the same search on the
-    # CPU (the plain descent, held against the JAX package by the tests)
-    obs = torch.from_numpy(
-        (np.random.default_rng(MAIN_SEED).standard_normal((4, 4)) * 0.1).astype(np.float32))
-    legal = torch.ones((4, 2), dtype=torch.bool)
-    on_card = policy.forward_eval(obs.cuda(), legal.cuda())
-    cpu_policy = MuZeroPolicy(main_config.policy, model=copy.deepcopy(policy.model).cpu(),
-                              device="cpu")
-    on_cpu = cpu_policy.forward_eval(obs, legal)
-    for key in ("action", "visit_counts"):
-        if not torch.equal(on_card[key].cpu(), on_cpu[key]):
-            raise AssertionError(f"card and CPU searches differ in {key}: "
-                                 f"{on_card[key].tolist()} vs {on_cpu[key].tolist()}")
-    for key in ("searched_value", "predicted_value"):
-        a, b = on_card[key].cpu(), on_cpu[key]
-        if not (torch.isfinite(a).all() and torch.allclose(a, b, rtol=VALUE_TOL, atol=VALUE_TOL)):
-            raise AssertionError(f"card and CPU {key} differ: {a.tolist()} vs {b.tolist()}")
-    emit(dict(phase="card_vs_cpu", batch=4, visit_counts=on_card["visit_counts"].tolist(),
-              searched_value=on_card["searched_value"].tolist()))
+    if rec["launches"] != rec["env_steps"] * sims:
+        raise AssertionError(f"traverse launches {rec['launches']} != env steps "
+                             f"{rec['env_steps']} x {sims}")
+    search_card_vs_cpu(policy, "muzero")
     return rec
 
 
@@ -532,23 +529,7 @@ def phase_bench_shape(card: str) -> tuple:
 
     # warm-up (cuBLAS handles, caching allocator), keeping the descent's
     # inputs of some simulations
-    captures = {}
-
-    def capturing(packed, vmin, vmax, root_stats, noise_u, **kw):
-        sim = len(calls) + 1
-        calls.append(sim)
-        if sim in CAPTURED_SIMS:
-            captures[sim] = ([x.clone() for x in (packed, vmin, vmax, root_stats)],
-                             (packed.shape[0], kw["A"], kw["N"]))
-        return fused_traverse(packed, vmin, vmax, root_stats, noise_u, **kw)
-
-    calls = []
-    puct.fused_traverse = capturing
-    try:
-        policy.forward_eval(obs, legal)
-    finally:
-        puct.fused_traverse = fused_traverse
-    torch.cuda.synchronize()
+    captures = capture_descent_inputs(policy, obs, legal, CAPTURED_SIMS)
 
     walls = []
     for _ in range(BENCH_SEARCHES):
@@ -601,12 +582,34 @@ def phase_bench_shape(card: str) -> tuple:
     return rec, captures
 
 
+def capture_descent_inputs(policy, obs, legal, sims: tuple) -> dict:
+    """One eval search through the policy, keeping the descent's inputs of
+    the simulations in ``sims``: {sim: (inputs, (B, A, N))}."""
+    captures, calls = {}, []
+
+    def capturing(packed, vmin, vmax, root_stats, noise_u, **kw):
+        sim = len(calls) + 1
+        calls.append(sim)
+        if sim in sims:
+            captures[sim] = ([x.clone() for x in (packed, vmin, vmax, root_stats)],
+                             (packed.shape[0], kw["A"], kw["N"]))
+        return fused_traverse(packed, vmin, vmax, root_stats, noise_u, **kw)
+
+    puct.fused_traverse = capturing
+    try:
+        policy.forward_eval(obs, legal)
+    finally:
+        puct.fused_traverse = fused_traverse
+    torch.cuda.synchronize()
+    return captures
+
+
 def learn_step_card_vs_cpu(policy, batch) -> tuple:
     """One learn step on the card and one on the CPU, each from a fresh
     optimizer over the same params, on the same batch: (record, agree)."""
     results = {}
     for dev in ("cuda", "cpu"):
-        p = MuZeroPolicy(policy.cfg, model=copy.deepcopy(policy.model), device=dev)
+        p = type(policy)(policy.cfg, model=copy.deepcopy(policy.model), device=dev)
         before = {k: v.detach().cpu().clone() for k, v in p.model.named_parameters()}
         state = p.init_train_state()
         on_dev = type(batch)(*(None if x is None else x.to(p.device) for x in batch))
@@ -642,6 +645,27 @@ def learn_step_card_vs_cpu(policy, batch) -> tuple:
     agree = (rec["max_log_rel_err"] <= LEARN_LOG_RTOL and tight_err <= LEARN_PARAM_ATOL
              and loose_err <= 2 * lr and priorities_agree and loose < total // 4)
     return rec, agree
+
+
+def time_learn_steps(policy, state, buffer, n: int) -> tuple:
+    """CUDA events around each of n learn steps on fresh samples:
+    (state, step ms, sample s, losses)."""
+    batch_size = int(policy.cfg.batch_size)
+    step_ms, sample_s, losses = [], [], []
+    for _ in range(n):
+        t1 = time.perf_counter()
+        batch, idx = buffer.sample(batch_size, state.target_model)
+        sample_s.append(time.perf_counter() - t1)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        state, logs, priority = policy.forward_learn(state, batch)
+        end.record()
+        buffer.update_priority(idx, priority.cpu().numpy())
+        torch.cuda.synchronize()
+        step_ms.append(start.elapsed_time(end))
+        losses.append(float(logs["total_loss"]))
+    return state, step_ms, sample_s, losses
 
 
 def phase_train(card: str) -> dict:
@@ -686,21 +710,8 @@ def phase_train(card: str) -> dict:
     reanalyze_launches = fused_traverse.launches - before
     buffer.reanalyze_ratio = 0.0
 
-    # learn-step time: CUDA events around each of 20 steps on fresh samples
-    step_ms, sample_s, timed_losses = [], [], []
-    for _ in range(TIMED_LEARN_STEPS):
-        t1 = time.perf_counter()
-        batch, idx = buffer.sample(batch_size, state.target_model)
-        sample_s.append(time.perf_counter() - t1)
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        state, logs, priority = policy.forward_learn(state, batch)
-        end.record()
-        buffer.update_priority(idx, priority.cpu().numpy())
-        torch.cuda.synchronize()
-        step_ms.append(start.elapsed_time(end))
-        timed_losses.append(float(logs["total_loss"]))
+    state, step_ms, sample_s, timed_losses = time_learn_steps(
+        policy, state, buffer, TIMED_LEARN_STEPS)
 
     from torch.profiler import ProfilerActivity, profile
     batches = [buffer.sample(batch_size, state.target_model)[0] for _ in range(PROFILED_LEARN_STEPS)]
@@ -747,6 +758,191 @@ def phase_train(card: str) -> dict:
     return rec
 
 
+def eval_episodes(policy, card: str, label: str) -> dict:
+    """The Evaluator on 3 envs until each ends an episode, the launch
+    counter read around it."""
+    evaluator = Evaluator(CartPoleEnv(), policy, num_envs=3, seed=MAIN_SEED, device="cuda")
+    fused_traverse.launches = 0
+    t0 = time.perf_counter()
+    result = evaluator.eval(max_steps=200)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    steps, returns = result["env_steps"], result["episode_returns"]
+    rec = dict(phase=f"{label}_eval", num_envs=3, episode_returns=returns, env_steps=steps,
+               launches=fused_traverse.launches, wall_s=wall, wall_per_env_step_s=wall / steps,
+               card=card)
+    if len(returns) < 3 or not all(math.isfinite(r) and 1 <= r <= 200 for r in returns):
+        raise AssertionError(f"{label}: implausible CartPole returns {returns}")
+    return rec
+
+
+def short_train(cfg, card: str, label: str, launches_per_search: int) -> tuple:
+    """train_muzero with the device left unset (the card): an eval at iter
+    0, one collect round and SHORT_TRAIN_ITERS learn steps, the launch
+    counter read around it; then one learn step on the card against one on
+    the CPU, and the learn-step time. (record, policy, state, buffer)"""
+    cfg = copy.deepcopy(cfg)
+    cfg.policy.update_per_collect = SHORT_TRAIN_ITERS
+    n_envs = cfg.env.collector_env_num
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg.exp_name = os.path.join(tmp, label)
+        fused_traverse.launches = 0
+        t0 = time.perf_counter()
+        policy, state, stats = train_muzero(cfg, seed=MAIN_SEED, max_train_iter=SHORT_TRAIN_ITERS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = fused_traverse.launches
+        with open(os.path.join(cfg.exp_name, "log", "train.jsonl")) as f:
+            records = [json.loads(line) for line in f]
+    losses = [r["learner/total_loss"] for r in records if "learner/total_loss" in r]
+    collect_sps = [r["collector/steps_per_sec"] for r in records if "collector/steps_per_sec" in r]
+    collect_searches = stats["env_steps"] // n_envs
+    expected = (collect_searches + stats["eval_env_steps"]) * launches_per_search
+    buffer = stats["buffer"]
+    batch, _ = buffer.sample(int(policy.cfg.batch_size), state.target_model)
+    agreement, agree = learn_step_card_vs_cpu(policy, batch)
+    state, step_ms, _, timed_losses = time_learn_steps(policy, state, buffer, TIMED_LEARN_STEPS)
+    params_finite = all(bool(torch.isfinite(p).all()) for p in state.model.parameters())
+    rec = dict(phase=f"{label}_train", train_iter=stats["train_iter"], env_steps=stats["env_steps"],
+               collect_searches=collect_searches, eval_searches=stats["eval_env_steps"],
+               launches=launches, expected_launches=expected, logged_total_losses=losses,
+               collect_steps_per_s=collect_sps, wall_s=wall,
+               learn_step_ms_median=float(np.median(step_ms)), learn_step_ms=step_ms,
+               card_vs_cpu=agreement, card=card)
+    problems = [] if agree else [f"card and CPU learn steps disagree: {agreement}"]
+    if stats["train_iter"] != SHORT_TRAIN_ITERS:
+        problems.append(f"train_iter {stats['train_iter']}, expected {SHORT_TRAIN_ITERS}")
+    if not losses or not all(math.isfinite(x) for x in losses + timed_losses) or not params_finite:
+        problems.append("non-finite loss or params")
+    if launches != expected:
+        problems.append(f"traverse launches {launches} != (collect + eval searches) x "
+                        f"{launches_per_search}")
+    return rec, problems, policy, state, buffer
+
+
+def phase_efficientzero(card: str, l2_ns: float) -> tuple:
+    """EfficientZero on CartPole at full width; its search is the pUCT
+    search, through the descent kernel."""
+    policy = EfficientZeroPolicy(ez_config.policy, device="cuda", seed=MAIN_SEED)
+    randomize_heads(policy.model, MAIN_SEED + 3)
+    sims = policy.search_cfg.num_simulations
+    ev = eval_episodes(policy, card, "efficientzero")
+    emit(ev)
+    if ev["launches"] != ev["env_steps"] * sims:
+        raise AssertionError(f"efficientzero: traverse launches {ev['launches']} != env steps "
+                             f"{ev['env_steps']} x {sims}")
+    agreement = search_card_vs_cpu(policy, "efficientzero")
+
+    obs = torch.from_numpy(
+        (np.random.default_rng(MAIN_SEED + 3).standard_normal((3, 4)) * 0.1).astype(np.float32))
+    legal = torch.ones((3, 2), dtype=torch.bool)
+    captures = capture_descent_inputs(policy, obs.cuda(), legal.cuda(), EZ_CAPTURED_SIMS)
+    if sorted(captures) != list(EZ_CAPTURED_SIMS):
+        raise AssertionError(f"captured simulations {sorted(captures)}, expected {EZ_CAPTURED_SIMS}")
+    cases = phase_captured(captures, l2_ns, search="efficientzero eval search")
+
+    train, problems, *_ = short_train(ez_config, card, "efficientzero", sims)
+    emit(train)
+    if problems:
+        raise AssertionError(f"efficientzero train failed: {problems}")
+    return dict(eval=ev, card_vs_cpu=agreement, train=train), cases
+
+
+def search_card_vs_cpu(policy, label: str, gumbel_table=None) -> dict:
+    """A batch of 4 searched on the card and on the CPU from the same
+    weights (the CPU's plain descent and search are held against the JAX
+    package by the tests): actions and root visit counts equal, values and
+    the improved policy within VALUE_TOL."""
+    obs = torch.from_numpy(
+        (np.random.default_rng(MAIN_SEED).standard_normal((4, 4)) * 0.1).astype(np.float32))
+    legal = torch.ones((4, 2), dtype=torch.bool)
+    to_play = torch.full((4,), -1, dtype=torch.int32)
+    cpu_policy = type(policy)(policy.cfg, model=copy.deepcopy(policy.model).cpu(), device="cpu")
+    extra = {} if gumbel_table is None else dict(gumbel=gumbel_table)
+    outs = [p._forward_collect(obs.to(p.device), legal.to(p.device), to_play.to(p.device), 1.0,
+                               0.0, deterministic=True,
+                               **{k: v.to(p.device) for k, v in extra.items()})
+            for p in (policy, cpu_policy)]
+    on_card, on_cpu = ({k: v.cpu() for k, v in o.items()} for o in outs)
+    counts = "raw_visit_counts" if "raw_visit_counts" in on_cpu else "visit_counts"
+    for key in ("action", counts):
+        if not torch.equal(on_card[key], on_cpu[key]):
+            raise AssertionError(f"{label}: card and CPU searches differ in {key}: "
+                                 f"{on_card[key].tolist()} vs {on_cpu[key].tolist()}")
+    close = ["searched_value", "predicted_value"] + (["visit_counts"] if extra else [])
+    err = {}
+    for key in close:
+        a, b = on_card[key].float(), on_cpu[key].float()
+        err[key] = float((a - b).abs().max())
+        if not (torch.isfinite(a).all() and torch.allclose(a, b, rtol=VALUE_TOL, atol=VALUE_TOL)):
+            raise AssertionError(f"{label}: card and CPU {key} differ: {a.tolist()} vs {b.tolist()}")
+    rec = dict(phase=f"{label}_card_vs_cpu", batch=4, visit_counts=on_card[counts].tolist(),
+               searched_value=on_card["searched_value"].tolist(), max_abs_err=err)
+    emit(rec)
+    return rec
+
+
+def phase_gumbel(card: str) -> dict:
+    """Gumbel MuZero on CartPole: collect and eval search with the Gumbel
+    search (plain PyTorch, no kernel); reanalyze with the pUCT search."""
+    policy = GumbelMuZeroPolicy(gumbel_config.policy, device="cuda", seed=MAIN_SEED)
+    randomize_heads(policy.model, MAIN_SEED + 4)
+    sims = policy.gumbel_cfg.num_simulations
+
+    ev = eval_episodes(policy, card, "gumbel_muzero")
+    emit(ev)
+    if ev["launches"] != 0:
+        raise AssertionError(f"gumbel_muzero: the eval launched the pUCT kernel {ev['launches']} times")
+
+    # a second eval, every descent timed on the host between two device
+    # syncs (the descent reads back a flag per level): the descent's share
+    # of this instrumented wall; the first eval's wall has no added sync
+    descent = dict(calls=0, s=0.0, levels=0)
+    traverse = gumbel._gumbel_traverse
+
+    def timed_traverse(*args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st = traverse(*args)
+        torch.cuda.synchronize()
+        descent["s"] += time.perf_counter() - t0
+        descent["calls"] += 1
+        descent["levels"] += int(st.depth.max()) + 1
+        return st
+
+    gumbel._gumbel_traverse = timed_traverse
+    try:
+        timed = eval_episodes(policy, card, "gumbel_muzero_descent_timed")
+    finally:
+        gumbel._gumbel_traverse = traverse
+    timed.update(descent_calls=descent["calls"], descent_s=descent["s"],
+                 descent_ms_per_call=descent["s"] * 1e3 / max(descent["calls"], 1),
+                 descent_levels_per_call=descent["levels"] / max(descent["calls"], 1),
+                 descent_share_of_wall=descent["s"] / timed["wall_s"])
+    emit(timed)
+    if descent["calls"] != timed["env_steps"] * sims:
+        raise AssertionError(f"gumbel_muzero: {descent['calls']} descents for "
+                             f"{timed['env_steps']} searches x {sims}")
+    table = torch.from_numpy(
+        np.random.default_rng(MAIN_SEED + 4).gumbel(size=(4, 2)).astype(np.float32))
+    agreement = search_card_vs_cpu(policy, "gumbel_muzero", gumbel_table=table)
+
+    train, problems, policy, state, buffer = short_train(gumbel_config, card, "gumbel_muzero", 0)
+    # reanalyze searches with the pUCT search, through the kernel
+    buffer.reanalyze_ratio = 0.25
+    before = fused_traverse.launches
+    buffer.sample(int(policy.cfg.batch_size), state.target_model)
+    torch.cuda.synchronize()
+    train["reanalyze_launches"] = fused_traverse.launches - before
+    buffer.reanalyze_ratio = 0.0
+    emit(train)
+    if train["reanalyze_launches"] != sims:
+        problems.append(f"a reanalyze sample launched {train['reanalyze_launches']}, expected {sims}")
+    if problems:
+        raise AssertionError(f"gumbel_muzero train failed: {problems}")
+    return dict(eval=ev, eval_descent_timed=timed, card_vs_cpu=agreement, train=train)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs on a GPU", file=sys.stderr)
@@ -768,6 +964,9 @@ def main() -> int:
     bench, captures = phase_bench_shape(card)
     cases += phase_captured(captures, l2_ns)
     train = phase_train(card)
+    ez, ez_cases = phase_efficientzero(card, l2_ns)
+    cases += ez_cases
+    gmz = phase_gumbel(card)
 
     main_case = next(c for c in cases if (c["B"], c["A"], c["N"], c["tie_break"]) == (3, 2, 26, "noise"))
     kernels = [dict(
@@ -775,9 +974,12 @@ def main() -> int:
         route="cuda",
         source="lightzero_tpu_torch/csrc/fused_traverse.cu",
         replaces="lightzero_tpu/search/pallas_traverse.py:74",
-        launches=main_rec["launches"]["fused_traverse"],
+        launches=main_rec["launches"],
         # the training path's run (train phase): collect and eval searches
         launches_train=train["launches"],
+        # EfficientZero's eval (phase 7), whose search is the pUCT search
+        launches_efficientzero=ez["eval"]["launches"],
+        launches_efficientzero_train=ez["train"]["launches"],
         max_abs_err=max(c["max_abs_err"] for c in cases),
         ms=main_case["ms"],
         # launch to launch through the wrapper, the host's dispatch included:
@@ -791,7 +993,11 @@ def main() -> int:
     )]
     emit(dict(phase="done", wall_s=time.perf_counter() - t_start,
               build_s=build["seconds"], bench_sims_per_s=bench["sims_per_s_kernel"],
-              train_wall_s=train["wall_s"], learn_step_ms=train["learn_step_ms_median"]))
+              train_wall_s=train["wall_s"], learn_step_ms=train["learn_step_ms_median"],
+              efficientzero_eval_s_per_env_step=ez["eval"]["wall_per_env_step_s"],
+              efficientzero_learn_step_ms=ez["train"]["learn_step_ms_median"],
+              gumbel_eval_s_per_env_step=gmz["eval"]["wall_per_env_step_s"],
+              gumbel_learn_step_ms=gmz["train"]["learn_step_ms_median"]))
     faulthandler.cancel_dump_traceback_later()
     signal.alarm(0)
     print(card, flush=True)

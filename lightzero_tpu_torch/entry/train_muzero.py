@@ -1,5 +1,7 @@
-"""MuZero training entry (``lightzero_tpu/entry/train_muzero.py``, the MuZero
-branch of ``train_muzero``).
+"""Training entry (``lightzero_tpu/entry/train_muzero.py``) for the ported
+policies: MuZero, EfficientZero and Gumbel MuZero, chosen by
+``cfg.policy.type`` from ``POLICIES`` as the JAX entry does from its
+registry.
 
 Loop: [eval every ``eval_freq`` train iterations, stopping after
 ``stop_consecutive_evals`` evals at ``stop_value``] -> collect (episode mode,
@@ -18,8 +20,8 @@ Usage (on the card, or with ``device="cpu"``)::
     from lightzero_tpu_torch.entry import train_muzero
     policy, state, stats = train_muzero(main_config, seed=0, max_env_step=100_000)
 
-Not ported yet, and refused with ``NotImplementedError``: policies other than
-MuZero, envs other than CartPole, ``buffer_reanalyze_freq`` and the
+Not ported yet, and refused with ``NotImplementedError``: the other policies,
+the conv models, envs other than CartPole, ``buffer_reanalyze_freq`` and the
 loss-landscape analysis (their ROADMAP slices are named in the errors).
 """
 from __future__ import annotations
@@ -36,7 +38,7 @@ from lightzero_tpu_torch.config import Config, compile_config
 from lightzero_tpu_torch.entry.utils import calculate_update_per_collect, random_collect, safe_eval
 from lightzero_tpu_torch.envs import CartPoleEnv
 from lightzero_tpu_torch.ops import visit_count_temperature
-from lightzero_tpu_torch.policy import MuZeroPolicy
+from lightzero_tpu_torch.policy import EfficientZeroPolicy, GumbelMuZeroPolicy, MuZeroPolicy
 from lightzero_tpu_torch.utils.checkpoint import (
     load_checkpoint_lenient,
     save_checkpoint,
@@ -48,9 +50,15 @@ from lightzero_tpu_torch.workers import Evaluator, RolloutCollector
 
 # env_id -> max_episode_steps (the gym ids the configs use)
 CARTPOLE_IDS = {"CartPole-v0": 200, "CartPole-v1": 500, "cartpole": 200}
-# the policy types of the JAX entry and the ROADMAP slice that ports each
+# cfg.policy.type -> the policy that train_muzero builds
+POLICIES = {
+    "muzero": MuZeroPolicy, "efficientzero": EfficientZeroPolicy,
+    "gumbel_muzero": GumbelMuZeroPolicy,
+}
+# the policy types of the JAX entry that are not ported yet, and the ROADMAP
+# slice that ports each
 OTHER_POLICIES = {
-    "efficientzero": 11, "gumbel_muzero": 12, "stochastic_muzero": 13, "sampled_muzero": 14,
+    "stochastic_muzero": 13, "sampled_muzero": 14,
     "sampled_efficientzero": 14, "muzero_rnn_full_obs": 15, "muzero_context": 15,
     "unizero": 18, "sampled_unizero": 18, "muzero_multitask": 19, "unizero_multitask": 19,
     "sampled_unizero_multitask": 19,
@@ -70,7 +78,7 @@ def create_env(env_cfg: Config) -> CartPoleEnv:
 
 def _check_scope(pcfg: Config) -> None:
     policy_type = pcfg.get("type", "muzero")
-    if policy_type != "muzero":
+    if policy_type not in POLICIES:
         slice_ = OTHER_POLICIES.get(policy_type)
         where = f"ROADMAP queue 1, slice {slice_}" if slice_ else "ROADMAP queue 1"
         raise NotImplementedError(f"policy type {policy_type!r} is not ported yet ({where})")
@@ -93,9 +101,9 @@ def train_muzero(
     max_train_iter: int = int(1e9),
     device: Optional[Union[str, torch.device]] = None,
 ):
-    """Train MuZero on ``cfg`` (``{"env": ..., "policy": ...}``, or
-    ``[main_config, create_config]``). Runs on ``device``: ``cuda`` unless
-    the caller names another. ``model_path`` warm-starts from a checkpoint
+    """Train the policy that ``cfg.policy.type`` names on ``cfg``
+    (``{"env": ..., "policy": ...}``, or ``[main_config, create_config]``).
+    Runs on ``device``: ``cuda`` unless the caller names another. ``model_path`` warm-starts from a checkpoint
     or params export.
 
     Returns ``(policy, state, stats)``: ``stats`` holds ``env_steps``,
@@ -104,13 +112,15 @@ def train_muzero(
     if isinstance(cfg, (list, tuple)):
         cfg = cfg[0]
     dev = resolve_device(device)
-    _check_scope(Config(Config(cfg).get("policy", {})))
-    cfg = compile_config(cfg, MuZeroPolicy.default_config(), seed)
+    pcfg = Config(Config(cfg).get("policy", {}))
+    _check_scope(pcfg)
+    policy_cls = POLICIES[pcfg.get("type", "muzero")]
+    cfg = compile_config(cfg, policy_cls.default_config(), seed)
     pcfg = cfg.policy
     pcfg.seed = seed
 
     env = create_env(cfg.env)
-    policy = MuZeroPolicy(pcfg, device=dev, seed=seed)
+    policy = policy_cls(pcfg, device=dev, seed=seed)
     state = policy.init_train_state()
     if model_path:
         state = load_checkpoint_lenient(model_path, target=state)

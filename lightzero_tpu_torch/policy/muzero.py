@@ -180,7 +180,7 @@ class MuZeroPolicy:
             model_cfg = Config(dict(cfg.model))
             model_cfg.value_support_size = self.value_support.size
             model_cfg.reward_support_size = self.reward_support.size
-            model = MuZeroModel.from_config(model_cfg, torch.Generator().manual_seed(seed))
+            model = self._build_model(model_cfg, torch.Generator().manual_seed(seed))
         self.model = model.to(self.device).eval()
         self.num_unroll_steps = int(cfg.num_unroll_steps)
         self.players = 2 if cfg.env_type == "board_games" else 1
@@ -197,6 +197,10 @@ class MuZeroPolicy:
         self.generator = torch.Generator(self.device).manual_seed(seed)
 
     # ------------------------------------------------------------------ init
+    def _build_model(self, model_cfg: Config, generator: torch.Generator) -> nn.Module:
+        """The network of ``cfg.model``; variants build their own."""
+        return MuZeroModel.from_config(model_cfg, generator)
+
     def _lr_schedule(self) -> Callable[[int], float]:
         """The learning rate's factor at a step count (optax schedules,
         muzero.py:197-212): constant; the cosine decay to ``alpha`` = 0.05

@@ -182,10 +182,17 @@ def _traverse(
 
 
 def _expand_and_backup(
-    cfg: SearchConfig, tree: Tree, st: _TraverseState, sim: int, out: RecurrentOutput
+    cfg: SearchConfig,
+    tree: Tree,
+    st: _TraverseState,
+    sim: int,
+    out: RecurrentOutput,
+    prior_is_logits: bool = False,
 ) -> Tree:
     """Expand the leaves (node sim + 1) and back the values up the paths
-    (puct.py:544-708, players == 1). Updates the tree tensors in place."""
+    (puct.py:544-708, players == 1). Updates the tree tensors in place.
+    ``prior_is_logits``: the new row keeps the raw logits, illegal actions
+    at -1e9, instead of their softmax (Gumbel trees, puct.py:572-574)."""
     B, N, A = tree.num_trees, tree.num_nodes, tree.num_actions
     dev = tree.value_sum.device
     dtype = tree.value_sum.dtype
@@ -205,8 +212,11 @@ def _expand_and_backup(
 
     # --- expand (Node.expand, ptree_mz.py:46-69) ---
     logits = out.prior_logits.to(dtype)
-    prior = torch.softmax(torch.where(legal_mask, logits, -torch.inf), dim=-1)
-    prior = torch.where(legal_mask, prior, 0.0)
+    if prior_is_logits:
+        prior = torch.where(legal_mask, logits, -1e9)
+    else:
+        prior = torch.softmax(torch.where(legal_mask, logits, -torch.inf), dim=-1)
+        prior = torch.where(legal_mask, prior, 0.0)
 
     def row_write(arr, new_row):
         m = do_expand.reshape((B,) + (1,) * (arr.dim() - 2))

@@ -10,7 +10,9 @@ simulations, batch 16, the SSL loss on.
 - checkpoints round-trip exactly, and the lenient load of a params export
   keeps the fresh optimizer;
 - the entry refuses what is not ported and, with no GPU, a call without a
-  device.
+  device;
+- each policy type it builds is the port of the JAX registry's policy of
+  that name.
 """
 import json
 import os
@@ -149,7 +151,9 @@ def test_lenient_load_of_a_params_export_keeps_the_fresh_optimizer(tmp_path):
 
 
 @pytest.mark.parametrize("override,match", [
-    (dict(policy=dict(type="efficientzero")), "slice 11"),
+    (dict(policy=dict(type="stochastic_muzero")), "slice 13"),
+    (dict(policy=dict(type="efficientzero", model=dict(model_type="conv"))), "slice 16"),
+    (dict(policy=dict(type="gumbel_muzero", env_type="board_games")), "slice 17"),
     (dict(policy=dict(buffer_reanalyze_freq=0.5)), "slice 15"),
     (dict(policy=dict(analysis_loss_landscape=True)), "slice 20"),
     (dict(env=dict(env_id="Pendulum-v1")), "slice 14"),
@@ -160,6 +164,20 @@ def test_train_muzero_refuses_what_is_not_ported(tmp_path, override, match):
         cfg[key] = dict(cfg[key], **value)
     with pytest.raises(NotImplementedError, match=match):
         train_muzero(cfg, device="cpu")
+
+
+@pytest.mark.parametrize("policy_type", ["muzero", "efficientzero", "gumbel_muzero"])
+def test_train_muzero_builds_the_port_of_the_jax_policy(policy_type):
+    import importlib
+
+    from lightzero_tpu.utils.registry import POLICY_REGISTRY
+    from lightzero_tpu_torch.entry.train_muzero import POLICIES
+
+    assert sorted(POLICIES) == ["efficientzero", "gumbel_muzero", "muzero"]
+    importlib.import_module(f"lightzero_tpu.policy.{policy_type}")  # registers it
+    policy_cls = POLICIES[policy_type]
+    assert policy_cls.__name__ == POLICY_REGISTRY.get(policy_type).__name__
+    assert policy_cls.default_config().type == policy_type
 
 
 def test_train_muzero_without_device_raises_with_no_cuda(tmp_path, monkeypatch):
