@@ -57,12 +57,26 @@ Phases, each of a fixed size, in one process:
      the card against the CPU with the same Gumbel table; a short
      train_muzero run as in phase 7 (no launch) and one reanalyze sample,
      which searches with the pUCT search (10 launches); one learn step on
-     the card against one on the CPU; the median learn-step time.
+     the card against one on the CPU; the median learn-step time;
+  9. stochastic_muzero: the 2048 Stochastic MuZero config at full width
+     (observations 4x4x16, 4 actions, 32 chance outcomes, latent 256,
+     supports of 601 atoms, 50 simulations), whose search takes the
+     generic descent in plain PyTorch (no kernel launch): the Evaluator on
+     3 envs with episodes truncated at STOCH_EVAL_STEPS env steps; a second
+     eval, truncated at STOCH_TIMED_EVAL_STEPS, with every descent timed
+     between two device syncs; a batch of 4 numpy-seeded boards searched on
+     the card and on the CPU with the same Dirichlet noise, the same chance
+     draws and tie_break='first'; a short train_muzero run as in phase 7
+     with episodes truncated at STOCH_TRAIN_EPISODE_STEPS (its eval runs
+     that many steps, its collect round the collector's 64, 512
+     transitions); one learn step on the card against one on the CPU; the
+     median learn-step time.
 
 The last lines are the card's name and power limit, one JSON object with a
 record per kernel, and {"ok": true, "device": {...}}; that last line is printed
 only when every phase passed. Without a CUDA device the script exits non-zero
-and prints no result. A watchdog ends a run that has not finished in 290 s.
+and prints no result. A watchdog ends a run that has not finished in
+WATCHDOG_S = 400 s.
 """
 from __future__ import annotations
 
@@ -87,11 +101,18 @@ from lightzero_tpu_torch import _build
 from lightzero_tpu_torch.configs.cartpole_efficientzero import main_config as ez_config
 from lightzero_tpu_torch.configs.cartpole_gumbel_muzero import main_config as gumbel_config
 from lightzero_tpu_torch.configs.cartpole_muzero import main_config
+from lightzero_tpu_torch.configs.game_2048_stochastic_muzero import main_config as stoch_config
 from lightzero_tpu_torch.entry import train_muzero
-from lightzero_tpu_torch.envs import CartPoleEnv
-from lightzero_tpu_torch.models import EfficientZeroModel
+from lightzero_tpu_torch.envs import CartPoleEnv, Game2048Env
+from lightzero_tpu_torch.envs.game_2048 import legal_moves
+from lightzero_tpu_torch.models import EfficientZeroModel, StochasticMuZeroModel
 from lightzero_tpu_torch.models.common import lecun_normal_
-from lightzero_tpu_torch.policy import EfficientZeroPolicy, GumbelMuZeroPolicy, MuZeroPolicy
+from lightzero_tpu_torch.policy import (
+    EfficientZeroPolicy,
+    GumbelMuZeroPolicy,
+    MuZeroPolicy,
+    StochasticMuZeroPolicy,
+)
 from lightzero_tpu_torch.search import gumbel, puct
 from lightzero_tpu_torch.search.fused_traverse import (
     SYNTHETIC_SEED,
@@ -103,7 +124,10 @@ from lightzero_tpu_torch.search.fused_traverse import (
 )
 from lightzero_tpu_torch.workers import Evaluator
 
-WATCHDOG_S = 290
+# phase 9 (Stochastic MuZero, about 0.6-1 s per search at full width, and
+# a collect round of 64 of them) took the script past the 290 s this watchdog
+# had through phase 8; 400 s keeps it well inside the 1200 s a run may take
+WATCHDOG_S = 400
 # H100 SXM peaks (NVIDIA data sheet): HBM bandwidth and float32 outside the
 # tensor cores; the bound of a kernel is the larger of bytes/rate, ops/rate
 HBM_BYTES_PER_S = 3.35e12
@@ -135,6 +159,11 @@ PROFILED_LEARN_STEPS = 5
 # rerun kernel against plain
 SHORT_TRAIN_ITERS = 20
 EZ_CAPTURED_SIMS = (1, 13, 25)
+# phase 9: a 2048 episode runs for hundreds of moves, so the evals and the
+# short training run truncate episodes at these env steps
+STOCH_EVAL_STEPS = 12
+STOCH_TIMED_EVAL_STEPS = 6
+STOCH_TRAIN_EPISODE_STEPS = 16
 # card vs CPU learn step from the same params and batch (TF32 off): the
 # logged terms to 1e-4 relative (float32 matmuls of batch 256 summed in
 # another order). Adam's first update is lr * g / (|g| + 1e-8), g the
@@ -234,9 +263,16 @@ def randomize_heads(model, seed: int) -> None:
     """Draw every head's last layer (zero at init, which would make each
     search a tie) from a seeded generator."""
     g = torch.Generator().manual_seed(seed)
-    first = (model.value_prefix_head if isinstance(model, EfficientZeroModel)
-             else model.dynamics_network.reward_head)
+    if isinstance(model, EfficientZeroModel):
+        first = model.value_prefix_head
+    elif isinstance(model, StochasticMuZeroModel):
+        first = model.reward_head
+    else:
+        first = model.dynamics_network.reward_head
     heads = (first, model.prediction_network.value_head, model.prediction_network.policy_head)
+    if isinstance(model, StochasticMuZeroModel):
+        heads += (model.afterstate_prediction_network.value_head,
+                  model.afterstate_prediction_network.policy_head)
     for head in heads:
         w = head.dense[-1].weight
         w.data.copy_(lecun_normal_(torch.empty(w.shape), g))
@@ -758,10 +794,12 @@ def phase_train(card: str) -> dict:
     return rec
 
 
-def eval_episodes(policy, card: str, label: str) -> dict:
-    """The Evaluator on 3 envs until each ends an episode, the launch
-    counter read around it."""
-    evaluator = Evaluator(CartPoleEnv(), policy, num_envs=3, seed=MAIN_SEED, device="cuda")
+def eval_episodes(policy, card: str, label: str, env=None) -> dict:
+    """The Evaluator on 3 envs (CartPole unless ``env`` is given) until each
+    ends an episode, the launch counter read around it."""
+    cartpole = env is None
+    env = CartPoleEnv() if cartpole else env
+    evaluator = Evaluator(env, policy, num_envs=3, seed=MAIN_SEED, device="cuda")
     fused_traverse.launches = 0
     t0 = time.perf_counter()
     result = evaluator.eval(max_steps=200)
@@ -771,8 +809,9 @@ def eval_episodes(policy, card: str, label: str) -> dict:
     rec = dict(phase=f"{label}_eval", num_envs=3, episode_returns=returns, env_steps=steps,
                launches=fused_traverse.launches, wall_s=wall, wall_per_env_step_s=wall / steps,
                card=card)
-    if len(returns) < 3 or not all(math.isfinite(r) and 1 <= r <= 200 for r in returns):
-        raise AssertionError(f"{label}: implausible CartPole returns {returns}")
+    low, high = (1, 200) if cartpole else (0, math.inf)
+    if len(returns) < 3 or not all(math.isfinite(r) and low <= r <= high for r in returns):
+        raise AssertionError(f"{label}: implausible returns {returns}")
     return rec
 
 
@@ -897,29 +936,12 @@ def phase_gumbel(card: str) -> dict:
     # a second eval, every descent timed on the host between two device
     # syncs (the descent reads back a flag per level): the descent's share
     # of this instrumented wall; the first eval's wall has no added sync
-    descent = dict(calls=0, s=0.0, levels=0)
-    traverse = gumbel._gumbel_traverse
-
-    def timed_traverse(*args):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        st = traverse(*args)
-        torch.cuda.synchronize()
-        descent["s"] += time.perf_counter() - t0
-        descent["calls"] += 1
-        descent["levels"] += int(st.depth.max()) + 1
-        return st
-
-    gumbel._gumbel_traverse = timed_traverse
+    descent, restore = timed_descents(gumbel, "_gumbel_traverse")
     try:
         timed = eval_episodes(policy, card, "gumbel_muzero_descent_timed")
     finally:
-        gumbel._gumbel_traverse = traverse
-    timed.update(descent_calls=descent["calls"], descent_s=descent["s"],
-                 descent_ms_per_call=descent["s"] * 1e3 / max(descent["calls"], 1),
-                 descent_levels_per_call=descent["levels"] / max(descent["calls"], 1),
-                 descent_share_of_wall=descent["s"] / timed["wall_s"])
-    emit(timed)
+        restore()
+    emit(descent_record(timed, descent))
     if descent["calls"] != timed["env_steps"] * sims:
         raise AssertionError(f"gumbel_muzero: {descent['calls']} descents for "
                              f"{timed['env_steps']} searches x {sims}")
@@ -940,6 +962,123 @@ def phase_gumbel(card: str) -> dict:
         problems.append(f"a reanalyze sample launched {train['reanalyze_launches']}, expected {sims}")
     if problems:
         raise AssertionError(f"gumbel_muzero train failed: {problems}")
+    return dict(eval=ev, eval_descent_timed=timed, card_vs_cpu=agreement, train=train)
+
+
+def timed_descents(module, name: str):
+    """Replace ``module.name`` (a descent) by a wrapper that times each call
+    on the host between two device syncs (the descent reads back a flag per
+    level) and counts calls and levels; returns (counters, restore)."""
+    descent = dict(calls=0, s=0.0, levels=0)
+    traverse = getattr(module, name)
+
+    def timed(*args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st = traverse(*args)
+        torch.cuda.synchronize()
+        descent["s"] += time.perf_counter() - t0
+        descent["calls"] += 1
+        descent["levels"] += int(st.depth.max()) + 1
+        return st
+
+    setattr(module, name, timed)
+    return descent, lambda: setattr(module, name, traverse)
+
+
+def descent_record(rec: dict, descent: dict) -> dict:
+    rec.update(descent_calls=descent["calls"], descent_s=descent["s"],
+               descent_ms_per_call=descent["s"] * 1e3 / max(descent["calls"], 1),
+               descent_levels_per_call=descent["levels"] / max(descent["calls"], 1),
+               descent_share_of_wall=descent["s"] / rec["wall_s"])
+    return rec
+
+
+def stochastic_search_card_vs_cpu(policy) -> dict:
+    """4 numpy-seeded 2048 boards searched on the card and on the CPU from
+    the same weights, with the same Dirichlet noise, the same chance draws
+    and tie_break='first': root visit counts equal, root values within
+    VALUE_TOL (actions are drawn from each device's generator and are not
+    compared)."""
+    rng = np.random.default_rng(MAIN_SEED + 5)
+    B, W, A = 4, policy.tree_width, policy.action_space
+    sims = policy.search_cfg.num_simulations
+    boards = rng.integers(0, 8, (B, 4, 4))
+    boards[rng.random((B, 4, 4)) < 0.4] = 0
+    boards = torch.from_numpy(boards.astype(np.int32))
+    obs = torch.nn.functional.one_hot(boards.long(), 16).to(torch.float32)
+    legal = legal_moves(boards)
+    wide_legal = torch.cat([legal, torch.zeros((B, W - A), dtype=torch.bool)], dim=1)
+    noise = np.zeros((B, W), np.float32)
+    noise[:, :A] = rng.dirichlet(np.full(A, 0.3), B)
+    noise = torch.where(wide_legal, torch.from_numpy(noise), 0.0)
+    noise = noise / noise.sum(dim=1, keepdim=True)
+    chance = torch.from_numpy(rng.gumbel(size=(sims, sims + 2, B, W)).astype(np.float32))
+    to_play = torch.full((B,), -1, dtype=torch.int32)
+    cpu_policy = type(policy)(policy.cfg, model=copy.deepcopy(policy.model).cpu(), device="cpu")
+    search_cfg = policy.search_cfg
+    outs = []
+    try:
+        for p in (policy, cpu_policy):
+            p.search_cfg = dataclasses.replace(search_cfg, tie_break="first")
+            d = p.device
+            outs.append(p._forward_collect(obs.to(d), legal.to(d), to_play.to(d), 1.0, 0.0,
+                                           noise=noise.to(d), chance_noise=chance.to(d)))
+    finally:
+        policy.search_cfg = search_cfg
+    on_card, on_cpu = ({k: v.cpu() for k, v in o.items()} for o in outs)
+    if not torch.equal(on_card["visit_counts"], on_cpu["visit_counts"]):
+        raise AssertionError(f"stochastic_muzero: card and CPU visit counts differ: "
+                             f"{on_card['visit_counts'].tolist()} vs {on_cpu['visit_counts'].tolist()}")
+    err = {}
+    for key in ("searched_value", "predicted_value"):
+        a, b = on_card[key].float(), on_cpu[key].float()
+        err[key] = float((a - b).abs().max())
+        if not (torch.isfinite(a).all() and torch.allclose(a, b, rtol=VALUE_TOL, atol=VALUE_TOL)):
+            raise AssertionError(f"stochastic_muzero: card and CPU {key} differ: "
+                                 f"{a.tolist()} vs {b.tolist()}")
+    rec = dict(phase="stochastic_muzero_card_vs_cpu", batch=B, tie_break="first",
+               visit_counts=on_card["visit_counts"].tolist(),
+               searched_value=on_card["searched_value"].tolist(), max_abs_err=err)
+    emit(rec)
+    return rec
+
+
+def phase_stochastic(card: str) -> dict:
+    """Stochastic MuZero on 2048 at full width: its search takes the generic
+    descent in plain PyTorch, so no phase launches the descent kernel."""
+    policy = StochasticMuZeroPolicy(stoch_config.policy, device="cuda", seed=MAIN_SEED)
+    randomize_heads(policy.model, MAIN_SEED + 5)
+    sims = policy.search_cfg.num_simulations
+    ev = eval_episodes(policy, card, "stochastic_muzero",
+                       env=Game2048Env(max_episode_steps=STOCH_EVAL_STEPS))
+    ev.update(config="game_2048_stochastic_muzero", num_simulations=sims,
+              episodes_truncated_at=STOCH_EVAL_STEPS)
+    emit(ev)
+    if ev["launches"] != 0:
+        raise AssertionError(f"stochastic_muzero: the eval launched the pUCT kernel "
+                             f"{ev['launches']} times")
+
+    descent, restore = timed_descents(puct, "_generic_traverse")
+    try:
+        timed = eval_episodes(policy, card, "stochastic_muzero_descent_timed",
+                              env=Game2048Env(max_episode_steps=STOCH_TIMED_EVAL_STEPS))
+    finally:
+        restore()
+    timed = descent_record(dict(timed, episodes_truncated_at=STOCH_TIMED_EVAL_STEPS), descent)
+    emit(timed)
+    if descent["calls"] != timed["env_steps"] * sims:
+        raise AssertionError(f"stochastic_muzero: {descent['calls']} descents for "
+                             f"{timed['env_steps']} searches x {sims}")
+    agreement = stochastic_search_card_vs_cpu(policy)
+
+    cfg = copy.deepcopy(stoch_config)
+    cfg.env.max_episode_steps = STOCH_TRAIN_EPISODE_STEPS
+    train, problems, *_ = short_train(cfg, card, "stochastic_muzero", 0)
+    train["episodes_truncated_at"] = STOCH_TRAIN_EPISODE_STEPS
+    emit(train)
+    if problems:
+        raise AssertionError(f"stochastic_muzero train failed: {problems}")
     return dict(eval=ev, eval_descent_timed=timed, card_vs_cpu=agreement, train=train)
 
 
@@ -967,6 +1106,7 @@ def main() -> int:
     ez, ez_cases = phase_efficientzero(card, l2_ns)
     cases += ez_cases
     gmz = phase_gumbel(card)
+    smz = phase_stochastic(card)
 
     main_case = next(c for c in cases if (c["B"], c["A"], c["N"], c["tie_break"]) == (3, 2, 26, "noise"))
     kernels = [dict(
@@ -980,6 +1120,9 @@ def main() -> int:
         # EfficientZero's eval (phase 7), whose search is the pUCT search
         launches_efficientzero=ez["eval"]["launches"],
         launches_efficientzero_train=ez["train"]["launches"],
+        # Stochastic MuZero's eval and training (phase 9): the generic descent
+        launches_stochastic_muzero=smz["eval"]["launches"],
+        launches_stochastic_muzero_train=smz["train"]["launches"],
         max_abs_err=max(c["max_abs_err"] for c in cases),
         ms=main_case["ms"],
         # launch to launch through the wrapper, the host's dispatch included:
@@ -997,7 +1140,9 @@ def main() -> int:
               efficientzero_eval_s_per_env_step=ez["eval"]["wall_per_env_step_s"],
               efficientzero_learn_step_ms=ez["train"]["learn_step_ms_median"],
               gumbel_eval_s_per_env_step=gmz["eval"]["wall_per_env_step_s"],
-              gumbel_learn_step_ms=gmz["train"]["learn_step_ms_median"]))
+              gumbel_learn_step_ms=gmz["train"]["learn_step_ms_median"],
+              stochastic_eval_s_per_env_step=smz["eval"]["wall_per_env_step_s"],
+              stochastic_learn_step_ms=smz["train"]["learn_step_ms_median"]))
     faulthandler.cancel_dump_traceback_later()
     signal.alarm(0)
     print(card, flush=True)

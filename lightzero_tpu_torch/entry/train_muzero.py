@@ -1,7 +1,7 @@
 """Training entry (``lightzero_tpu/entry/train_muzero.py``) for the ported
-policies: MuZero, EfficientZero and Gumbel MuZero, chosen by
-``cfg.policy.type`` from ``POLICIES`` as the JAX entry does from its
-registry.
+policies: MuZero, EfficientZero, Gumbel MuZero and Stochastic MuZero, chosen
+by ``cfg.policy.type`` from ``POLICIES`` as the JAX entry does from its
+registry, on the ported envs (CartPole, 2048), chosen by ``cfg.env.env_id``.
 
 Loop: [eval every ``eval_freq`` train iterations, stopping after
 ``stop_consecutive_evals`` evals at ``stop_value``] -> collect (episode mode,
@@ -21,11 +21,13 @@ Usage (on the card, or with ``device="cpu"``)::
     policy, state, stats = train_muzero(main_config, seed=0, max_env_step=100_000)
 
 Not ported yet, and refused with ``NotImplementedError``: the other policies,
-the conv models, envs other than CartPole, ``buffer_reanalyze_freq`` and the
-loss-landscape analysis (their ROADMAP slices are named in the errors).
+the conv models, envs other than CartPole and 2048, ``buffer_reanalyze_freq``
+and the loss-landscape analysis (their ROADMAP slices are named in the
+errors).
 """
 from __future__ import annotations
 
+import inspect
 import json
 import os
 from typing import Dict, Optional, Union
@@ -36,9 +38,14 @@ import torch
 from lightzero_tpu_torch.buffers import GameBuffer
 from lightzero_tpu_torch.config import Config, compile_config
 from lightzero_tpu_torch.entry.utils import calculate_update_per_collect, random_collect, safe_eval
-from lightzero_tpu_torch.envs import CartPoleEnv
+from lightzero_tpu_torch.envs import CartPoleEnv, Game2048Env, TensorEnv
 from lightzero_tpu_torch.ops import visit_count_temperature
-from lightzero_tpu_torch.policy import EfficientZeroPolicy, GumbelMuZeroPolicy, MuZeroPolicy
+from lightzero_tpu_torch.policy import (
+    EfficientZeroPolicy,
+    GumbelMuZeroPolicy,
+    MuZeroPolicy,
+    StochasticMuZeroPolicy,
+)
 from lightzero_tpu_torch.utils.checkpoint import (
     load_checkpoint_lenient,
     save_checkpoint,
@@ -48,32 +55,46 @@ from lightzero_tpu_torch.utils.device import resolve_device
 from lightzero_tpu_torch.utils.logger import ExperimentLogger
 from lightzero_tpu_torch.workers import Evaluator, RolloutCollector
 
-# env_id -> max_episode_steps (the gym ids the configs use)
-CARTPOLE_IDS = {"CartPole-v0": 200, "CartPole-v1": 500, "cartpole": 200}
+# env_id -> (env class, constructor arguments), as the JAX entry's aliases
+# and registry resolve them
+ENVS = {
+    "CartPole-v0": (CartPoleEnv, {}),
+    "CartPole-v1": (CartPoleEnv, {"max_episode_steps": 500}),
+    "cartpole": (CartPoleEnv, {}),
+    "game_2048": (Game2048Env, {}),
+}
 # cfg.policy.type -> the policy that train_muzero builds
 POLICIES = {
     "muzero": MuZeroPolicy, "efficientzero": EfficientZeroPolicy,
-    "gumbel_muzero": GumbelMuZeroPolicy,
+    "gumbel_muzero": GumbelMuZeroPolicy, "stochastic_muzero": StochasticMuZeroPolicy,
 }
 # the policy types of the JAX entry that are not ported yet, and the ROADMAP
 # slice that ports each
 OTHER_POLICIES = {
-    "stochastic_muzero": 13, "sampled_muzero": 14,
+    "sampled_muzero": 14,
     "sampled_efficientzero": 14, "muzero_rnn_full_obs": 15, "muzero_context": 15,
     "unizero": 18, "sampled_unizero": 18, "muzero_multitask": 19, "unizero_multitask": 19,
     "sampled_unizero_multitask": 19,
 }
 
 
-def create_env(env_cfg: Config) -> CartPoleEnv:
+def create_env(env_cfg: Config) -> TensorEnv:
+    """The env of ``env_cfg.env_id``, with the env-config keys that match its
+    constructor's arguments (``max_episode_steps``) and ``env_kwargs``
+    forwarded, as the JAX entry does (train_muzero.py:61-82)."""
     env_id = env_cfg.get("env_id", env_cfg.get("type"))
-    if env_id not in CARTPOLE_IDS:
+    if env_id not in ENVS:
         raise NotImplementedError(
-            f"env {env_id!r} is not ported yet: the port has CartPole only (ROADMAP queue 1: "
-            "Pendulum in slice 14, 2048 in slice 13, image envs in slice 16, board games in "
-            "slice 17, host envs in slice 20)"
+            f"env {env_id!r} is not ported yet: the port has CartPole and 2048 (ROADMAP queue 1: "
+            "Pendulum in slice 14, image envs in slice 16, board games in slice 17, host envs "
+            "in slice 20)"
         )
-    return CartPoleEnv(max_episode_steps=CARTPOLE_IDS[env_id])
+    env_cls, kwargs = ENVS[env_id]
+    kwargs = dict(kwargs)
+    params = inspect.signature(env_cls.__init__).parameters
+    kwargs.update({k: v for k, v in dict(env_cfg).items() if k in params and k != "self"})
+    kwargs.update(env_cfg.get("env_kwargs", {}))
+    return env_cls(**kwargs)
 
 
 def _check_scope(pcfg: Config) -> None:

@@ -1,2 +1,3 @@
 from lightzero_tpu_torch.envs.base import EnvStep, TensorEnv
 from lightzero_tpu_torch.envs.cartpole import CartPoleEnv
+from lightzero_tpu_torch.envs.game_2048 import Game2048Env

@@ -7,7 +7,7 @@ generator is the env's device).
 """
 from __future__ import annotations
 
-from typing import Any, NamedTuple, Tuple
+from typing import Any, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -22,6 +22,9 @@ class EnvStep(NamedTuple):
     # episode ended by a time limit rather than a terminal state; only
     # meaningful where done is True
     truncated: torch.Tensor  # (B,) bool
+    # (B,) int64 true chance code of the transition (stochastic envs such as
+    # 2048, for Stochastic MuZero's true chance labels); None reads as zeros
+    chance: Optional[torch.Tensor] = None
 
 
 class TensorEnv:

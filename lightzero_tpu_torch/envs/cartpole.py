@@ -79,6 +79,7 @@ def transition(
         legal_mask=torch.ones((B, 2), dtype=torch.bool, device=dev),
         to_play=torch.full((B,), -1, dtype=torch.int32, device=dev),
         truncated=truncated,
+        chance=torch.zeros(B, dtype=torch.int64, device=dev),
     )
 
 

@@ -1,17 +1,23 @@
-"""Batched pUCT MCTS (``lightzero_tpu/search/puct.py``), for single-player,
-non-stochastic searches without reuse.
+"""Batched pUCT MCTS (``lightzero_tpu/search/puct.py``), for single-player
+searches without reuse.
 
 One call runs ``num_simulations`` iterations of
-[pack tables -> fused descent -> recurrent_fn -> expand + backup] for a
-whole batch of trees in lockstep. The descent is ``fused_traverse``: the
-CUDA kernel on the card, its plain version on the CPU. The JAX search
-compiles the loop into one XLA program; here it runs eagerly, and the tree
-tensors are updated in place.
+[pack tables -> descent -> recurrent_fn -> expand + backup] for a whole
+batch of trees in lockstep. The JAX search compiles the loop into one XLA
+program; here it runs eagerly, and the tree tensors are updated in place.
+
+Two descents read the same packed table. Non-stochastic searches take
+``fused_traverse``: the CUDA kernel on the card, its plain version on the
+CPU. Stochastic searches (Stochastic MuZero's chance nodes) take the generic
+descent ``_generic_traverse``, the torch form of the JAX package's XLA
+``_traverse``, which is plain jnp there and plain PyTorch here: one level of
+every tree per step, with the done flags read back to the host once per
+level where the JAX loop is a ``while_loop`` on the device.
 
 Not ported yet, and refused with ``NotImplementedError`` rather than
-answered wrongly: ``players == 2`` (ROADMAP queue 1, slice 17, board games),
-``stochastic`` chance nodes (slice 13, Stochastic MuZero) and the ReZero
-reuse search, ``true_action`` (slice 15).
+answered wrongly: ``players == 2`` (ROADMAP queue 1, slice 17, board games)
+and the ReZero reuse search, ``true_action`` (slice 15); both are branches
+of the generic descent and the backup.
 """
 from __future__ import annotations
 
@@ -19,11 +25,12 @@ from typing import Any, Callable, NamedTuple, Optional
 
 import torch
 
-from lightzero_tpu_torch.search.fused_traverse import fused_traverse
+from lightzero_tpu_torch.search.fused_traverse import _sum_in_order, fused_traverse
 from lightzero_tpu_torch.search.tree import (
     Tree,
     init_tree,
     map_embedding,
+    minmax_normalize,
     root_children_values,
     root_value,
     root_visit_counts,
@@ -62,10 +69,6 @@ def _check_scope(cfg: SearchConfig, true_action: Optional[torch.Tensor]) -> None
         raise NotImplementedError(
             "players == 2 search is not ported yet (ROADMAP queue 1, slice 17: board games)"
         )
-    if cfg.stochastic:
-        raise NotImplementedError(
-            "stochastic search is not ported yet (ROADMAP queue 1, slice 13: Stochastic MuZero)"
-        )
     if true_action is not None:
         raise NotImplementedError(
             "reuse search (true_action) is not ported yet (ROADMAP queue 1, slice 15: ReZero)"
@@ -77,7 +80,7 @@ def _pack_traverse_tables(tree: Tree) -> torch.Tensor:
     (puct.py:199-263). Per-child stats are gathered from the child rows into
     the parent row once per simulation. Columns: child index, prior, legal,
     child visit count, child value sum, child reward, child terminal (A
-    each), the node's own visit count, is_chance (always 0 here)."""
+    each), the node's own visit count, the node's is_chance."""
     B, N, A = tree.num_trees, tree.num_nodes, tree.num_actions
     f32 = torch.float32
     ch = tree.children
@@ -104,10 +107,207 @@ def _pack_traverse_tables(tree: Tree) -> torch.Tensor:
             child_tab[..., 2],
             child_tab[..., 3],
             tree.visit_count[..., None].to(f32),
-            torch.zeros((B, N, 1), dtype=f32, device=ch.device),
+            tree.is_chance[..., None].to(f32),
         ],
         dim=2,
     ).contiguous()
+
+
+class _Children(NamedTuple):
+    """A node's children as its packed row holds them (puct.py:425-438);
+    absent children have visit count, value and reward 0."""
+
+    index: torch.Tensor  # (..., A) int64, -1 = virtual
+    prior: torch.Tensor
+    legal: torch.Tensor  # bool
+    visit: torch.Tensor
+    value_sum: torch.Tensor
+    value: torch.Tensor
+    reward: torch.Tensor
+    terminal: torch.Tensor  # bool
+
+
+def _children(rows: torch.Tensor, A: int) -> _Children:
+    """Decode packed rows (..., 7A+2) (``_pack_traverse_tables``)."""
+    index = torch.round(rows[..., :A]).long()
+    exists = index >= 0
+    visit = rows[..., 3 * A:4 * A]
+    value_sum = rows[..., 4 * A:5 * A]
+    return _Children(
+        index=index,
+        prior=rows[..., A:2 * A],
+        legal=rows[..., 2 * A:3 * A] > 0.5,
+        visit=torch.where(exists, visit, 0.0),
+        value_sum=value_sum,
+        value=torch.where(exists & (visit > 0), value_sum / torch.clamp(visit, min=1.0), 0.0),
+        reward=torch.where(exists, rows[..., 5 * A:6 * A], 0.0),
+        terminal=rows[..., 6 * A:7 * A] > 0.5,
+    )
+
+
+def _child_q_totals(cfg: SearchConfig, packed: torch.Tensor, A: int) -> torch.Tensor:
+    """(B, N, 2): for every node, the sum of r + discount V over its visited
+    legal children and their count, the two sums of compute_mean_q
+    (puct.py:139-142). They depend on the node's row alone, which does not
+    change during a descent, so they are taken once per simulation for all
+    nodes rather than once per level; the values are summed from the first
+    action to the last, as XLA sums them."""
+    ch = _children(packed, A)
+    visited = (ch.visit > 0) & ch.legal
+    total_q = _sum_in_order(torch.where(visited, ch.reward + cfg.discount * ch.value, 0.0))
+    total_n = visited.sum(dim=-1).to(total_q.dtype)
+    return torch.stack([total_q, total_n], dim=-1)
+
+
+def _mean_q(
+    total_q: torch.Tensor,
+    total_n: torch.Tensor,
+    is_root: torch.Tensor,
+    parent_q: torch.Tensor,
+) -> torch.Tensor:
+    """compute_mean_q (puct.py:128) from a node's ``_child_q_totals``: the
+    mean of the visited children's r + discount V; below the root, parent_q
+    is mixed in with weight 1."""
+    root_mean = total_q / torch.clamp(total_n, min=1.0)
+    mixed = (parent_q + total_q) / (total_n + 1.0)
+    return torch.where(is_root & (total_n > 0), root_mean, mixed)
+
+
+def _ucb_scores(
+    cfg: SearchConfig,
+    tree: Tree,
+    parent_visit: torch.Tensor,
+    child_visit: torch.Tensor,
+    child_value: torch.Tensor,
+    child_reward: torch.Tensor,
+    prior: torch.Tensor,
+    legal: torch.Tensor,
+    mean_q: torch.Tensor,
+) -> torch.Tensor:
+    """compute_ucb_score (puct.py:148), players == 1, over (B, A); illegal
+    children score -inf. Unvisited children take the parent's mean-Q as
+    their value score."""
+    pv = parent_visit[:, None]
+    pb_c = torch.log((pv + cfg.pb_c_base + 1.0) / cfg.pb_c_base) + cfg.pb_c_init
+    pb_c = pb_c * torch.sqrt(pv) / (child_visit + 1.0)
+    prior_score = pb_c * prior
+    q = child_reward + cfg.discount * child_value
+    value_score = minmax_normalize(tree.vmin, tree.vmax, cfg.value_delta_max, q)
+    value_score = torch.clamp(value_score, 0.0, 1.0)
+    pq = minmax_normalize(tree.vmin, tree.vmax, cfg.value_delta_max, mean_q[:, None])
+    pq = torch.clamp(pq, 0.0, 1.0)
+    value_score = torch.where(child_visit > 0, value_score, pq)
+    return torch.where(legal, prior_score + value_score, -torch.inf)
+
+
+def _select_action(
+    cfg: SearchConfig, scores: torch.Tensor, noise_u: Optional[torch.Tensor]
+) -> torch.Tensor:
+    """The argmax (puct.py:187): the lowest index under 'first'; under
+    'noise' the largest of the uniforms ``noise_u`` (B, A) among the scores
+    within epsilon of the maximum (the reference's random tie-break)."""
+    if cfg.tie_break == "first":
+        return torch.argmax(scores, dim=-1)
+    max_s = torch.amax(scores, dim=-1, keepdim=True)
+    near = scores >= max_s - cfg.tie_break_epsilon
+    return torch.argmax(torch.where(near, noise_u, -torch.inf), dim=-1)
+
+
+def _generic_traverse(
+    cfg: SearchConfig,
+    tree: Tree,
+    to_play: torch.Tensor,
+    packed: torch.Tensor,
+    noise_u: Optional[torch.Tensor],
+    noise_g: Optional[torch.Tensor],
+) -> _TraverseState:
+    """Lockstep selection from the roots to unexpanded leaves, one level of
+    every tree per step (the XLA ``_traverse``, puct.py:335-541), on the
+    packed table. At step t every tree that is still descending is at depth
+    t, so row t of the (max_depth, B, A) tables ``noise_u`` ('noise'
+    tie-break uniforms) and ``noise_g`` (Gumbel draws, stochastic searches)
+    serves one depth. A chance node takes the outcome
+    argmax(log(max(prior, 1e-30)) + g) over its legal outcomes instead of
+    the pUCT argmax. The loop reads the done flags back once per level and
+    stops when every tree is done, as JAX's ``while_loop`` does, so path
+    columns past the last level stay zero."""
+    B, N, A = tree.num_trees, tree.num_nodes, tree.num_actions
+    max_depth = N + 1
+    dev = tree.value_sum.device
+    dtype = tree.value_sum.dtype
+    C = packed.shape[2]
+    bidx = torch.arange(B, device=dev)
+    q_totals = _child_q_totals(cfg, packed, A)
+
+    def zeros(dt=torch.long):
+        return torch.zeros((B,), dtype=dt, device=dev)
+
+    node, depth, parent, last_action = zeros(), zeros(), zeros(), zeros()
+    parent_q = zeros(dtype)
+    is_root = torch.ones((B,), dtype=torch.bool, device=dev)
+    done, leaf_term = zeros(torch.bool), zeros(torch.bool)
+    vtp = to_play.to(torch.int32)
+    path = torch.zeros((B, max_depth), dtype=torch.long, device=dev)
+    path_reward = torch.zeros((B, max_depth), dtype=dtype, device=dev)
+    path_vsum = torch.zeros_like(path_reward)
+    path_visit = torch.zeros_like(path_reward)
+    path_reward[:, 0] = tree.reward[:, 0]
+    path_vsum[:, 0] = tree.value_sum[:, 0]
+    path_visit[:, 0] = tree.visit_count[:, 0].to(dtype)
+
+    for t in range(max_depth - 1):
+        row = torch.gather(packed, 1, node[:, None, None].expand(B, 1, C))[:, 0]
+        totals = torch.gather(q_totals, 1, node[:, None, None].expand(B, 1, 2))[:, 0]
+        ch = _children(row, A)
+        mean_q = _mean_q(totals[:, 0], totals[:, 1], is_root, parent_q)
+        scores = _ucb_scores(cfg, tree, row[:, 7 * A], ch.visit, ch.value, ch.reward, ch.prior,
+                             ch.legal, mean_q)
+        action = _select_action(cfg, scores, None if noise_u is None else noise_u[t])
+        if cfg.stochastic:
+            chance_logits = torch.where(ch.legal, torch.log(torch.clamp(ch.prior, min=1e-30)),
+                                        -torch.inf)
+            sampled = torch.argmax(chance_logits + noise_g[t], dim=-1)
+            action = torch.where(row[:, 7 * A + 1] > 0.5, sampled, action)
+
+        a1 = action[:, None]
+        next_child = torch.gather(ch.index, 1, a1)[:, 0]
+        child_is_terminal = torch.gather(ch.terminal, 1, a1)[:, 0]
+        now_done = ~done & ((next_child < 0) | child_is_terminal)
+        move = ~done & (next_child >= 0)
+        flipped = torch.where(vtp == 1, 2, torch.where(vtp == 2, 1, -1)).to(torch.int32)
+        vtp = torch.where(done, vtp, flipped)
+        depth = torch.where(move, depth + 1, depth)
+        new_node = torch.where(move, next_child, node)
+        # stalled and done lanes write into columns past their own depth,
+        # which the backup masks out
+        path[:, t + 1] = new_node
+        path_reward[:, t + 1] = torch.gather(ch.reward, 1, a1)[:, 0]
+        path_vsum[:, t + 1] = torch.gather(ch.value_sum, 1, a1)[:, 0]
+        path_visit[:, t + 1] = torch.gather(ch.visit, 1, a1)[:, 0]
+        parent = torch.where(now_done & (next_child < 0), node, parent)
+        parent_q = torch.where(done, parent_q, mean_q)
+        is_root = is_root & done
+        last_action = torch.where(done, last_action, action)
+        leaf_term = torch.where(now_done, child_is_terminal, leaf_term)
+        done = done | now_done
+        node = new_node
+        if bool(done.all()):
+            break
+    # a tree that stopped at an existing terminal node expands nothing; the
+    # model is evaluated from the terminal node's predecessor
+    parent = torch.where(leaf_term, path[bidx, torch.clamp(depth - 1, min=0)], parent)
+    return _TraverseState(
+        node=node,
+        depth=depth,
+        path=path,
+        parent=parent,
+        last_action=last_action,
+        virtual_to_play=vtp,
+        leaf_is_terminal_node=leaf_term,
+        path_reward=path_reward,
+        path_vsum=path_vsum,
+        path_visit=path_visit,
+    )
 
 
 def _traverse(
@@ -115,19 +315,43 @@ def _traverse(
     tree: Tree,
     to_play: torch.Tensor,
     generator: Optional[torch.Generator],
+    chance_noise: Optional[torch.Tensor] = None,
 ) -> _TraverseState:
-    """Lockstep selection from the roots to unexpanded leaves through the
-    fused descent (puct.py:335, unpacked as _traverse_pallas does,
-    puct.py:266-332). The 'noise' tie-break's uniforms are drawn up front as
-    one (max_depth, B, A) table, one row per depth."""
+    """Lockstep selection from the roots to unexpanded leaves (puct.py:335):
+    the generic descent for stochastic searches, ``fused_traverse``
+    otherwise (puct.py:372-378). The randomness is drawn up front as
+    (max_depth, B, A) tables, one row per depth: the 'noise' tie-break's
+    uniforms and, for stochastic searches, the chance nodes' Gumbel draws,
+    which ``chance_noise`` replaces (for tests)."""
+    B, N, A = tree.num_trees, tree.num_nodes, tree.num_actions
+    max_depth = N + 1
+    dev = tree.value_sum.device
+    dtype = tree.value_sum.dtype
+    packed = _pack_traverse_tables(tree)
+    noise_u = None
+    if cfg.tie_break != "first":
+        noise_u = torch.rand((max_depth, B, A), generator=generator, device=dev, dtype=dtype)
+    if not cfg.stochastic:
+        return _fused_descent(cfg, tree, to_play, packed, noise_u)
+    if chance_noise is None:
+        u = torch.rand((max_depth, B, A), generator=generator, device=dev, dtype=dtype)
+        chance_noise = -torch.log(-torch.log(torch.clamp(u, min=torch.finfo(dtype).tiny)))
+    return _generic_traverse(cfg, tree, to_play, packed, noise_u, chance_noise.to(dev, dtype))
+
+
+def _fused_descent(
+    cfg: SearchConfig,
+    tree: Tree,
+    to_play: torch.Tensor,
+    packed: torch.Tensor,
+    noise_u: Optional[torch.Tensor],
+) -> _TraverseState:
+    """The descent through ``fused_traverse`` (unpacked as JAX's
+    _traverse_pallas does, puct.py:266-332)."""
     B, N, A = tree.num_trees, tree.num_nodes, tree.num_actions
     max_depth = N + 1
     dev = tree.value_sum.device
     f32 = torch.float32
-    packed = _pack_traverse_tables(tree)
-    noise_u = None
-    if cfg.tie_break != "first":
-        noise_u = torch.rand((max_depth, B, A), generator=generator, device=dev, dtype=f32)
     root_stats = torch.stack(
         [
             tree.reward[:, 0].to(f32),
@@ -190,7 +414,8 @@ def _expand_and_backup(
     prior_is_logits: bool = False,
 ) -> Tree:
     """Expand the leaves (node sim + 1) and back the values up the paths
-    (puct.py:544-708, players == 1). Updates the tree tensors in place.
+    (puct.py:544-708, players == 1). Updates the tree tensors in place; a
+    recurrent output with ``is_chance`` marks the new row's node kind.
     ``prior_is_logits``: the new row keeps the raw logits, illegal actions
     at -1e9, instead of their softmax (Gumbel trees, puct.py:572-574)."""
     B, N, A = tree.num_trees, tree.num_nodes, tree.num_actions
@@ -233,6 +458,8 @@ def _expand_and_backup(
     row_write(tree.raw_value, out.value)
     row_write(tree.to_play, st.virtual_to_play)
     row_write(tree.terminal, terminal)
+    if out.is_chance is not None:
+        row_write(tree.is_chance, out.is_chance)
     map_embedding(row_write, tree.embedding, out.embedding)
 
     # --- backup ---
@@ -337,12 +564,16 @@ def batch_puct_search(
     true_action: Optional[torch.Tensor] = None,
     generator: Optional[torch.Generator] = None,
     device: Optional[torch.device] = None,
+    chance_noise: Optional[torch.Tensor] = None,
 ) -> SearchOutput:
     """Run the full batched search (puct.py:756-825).
 
     The search runs on ``device``: ``cuda`` unless the caller names another;
     the root tensors are moved there. ``generator`` (on that device) draws
-    the Dirichlet noise and the 'noise' tie-break uniforms."""
+    the Dirichlet noise, the 'noise' tie-break uniforms and the chance
+    nodes' Gumbel draws. ``chance_noise`` (num_simulations, N + 1, B, A),
+    standard Gumbel draws, replaces the last (for tests: JAX draws its own
+    table per simulation, puct.py:379-385)."""
     _check_scope(cfg, true_action)
     dev = resolve_device(device)
     root = RootOutput(
@@ -361,7 +592,8 @@ def batch_puct_search(
     tree = prepare_roots(cfg, tree, root, legal_mask, to_play, with_noise, noise, generator)
     bidx = torch.arange(B, device=dev)
     for sim in range(cfg.num_simulations):
-        st = _traverse(cfg, tree, to_play, generator)
+        st = _traverse(cfg, tree, to_play, generator,
+                       None if chance_noise is None else chance_noise[sim])
         parent_embedding = map_embedding(lambda e: e[bidx, st.parent], tree.embedding)
         out = recurrent_fn(st.last_action, parent_embedding)
         tree = _expand_and_backup(cfg, tree, st, sim, out)

@@ -33,6 +33,7 @@ class Tree(NamedTuple):
     children: torch.Tensor  # (B, N, A) int32 child node index, -1 = virtual
     to_play: torch.Tensor  # (B, N) int32 player at node (-1 = 1p mode)
     terminal: torch.Tensor  # (B, N) bool absorbing state
+    is_chance: torch.Tensor  # (B, N) bool chance (afterstate) node, Stochastic MuZero
     legal: torch.Tensor  # (B, N, A) bool legal child actions
     embedding: Any  # tensor or dict of (B, N, ...) per-node latents
     vmin: torch.Tensor  # (B,) per-tree MinMax stats
@@ -99,6 +100,7 @@ def init_tree(
         children=torch.full((B, N, A), UNVISITED, dtype=torch.int32, device=device),
         to_play=torch.full((B, N), -1, dtype=torch.int32, device=device),
         terminal=zeros(B, N, dt=torch.bool),
+        is_chance=zeros(B, N, dt=torch.bool),
         legal=zeros(B, N, A, dt=torch.bool),
         embedding=map_embedding(alloc_embedding, embedding_example),
         # +1e6 / -1e6: delta stays <= 0 until the first update, so

@@ -32,7 +32,9 @@ class SearchConfig:
     # cselect_child, cnode.cpp:551). 'first': lowest-index argmax.
     tie_break: str = "noise"
     tie_break_epsilon: float = 1e-6
-    # Stochastic MuZero chance nodes: not ported yet (raises).
+    # Stochastic MuZero: decision and chance nodes alternate; a chance node
+    # samples its child from the prior over outcomes (Gumbel-max), and the
+    # search takes the generic descent instead of the descent kernel.
     stochastic: bool = False
 
 
@@ -46,8 +48,8 @@ class RootOutput(NamedTuple):
 
 class RecurrentOutput(NamedTuple):
     """Output of recurrent_inference for one search step. ``legal_mask`` and
-    ``terminal`` serve env-as-simulator search; model-based callers leave
-    them None (all legal, never terminal)."""
+    ``terminal`` serve env-as-simulator search and chance nodes; model-based
+    callers leave them None (all legal, never terminal, no chance node)."""
 
     reward: torch.Tensor  # (B,)
     value: torch.Tensor  # (B,)
@@ -55,6 +57,7 @@ class RecurrentOutput(NamedTuple):
     embedding: Any  # tensor or dict of (B, ...) tensors
     legal_mask: Optional[torch.Tensor] = None  # (B, A) bool
     terminal: Optional[torch.Tensor] = None  # (B,) bool
+    is_chance: Optional[torch.Tensor] = None  # (B,) bool the new node is a chance node
 
 
 class SearchOutput(NamedTuple):

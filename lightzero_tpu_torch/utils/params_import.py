@@ -1,16 +1,24 @@
 """Carry flax parameters of the JAX ``MuZeroModel`` (MLP branch, with the SSL
-projector) and ``EfficientZeroModel`` (MLP branch) into the port's models,
-and back.
+projector), ``EfficientZeroModel`` (MLP branch) and ``StochasticMuZeroModel``
+(MLP branch) into the port's models, and back.
 
 ``flax_to_state_dict`` takes the flax params as nested dicts of numpy arrays
 (``{"params": {...}}`` or the inner dict), e.g.
 ``jax.tree_util.tree_map(np.asarray, params)``, and gives a ``state_dict``
-for ``MuZeroModel.load_state_dict``. A Dense ``kernel`` (in, out) becomes a
-Linear ``weight`` (out, in); a LayerNorm ``scale`` becomes ``weight``.
-``state_dict_to_flax`` is its inverse: a port ``state_dict`` as flax-shaped
-nested dicts of numpy arrays, to compare updated parameters with the JAX
-package's. Both raise on a parameter they do not know, so that nothing is
-dropped silently.
+for the port model's ``load_state_dict``. A Dense ``kernel`` (in, out)
+becomes a Linear ``weight`` (out, in); a LayerNorm ``scale`` becomes
+``weight``. ``state_dict_to_flax`` is its inverse: a port ``state_dict`` as
+flax-shaped nested dicts of numpy arrays, to compare updated parameters with
+the JAX package's. Both raise on a parameter they do not know, so that
+nothing is dropped silently.
+
+Each model class has its own map (``_PARAM_MAPS``), since the same name
+means different modules in different models: MuZero's flax ``_dyn`` holds
+two torsos and the port's ``dynamics_network`` a torso and a reward head,
+while Stochastic MuZero's ``_dyn`` and ``dynamics_network`` are one torso.
+The map is picked by a module that only its model has: ``_lstm`` (port:
+``lstm``) for EfficientZero, ``_afterstate_dyn`` (port:
+``afterstate_dynamics_network``) for Stochastic MuZero, else MuZero's.
 
 EfficientZero's LSTM: flax ``OptimizedLSTMCell`` holds per gate an input
 kernel ``i{i,f,g,o}/kernel`` (in, H) without bias and a hidden kernel
@@ -24,28 +32,76 @@ in the port's model) is zero; the inverse splits them back and raises if
 from __future__ import annotations
 
 import re
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, NamedTuple
 
 import numpy as np
 import torch
 
-# flax MLPTorso path -> port MLPTorso path (layers Dense_i / LayerNorm_i)
-_TORSOS = {
-    "_repr/MLPTorso_0": "representation_network.torso",
-    "_dyn/MLPTorso_0": "dynamics_network.torso",
-    "_dyn/MLPTorso_1": "dynamics_network.reward_head",
-    "_pred/MLPTorso_0": "prediction_network.torso",
-    "_pred/MLPTorso_1": "prediction_network.value_head",
-    "_pred/MLPTorso_2": "prediction_network.policy_head",
-}
-# flax MLPTorso modules that sit directly on the model (EfficientZero)
-_TORSOS.update({"_dyn_torso": "dynamics_torso", "_vp_head": "value_prefix_head"})
 _TORSO_LAYERS = {"Dense": "dense", "LayerNorm": "norm"}
 _LSTM = "lstm"
 _GATES = ("i", "f", "g", "o")
 # flax SSLProjector layer -> port SSLProjector layer
 _PROJECTOR_LAYERS = {"proj": "proj", "proj_norms": "proj_norms", "pred": "pred"}
 _LEAVES = {"kernel": "weight", "scale": "weight", "bias": "bias"}
+
+
+class _ParamMap(NamedTuple):
+    """One model class's names: flax MLPTorso path -> port MLPTorso path
+    (layers Dense_i / LayerNorm_i), flax bare LayerNorm -> port LayerNorm,
+    and whether the model has the SSL projector (``_proj``) and the LSTM."""
+
+    torsos: Dict[str, str]
+    norms: Dict[str, str]
+    projector: bool
+    lstm: bool
+
+
+# the MLP representation and prediction networks every model has
+_REPR_PRED = {
+    "_repr/MLPTorso_0": "representation_network.torso",
+    "_pred/MLPTorso_0": "prediction_network.torso",
+    "_pred/MLPTorso_1": "prediction_network.value_head",
+    "_pred/MLPTorso_2": "prediction_network.policy_head",
+}
+_PARAM_MAPS = {
+    "MuZeroModel": _ParamMap(
+        torsos=dict(_REPR_PRED, **{"_dyn/MLPTorso_0": "dynamics_network.torso",
+                                   "_dyn/MLPTorso_1": "dynamics_network.reward_head"}),
+        norms={}, projector=True, lstm=False),
+    "EfficientZeroModel": _ParamMap(
+        torsos=dict(_REPR_PRED, _dyn_torso="dynamics_torso", _vp_head="value_prefix_head"),
+        norms={"_vp_norm": "value_prefix_norm"}, projector=True, lstm=True),
+    "StochasticMuZeroModel": _ParamMap(
+        torsos=dict(
+            _REPR_PRED,
+            **{"_afterstate_pred/MLPTorso_0": "afterstate_prediction_network.torso",
+               "_afterstate_pred/MLPTorso_1": "afterstate_prediction_network.value_head",
+               "_afterstate_pred/MLPTorso_2": "afterstate_prediction_network.policy_head"},
+            _afterstate_dyn="afterstate_dynamics_network",
+            _dyn="dynamics_network",
+            _reward_head="reward_head",
+            _chance_encoder="chance_encoder",
+        ),
+        norms={}, projector=False, lstm=False),
+}
+
+
+def _map_of_flax(flat: Mapping[str, Any]) -> _ParamMap:
+    tops = {k.split("/")[0] for k in flat}
+    if "_lstm" in tops:
+        return _PARAM_MAPS["EfficientZeroModel"]
+    if "_afterstate_dyn" in tops:
+        return _PARAM_MAPS["StochasticMuZeroModel"]
+    return _PARAM_MAPS["MuZeroModel"]
+
+
+def _map_of_port(names) -> _ParamMap:
+    tops = {k.split(".")[0] for k in names}
+    if _LSTM in tops:
+        return _PARAM_MAPS["EfficientZeroModel"]
+    if "afterstate_dynamics_network" in tops:
+        return _PARAM_MAPS["StochasticMuZeroModel"]
+    return _PARAM_MAPS["MuZeroModel"]
 
 
 def _flatten(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, np.ndarray]:
@@ -59,38 +115,40 @@ def _flatten(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, np.ndarray]
     return flat
 
 
-def _port_name(key: str) -> str:
+def _port_name(pmap: _ParamMap, key: str) -> str:
     """Port state_dict key of a flax parameter path ('/'-joined)."""
-    m = re.fullmatch(r"(\w+(?:/MLPTorso_\d+)?)/(Dense|LayerNorm)_(\d+)/(kernel|bias|scale)", key)
-    if m is not None and m.group(1) in _TORSOS:
+    m = re.fullmatch(r"(.+)/(Dense|LayerNorm)_(\d+)/(kernel|bias|scale)", key)
+    if m is not None and m.group(1) in pmap.torsos:
         module, layer, idx, leaf = m.groups()
-        return f"{_TORSOS[module]}.{_TORSO_LAYERS[layer]}.{idx}.{_LEAVES[leaf]}"
-    m = re.fullmatch(r"_proj/(proj|proj_norms|pred)_(\d+)/(kernel|bias|scale)", key)
-    if m is not None:
-        layer, idx, leaf = m.groups()
-        return f"projector.{_PROJECTOR_LAYERS[layer]}.{idx}.{_LEAVES[leaf]}"
-    m = re.fullmatch(r"_proj/pred_norm/(scale|bias)", key)
-    if m is not None:
-        return f"projector.pred_norm.{_LEAVES[m.group(1)]}"
-    m = re.fullmatch(r"_vp_norm/(scale|bias)", key)
-    if m is not None:
-        return f"value_prefix_norm.{_LEAVES[m.group(1)]}"
+        return f"{pmap.torsos[module]}.{_TORSO_LAYERS[layer]}.{idx}.{_LEAVES[leaf]}"
+    if pmap.projector:
+        m = re.fullmatch(r"_proj/(proj|proj_norms|pred)_(\d+)/(kernel|bias|scale)", key)
+        if m is not None:
+            layer, idx, leaf = m.groups()
+            return f"projector.{_PROJECTOR_LAYERS[layer]}.{idx}.{_LEAVES[leaf]}"
+        m = re.fullmatch(r"_proj/pred_norm/(scale|bias)", key)
+        if m is not None:
+            return f"projector.pred_norm.{_LEAVES[m.group(1)]}"
+    m = re.fullmatch(r"(\w+)/(scale|bias)", key)
+    if m is not None and m.group(1) in pmap.norms:
+        return f"{pmap.norms[m.group(1)]}.{_LEAVES[m.group(2)]}"
     raise KeyError(f"no counterpart in the port for flax parameter {key!r}")
 
 
 def flax_to_state_dict(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
-    """Map flax MuZero MLP params to the port's state_dict keys."""
+    """Map flax params of one of the three models to the port's state_dict
+    keys."""
     if "params" in params:
         params = params["params"]
     out: Dict[str, torch.Tensor] = {}
     flat = _flatten(params)
-    lstm = {k: flat.pop(k) for k in [k for k in flat if k.startswith("_lstm/")]}
-    if lstm:
-        out.update(_lstm_to_torch(lstm))
+    pmap = _map_of_flax(flat)
+    if pmap.lstm:
+        out.update(_lstm_to_torch({k: flat.pop(k) for k in list(flat) if k.startswith("_lstm/")}))
     for key, value in flat.items():
         if key.endswith("/kernel"):
             value = value.T
-        out[_port_name(key)] = torch.from_numpy(np.array(value, dtype=np.float32, order="C"))
+        out[_port_name(pmap, key)] = torch.from_numpy(np.array(value, dtype=np.float32, order="C"))
     return out
 
 
@@ -130,35 +188,40 @@ def _lstm_to_flax(name: str, value: np.ndarray) -> Dict[str, np.ndarray]:
             for g, p in zip(_GATES, parts)}
 
 
-def _flax_paths() -> Dict[str, str]:
-    """Every port state_dict key this module knows -> its flax path."""
+def _flax_paths(pmap: _ParamMap) -> Dict[str, str]:
+    """Every port state_dict key of the model -> its flax path."""
     paths = {}
-    for flax_mod, port_mod in _TORSOS.items():
+    for flax_mod, port_mod in pmap.torsos.items():
         for flax_layer, port_layer in _TORSO_LAYERS.items():
             leaves = ("kernel", "bias") if flax_layer == "Dense" else ("scale", "bias")
             for leaf in leaves:
                 paths[f"{port_mod}.{port_layer}.{{i}}.{_LEAVES[leaf]}"] = (
                     f"{flax_mod}/{flax_layer}_{{i}}/{leaf}"
                 )
-    for flax_layer, port_layer in _PROJECTOR_LAYERS.items():
-        leaves = ("scale", "bias") if flax_layer == "proj_norms" else ("kernel", "bias")
-        for leaf in leaves:
-            paths[f"projector.{port_layer}.{{i}}.{_LEAVES[leaf]}"] = f"_proj/{flax_layer}_{{i}}/{leaf}"
-    paths["projector.pred_norm.weight"] = "_proj/pred_norm/scale"
-    paths["projector.pred_norm.bias"] = "_proj/pred_norm/bias"
-    paths["value_prefix_norm.weight"] = "_vp_norm/scale"
-    paths["value_prefix_norm.bias"] = "_vp_norm/bias"
+    if pmap.projector:
+        for flax_layer, port_layer in _PROJECTOR_LAYERS.items():
+            leaves = ("scale", "bias") if flax_layer == "proj_norms" else ("kernel", "bias")
+            for leaf in leaves:
+                paths[f"projector.{port_layer}.{{i}}.{_LEAVES[leaf]}"] = (
+                    f"_proj/{flax_layer}_{{i}}/{leaf}"
+                )
+        paths["projector.pred_norm.weight"] = "_proj/pred_norm/scale"
+        paths["projector.pred_norm.bias"] = "_proj/pred_norm/bias"
+    for flax_mod, port_mod in pmap.norms.items():
+        paths[f"{port_mod}.weight"] = f"{flax_mod}/scale"
+        paths[f"{port_mod}.bias"] = f"{flax_mod}/bias"
     return paths
 
 
 def state_dict_to_flax(state_dict: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
     """The inverse of ``flax_to_state_dict``: ``{"params": {...}}`` nested
     dicts of float32 numpy arrays in flax's layout."""
-    patterns = _flax_paths()
+    pmap = _map_of_port(state_dict)
+    patterns = _flax_paths(pmap)
     flat: Dict[str, np.ndarray] = {}
     for name, tensor in state_dict.items():
         value = tensor.detach().cpu().numpy().astype(np.float32)
-        if name.startswith(f"{_LSTM}."):
+        if pmap.lstm and name.startswith(f"{_LSTM}."):
             flat.update(_lstm_to_flax(name, value))
             continue
         m = re.fullmatch(r"(.+)\.(\d+)\.(weight|bias)", name)

@@ -24,7 +24,7 @@ from lightzero_tpu_torch.buffers.game_buffer import EpisodeRecord
 from lightzero_tpu_torch.envs.base import TensorEnv
 from lightzero_tpu_torch.utils.device import resolve_device
 
-_RECORD_KEYS = ("obs", "legal", "to_play", "action", "reward", "done", "truncated",
+_RECORD_KEYS = ("obs", "legal", "to_play", "action", "reward", "done", "truncated", "chance",
                 "visit_counts", "searched_value", "predicted_value")
 
 
@@ -128,9 +128,11 @@ class RolloutCollector:
                 obs, legal, to_play, temperature, epsilon, deterministic=False
             )
             step = self.env.step(env_state, out["action"], self.generator)
+            chance = (step.chance if step.chance is not None
+                      else torch.zeros_like(out["action"], dtype=torch.int64))
             records.append(dict(
                 obs=obs, legal=legal, to_play=to_play, action=out["action"],
-                reward=step.reward, done=step.done, truncated=step.truncated,
+                reward=step.reward, done=step.done, truncated=step.truncated, chance=chance,
                 visit_counts=out["visit_counts"], searched_value=out["searched_value"],
                 predicted_value=out["predicted_value"],
             ))
@@ -171,6 +173,7 @@ class RolloutCollector:
                         records["legal"][t, e],
                         int(records["to_play"][t, e]),
                         float(pri[t, e]),
+                        chance=int(records["chance"][t, e]),
                     )
                     self._env_return[e] += float(records["reward"][t, e])
                     if records["done"][t, e]:

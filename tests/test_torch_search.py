@@ -147,7 +147,7 @@ def test_noise_tie_break_search_runs_and_counts_every_simulation():
     "change,kwargs,match",
     [
         (dict(players=2), {}, "players == 2"),
-        (dict(stochastic=True), {}, "stochastic"),
+        (dict(stochastic=True, players=2), {}, "players == 2"),
         ({}, dict(true_action=torch.zeros(B, dtype=torch.long)), "true_action"),
     ],
 )

@@ -151,7 +151,7 @@ def test_lenient_load_of_a_params_export_keeps_the_fresh_optimizer(tmp_path):
 
 
 @pytest.mark.parametrize("override,match", [
-    (dict(policy=dict(type="stochastic_muzero")), "slice 13"),
+    (dict(policy=dict(type="stochastic_muzero", model=dict(model_type="conv"))), "slice 16"),
     (dict(policy=dict(type="efficientzero", model=dict(model_type="conv"))), "slice 16"),
     (dict(policy=dict(type="gumbel_muzero", env_type="board_games")), "slice 17"),
     (dict(policy=dict(buffer_reanalyze_freq=0.5)), "slice 15"),
@@ -166,14 +166,15 @@ def test_train_muzero_refuses_what_is_not_ported(tmp_path, override, match):
         train_muzero(cfg, device="cpu")
 
 
-@pytest.mark.parametrize("policy_type", ["muzero", "efficientzero", "gumbel_muzero"])
+@pytest.mark.parametrize("policy_type",
+                         ["muzero", "efficientzero", "gumbel_muzero", "stochastic_muzero"])
 def test_train_muzero_builds_the_port_of_the_jax_policy(policy_type):
     import importlib
 
     from lightzero_tpu.utils.registry import POLICY_REGISTRY
     from lightzero_tpu_torch.entry.train_muzero import POLICIES
 
-    assert sorted(POLICIES) == ["efficientzero", "gumbel_muzero", "muzero"]
+    assert sorted(POLICIES) == ["efficientzero", "gumbel_muzero", "muzero", "stochastic_muzero"]
     importlib.import_module(f"lightzero_tpu.policy.{policy_type}")  # registers it
     policy_cls = POLICIES[policy_type]
     assert policy_cls.__name__ == POLICY_REGISTRY.get(policy_type).__name__

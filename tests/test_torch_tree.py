@@ -49,7 +49,7 @@ def test_init_tree_matches():
     jt = jax_tree.init_tree(B, N, A, {"latent": jnp.asarray(emb["latent"])})
     pt = tree.init_tree(B, N, A, {"latent": torch.from_numpy(emb["latent"])})
     for field in ("visit_count", "value_sum", "reward", "raw_value", "prior", "children",
-                  "to_play", "terminal", "legal", "vmin", "vmax"):
+                  "to_play", "terminal", "is_chance", "legal", "vmin", "vmax"):
         exp = np.asarray(getattr(jt, field))
         got = getattr(pt, field).numpy()
         assert got.dtype == exp.dtype, field
