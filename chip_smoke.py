@@ -70,13 +70,29 @@ Phases, each of a fixed size, in one process:
      with episodes truncated at STOCH_TRAIN_EPISODE_STEPS (its eval runs
      that many steps, its collect round the collector's 64, 512
      transitions); one learn step on the card against one on the CPU; the
-     median learn-step time.
+     median learn-step time;
+ 10. sampled: the Pendulum Sampled MuZero and Sampled EfficientZero configs
+     at full width (observation 3, action dimension 1, K=20 sampled
+     actions, latent 128, LSTM 128, supports of 601 atoms, 50 simulations),
+     whose searches run the descent kernel on its row-read route (A=K=20 >
+     8): for each policy, the Evaluator on 3 envs with episodes truncated
+     at SAMPLED_EVAL_STEPS env steps (launches = env steps x 50); a batch of
+     4 numpy-seeded Pendulum states searched on the card and on the CPU
+     with the same root and per-simulation candidate draws, the same
+     Dirichlet noise and tie_break='first'; a short train_muzero run as in
+     phase 7 with episodes truncated at SAMPLED_TRAIN_EPISODE_STEPS, so that
+     one collect round of 64 steps x 8 envs fills the batch of 256, and
+     stop_value out of reach (launches = (collect + eval searches) x 50);
+     one learn step on the card against one on the CPU; the median
+     learn-step time. For Sampled MuZero also the descent inputs of one
+     eval search at simulations 1, 25 and 50, rerun kernel against plain as
+     in phase 3.
 
 The last lines are the card's name and power limit, one JSON object with a
 record per kernel, and {"ok": true, "device": {...}}; that last line is printed
 only when every phase passed. Without a CUDA device the script exits non-zero
 and prints no result. A watchdog ends a run that has not finished in
-WATCHDOG_S = 400 s.
+WATCHDOG_S = 600 s.
 """
 from __future__ import annotations
 
@@ -102,15 +118,20 @@ from lightzero_tpu_torch.configs.cartpole_efficientzero import main_config as ez
 from lightzero_tpu_torch.configs.cartpole_gumbel_muzero import main_config as gumbel_config
 from lightzero_tpu_torch.configs.cartpole_muzero import main_config
 from lightzero_tpu_torch.configs.game_2048_stochastic_muzero import main_config as stoch_config
+from lightzero_tpu_torch.configs.pendulum_sampled_efficientzero import main_config as sez_config
+from lightzero_tpu_torch.configs.pendulum_sampled_muzero import main_config as smz_config
 from lightzero_tpu_torch.entry import train_muzero
-from lightzero_tpu_torch.envs import CartPoleEnv, Game2048Env
+from lightzero_tpu_torch.envs import CartPoleEnv, Game2048Env, PendulumEnv
 from lightzero_tpu_torch.envs.game_2048 import legal_moves
 from lightzero_tpu_torch.models import EfficientZeroModel, StochasticMuZeroModel
 from lightzero_tpu_torch.models.common import lecun_normal_
+from lightzero_tpu_torch.models.sampled_muzero import SampledHeads
 from lightzero_tpu_torch.policy import (
     EfficientZeroPolicy,
     GumbelMuZeroPolicy,
     MuZeroPolicy,
+    SampledEfficientZeroPolicy,
+    SampledMuZeroPolicy,
     StochasticMuZeroPolicy,
 )
 from lightzero_tpu_torch.search import gumbel, puct
@@ -124,10 +145,10 @@ from lightzero_tpu_torch.search.fused_traverse import (
 )
 from lightzero_tpu_torch.workers import Evaluator
 
-# phase 9 (Stochastic MuZero, about 0.6-1 s per search at full width, and
-# a collect round of 64 of them) took the script past the 290 s this watchdog
-# had through phase 8; 400 s keeps it well inside the 1200 s a run may take
-WATCHDOG_S = 400
+# phases 9 and 10 took the script to 259 s on one host and to 371 s on a
+# slower one (every phase 1.4-1.9x slower there), 29 s short of the 400 s
+# this watchdog had through phase 9; 600 s is half the 1200 s a run may take
+WATCHDOG_S = 600
 # H100 SXM peaks (NVIDIA data sheet): HBM bandwidth and float32 outside the
 # tensor cores; the bound of a kernel is the larger of bytes/rate, ops/rate
 HBM_BYTES_PER_S = 3.35e12
@@ -164,6 +185,15 @@ EZ_CAPTURED_SIMS = (1, 13, 25)
 STOCH_EVAL_STEPS = 12
 STOCH_TIMED_EVAL_STEPS = 6
 STOCH_TRAIN_EPISODE_STEPS = 16
+# phase 10: a Pendulum episode runs 200 steps, so the evals truncate episodes
+# at SAMPLED_EVAL_STEPS, and the short training run at
+# SAMPLED_TRAIN_EPISODE_STEPS (its eval runs that many steps, and one collect
+# round of the collector's 64 steps x 8 envs, 16 episodes, fills the batch);
+# the simulations of the Sampled MuZero eval search whose descent inputs are
+# rerun kernel against plain
+SAMPLED_EVAL_STEPS = 12
+SAMPLED_TRAIN_EPISODE_STEPS = 32
+SAMPLED_CAPTURED_SIMS = (1, 25, 50)
 # card vs CPU learn step from the same params and batch (TF32 off): the
 # logged terms to 1e-4 relative (float32 matmuls of batch 256 summed in
 # another order). Adam's first update is lr * g / (|g| + 1e-8), g the
@@ -263,13 +293,20 @@ def randomize_heads(model, seed: int) -> None:
     """Draw every head's last layer (zero at init, which would make each
     search a tie) from a seeded generator."""
     g = torch.Generator().manual_seed(seed)
-    if isinstance(model, EfficientZeroModel):
-        first = model.value_prefix_head
-    elif isinstance(model, StochasticMuZeroModel):
-        first = model.reward_head
+    if isinstance(model, SampledHeads):
+        # the value head, and whichever of the reward or value-prefix head and
+        # the Gaussian or logits heads the model has
+        heads = [getattr(model, name) for name in (
+            "value_head", "reward_head", "value_prefix_head", "mu_head", "sigma_head",
+            "policy_head") if hasattr(model, name)]
     else:
-        first = model.dynamics_network.reward_head
-    heads = (first, model.prediction_network.value_head, model.prediction_network.policy_head)
+        if isinstance(model, EfficientZeroModel):
+            first = model.value_prefix_head
+        elif isinstance(model, StochasticMuZeroModel):
+            first = model.reward_head
+        else:
+            first = model.dynamics_network.reward_head
+        heads = (first, model.prediction_network.value_head, model.prediction_network.policy_head)
     if isinstance(model, StochasticMuZeroModel):
         heads += (model.afterstate_prediction_network.value_head,
                   model.afterstate_prediction_network.policy_head)
@@ -640,6 +677,12 @@ def capture_descent_inputs(policy, obs, legal, sims: tuple) -> dict:
     return captures
 
 
+def batch_to(batch, device):
+    """A batch (a NamedTuple of tensors, or of such batches) on ``device``."""
+    return type(batch)(*(None if x is None else x.to(device) if torch.is_tensor(x)
+                         else batch_to(x, device) for x in batch))
+
+
 def learn_step_card_vs_cpu(policy, batch) -> tuple:
     """One learn step on the card and one on the CPU, each from a fresh
     optimizer over the same params, on the same batch: (record, agree)."""
@@ -648,8 +691,7 @@ def learn_step_card_vs_cpu(policy, batch) -> tuple:
         p = type(policy)(policy.cfg, model=copy.deepcopy(policy.model), device=dev)
         before = {k: v.detach().cpu().clone() for k, v in p.model.named_parameters()}
         state = p.init_train_state()
-        on_dev = type(batch)(*(None if x is None else x.to(p.device) for x in batch))
-        _, logs, priority = p.forward_learn(state, on_dev)
+        _, logs, priority = p.forward_learn(state, batch_to(batch, p.device))
         g = {k: v.grad.cpu() + float(p.cfg.weight_decay) * before[k]
              for k, v in p.model.named_parameters()}
         results[dev] = dict(logs={k: float(v) for k, v in logs.items()}, priority=priority.cpu(),
@@ -671,7 +713,7 @@ def learn_step_card_vs_cpu(policy, batch) -> tuple:
         total += sensitive.numel()
     priorities_agree = torch.allclose(card["priority"], cpu["priority"], rtol=VALUE_TOL,
                                       atol=VALUE_TOL)
-    rec = dict(phase="train_card_vs_cpu", batch=int(batch.obs.shape[0]),
+    rec = dict(phase="train_card_vs_cpu", batch=int(cpu["priority"].shape[0]),
                max_log_rel_err=max(log_err.values()), log_rel_err=log_err,
                priority_max_abs_err=float((card["priority"] - cpu["priority"]).abs().max()),
                param_max_abs_err=tight_err, param_max_abs_err_rounding_bound=loose_err,
@@ -794,9 +836,10 @@ def phase_train(card: str) -> dict:
     return rec
 
 
-def eval_episodes(policy, card: str, label: str, env=None) -> dict:
+def eval_episodes(policy, card: str, label: str, env=None, returns_range=(0, math.inf)) -> dict:
     """The Evaluator on 3 envs (CartPole unless ``env`` is given) until each
-    ends an episode, the launch counter read around it."""
+    ends an episode, the launch counter read around it; each return must be
+    finite and within ``returns_range`` (CartPole's: 1 to 200)."""
     cartpole = env is None
     env = CartPoleEnv() if cartpole else env
     evaluator = Evaluator(env, policy, num_envs=3, seed=MAIN_SEED, device="cuda")
@@ -809,7 +852,7 @@ def eval_episodes(policy, card: str, label: str, env=None) -> dict:
     rec = dict(phase=f"{label}_eval", num_envs=3, episode_returns=returns, env_steps=steps,
                launches=fused_traverse.launches, wall_s=wall, wall_per_env_step_s=wall / steps,
                card=card)
-    low, high = (1, 200) if cartpole else (0, math.inf)
+    low, high = (1, 200) if cartpole else returns_range
     if len(returns) < 3 or not all(math.isfinite(r) and low <= r <= high for r in returns):
         raise AssertionError(f"{label}: implausible returns {returns}")
     return rec
@@ -994,12 +1037,45 @@ def descent_record(rec: dict, descent: dict) -> dict:
     return rec
 
 
+def seeded_search_card_vs_cpu(policy, label: str, obs, legal, close=(), **draws) -> dict:
+    """``obs`` searched on the card and on the CPU from the same weights,
+    with the same ``draws`` (tensors passed to ``_forward_collect``) and
+    tie_break='first': root visit counts equal, root values and the outputs
+    named in ``close`` within VALUE_TOL (actions are drawn from each
+    device's generator and are not compared)."""
+    B = obs.shape[0]
+    to_play = torch.full((B,), -1, dtype=torch.int32)
+    cpu_policy = type(policy)(policy.cfg, model=copy.deepcopy(policy.model).cpu(), device="cpu")
+    search_cfg = policy.search_cfg
+    outs = []
+    try:
+        for p in (policy, cpu_policy):
+            p.search_cfg = dataclasses.replace(search_cfg, tie_break="first")
+            d = p.device
+            outs.append(p._forward_collect(obs.to(d), legal.to(d), to_play.to(d), 1.0, 0.0,
+                                           **{k: v.to(d) for k, v in draws.items()}))
+    finally:
+        policy.search_cfg = search_cfg
+    on_card, on_cpu = ({k: v.cpu() for k, v in o.items()} for o in outs)
+    if not torch.equal(on_card["visit_counts"], on_cpu["visit_counts"]):
+        raise AssertionError(f"{label}: card and CPU visit counts differ: "
+                             f"{on_card['visit_counts'].tolist()} vs {on_cpu['visit_counts'].tolist()}")
+    err = {}
+    for key in ("searched_value", "predicted_value") + tuple(close):
+        a, b = on_card[key].float(), on_cpu[key].float()
+        err[key] = float((a - b).abs().max())
+        if not (torch.isfinite(a).all() and torch.allclose(a, b, rtol=VALUE_TOL, atol=VALUE_TOL)):
+            raise AssertionError(f"{label}: card and CPU {key} differ: {a.tolist()} vs {b.tolist()}")
+    rec = dict(phase=f"{label}_card_vs_cpu", batch=B, tie_break="first",
+               visit_counts=on_card["visit_counts"].tolist(),
+               searched_value=on_card["searched_value"].tolist(), max_abs_err=err)
+    emit(rec)
+    return rec
+
+
 def stochastic_search_card_vs_cpu(policy) -> dict:
-    """4 numpy-seeded 2048 boards searched on the card and on the CPU from
-    the same weights, with the same Dirichlet noise, the same chance draws
-    and tie_break='first': root visit counts equal, root values within
-    VALUE_TOL (actions are drawn from each device's generator and are not
-    compared)."""
+    """4 numpy-seeded 2048 boards, with the same Dirichlet noise and the same
+    chance draws on the card and on the CPU."""
     rng = np.random.default_rng(MAIN_SEED + 5)
     B, W, A = 4, policy.tree_width, policy.action_space
     sims = policy.search_cfg.num_simulations
@@ -1014,34 +1090,26 @@ def stochastic_search_card_vs_cpu(policy) -> dict:
     noise = torch.where(wide_legal, torch.from_numpy(noise), 0.0)
     noise = noise / noise.sum(dim=1, keepdim=True)
     chance = torch.from_numpy(rng.gumbel(size=(sims, sims + 2, B, W)).astype(np.float32))
-    to_play = torch.full((B,), -1, dtype=torch.int32)
-    cpu_policy = type(policy)(policy.cfg, model=copy.deepcopy(policy.model).cpu(), device="cpu")
-    search_cfg = policy.search_cfg
-    outs = []
-    try:
-        for p in (policy, cpu_policy):
-            p.search_cfg = dataclasses.replace(search_cfg, tie_break="first")
-            d = p.device
-            outs.append(p._forward_collect(obs.to(d), legal.to(d), to_play.to(d), 1.0, 0.0,
-                                           noise=noise.to(d), chance_noise=chance.to(d)))
-    finally:
-        policy.search_cfg = search_cfg
-    on_card, on_cpu = ({k: v.cpu() for k, v in o.items()} for o in outs)
-    if not torch.equal(on_card["visit_counts"], on_cpu["visit_counts"]):
-        raise AssertionError(f"stochastic_muzero: card and CPU visit counts differ: "
-                             f"{on_card['visit_counts'].tolist()} vs {on_cpu['visit_counts'].tolist()}")
-    err = {}
-    for key in ("searched_value", "predicted_value"):
-        a, b = on_card[key].float(), on_cpu[key].float()
-        err[key] = float((a - b).abs().max())
-        if not (torch.isfinite(a).all() and torch.allclose(a, b, rtol=VALUE_TOL, atol=VALUE_TOL)):
-            raise AssertionError(f"stochastic_muzero: card and CPU {key} differ: "
-                                 f"{a.tolist()} vs {b.tolist()}")
-    rec = dict(phase="stochastic_muzero_card_vs_cpu", batch=B, tie_break="first",
-               visit_counts=on_card["visit_counts"].tolist(),
-               searched_value=on_card["searched_value"].tolist(), max_abs_err=err)
-    emit(rec)
-    return rec
+    return seeded_search_card_vs_cpu(policy, "stochastic_muzero", obs, legal, noise=noise,
+                                     chance_noise=chance)
+
+
+def sampled_search_card_vs_cpu(policy, label: str) -> dict:
+    """4 numpy-seeded Pendulum states, with the same root and per-simulation
+    candidate draws and the same Dirichlet noise on the card and on the CPU;
+    the root candidates within VALUE_TOL too."""
+    rng = np.random.default_rng(MAIN_SEED + 6)
+    B, K, sims = 4, policy.K, policy.search_cfg.num_simulations
+    theta, theta_dot = rng.uniform(-np.pi, np.pi, B), rng.uniform(-1, 1, B)
+    obs = torch.from_numpy(np.stack([np.cos(theta), np.sin(theta), theta_dot], 1).astype(np.float32))
+
+    def normals(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+
+    return seeded_search_card_vs_cpu(
+        policy, label, obs, torch.ones((B, 1), dtype=torch.bool), close=("root_sampled_actions",),
+        noise=torch.from_numpy(rng.dirichlet(np.full(K, 0.3), B).astype(np.float32)),
+        root_draws=normals(B, K, 1), sim_draws=normals(sims, B, K, 1))
 
 
 def phase_stochastic(card: str) -> dict:
@@ -1082,6 +1150,49 @@ def phase_stochastic(card: str) -> dict:
     return dict(eval=ev, eval_descent_timed=timed, card_vs_cpu=agreement, train=train)
 
 
+def phase_sampled(card: str, l2_ns: float) -> tuple:
+    """Sampled MuZero and Sampled EfficientZero on Pendulum at full width:
+    their searches are the pUCT search with the K=20 candidates as the
+    tree's action slots, through the descent kernel's row-read route."""
+    records, cases = {}, []
+    for i, (label, policy_cls, config) in enumerate((
+            ("sampled_muzero", SampledMuZeroPolicy, smz_config),
+            ("sampled_efficientzero", SampledEfficientZeroPolicy, sez_config))):
+        policy = policy_cls(config.policy, device="cuda", seed=MAIN_SEED)
+        randomize_heads(policy.model, MAIN_SEED + 6 + i)
+        sims = policy.search_cfg.num_simulations
+        # Pendulum's rewards are costs: a return lies in [-16.3 steps, 0]
+        ev = eval_episodes(policy, card, label, env=PendulumEnv(max_episode_steps=SAMPLED_EVAL_STEPS),
+                           returns_range=(-17.0 * SAMPLED_EVAL_STEPS, 0.0))
+        ev.update(config=f"pendulum_{label}", num_simulations=sims, K=policy.K,
+                  route=kernel_route(policy.K), episodes_truncated_at=SAMPLED_EVAL_STEPS)
+        emit(ev)
+        if ev["launches"] != ev["env_steps"] * sims:
+            raise AssertionError(f"{label}: traverse launches {ev['launches']} != env steps "
+                                 f"{ev['env_steps']} x {sims}")
+        agreement = sampled_search_card_vs_cpu(policy, label)
+        if policy_cls is SampledMuZeroPolicy:
+            obs = PendulumEnv().reset(3, torch.Generator().manual_seed(MAIN_SEED))[1]
+            legal = torch.ones((3, 1), dtype=torch.bool)
+            captures = capture_descent_inputs(policy, obs.cuda(), legal.cuda(),
+                                              SAMPLED_CAPTURED_SIMS)
+            if sorted(captures) != list(SAMPLED_CAPTURED_SIMS):
+                raise AssertionError(f"captured simulations {sorted(captures)}, "
+                                     f"expected {SAMPLED_CAPTURED_SIMS}")
+            cases += phase_captured(captures, l2_ns, search=f"{label} eval search")
+
+        cfg = copy.deepcopy(config)
+        cfg.env.max_episode_steps = SAMPLED_TRAIN_EPISODE_STEPS
+        cfg.env.stop_value = 1.0  # out of reach: a return is at most 0
+        train, problems, *_ = short_train(cfg, card, label, sims)
+        train.update(episodes_truncated_at=SAMPLED_TRAIN_EPISODE_STEPS, stop_value=1.0)
+        emit(train)
+        if problems:
+            raise AssertionError(f"{label} train failed: {problems}")
+        records[label] = dict(eval=ev, card_vs_cpu=agreement, train=train)
+    return records, cases
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs on a GPU", file=sys.stderr)
@@ -1107,6 +1218,8 @@ def main() -> int:
     cases += ez_cases
     gmz = phase_gumbel(card)
     smz = phase_stochastic(card)
+    sampled, sampled_cases = phase_sampled(card, l2_ns)
+    cases += sampled_cases
 
     main_case = next(c for c in cases if (c["B"], c["A"], c["N"], c["tie_break"]) == (3, 2, 26, "noise"))
     kernels = [dict(
@@ -1123,6 +1236,12 @@ def main() -> int:
         # Stochastic MuZero's eval and training (phase 9): the generic descent
         launches_stochastic_muzero=smz["eval"]["launches"],
         launches_stochastic_muzero_train=smz["train"]["launches"],
+        # Sampled MuZero's and Sampled EfficientZero's evals and training
+        # (phase 10): the row-read route, A = K = 20
+        launches_sampled_muzero=sampled["sampled_muzero"]["eval"]["launches"],
+        launches_sampled_muzero_train=sampled["sampled_muzero"]["train"]["launches"],
+        launches_sampled_efficientzero=sampled["sampled_efficientzero"]["eval"]["launches"],
+        launches_sampled_efficientzero_train=sampled["sampled_efficientzero"]["train"]["launches"],
         max_abs_err=max(c["max_abs_err"] for c in cases),
         ms=main_case["ms"],
         # launch to launch through the wrapper, the host's dispatch included:
@@ -1142,7 +1261,15 @@ def main() -> int:
               gumbel_eval_s_per_env_step=gmz["eval"]["wall_per_env_step_s"],
               gumbel_learn_step_ms=gmz["train"]["learn_step_ms_median"],
               stochastic_eval_s_per_env_step=smz["eval"]["wall_per_env_step_s"],
-              stochastic_learn_step_ms=smz["train"]["learn_step_ms_median"]))
+              stochastic_learn_step_ms=smz["train"]["learn_step_ms_median"],
+              sampled_muzero_eval_s_per_env_step=sampled["sampled_muzero"]["eval"][
+                  "wall_per_env_step_s"],
+              sampled_muzero_learn_step_ms=sampled["sampled_muzero"]["train"][
+                  "learn_step_ms_median"],
+              sampled_efficientzero_eval_s_per_env_step=sampled["sampled_efficientzero"]["eval"][
+                  "wall_per_env_step_s"],
+              sampled_efficientzero_learn_step_ms=sampled["sampled_efficientzero"]["train"][
+                  "learn_step_ms_median"]))
     faulthandler.cancel_dump_traceback_later()
     signal.alarm(0)
     print(card, flush=True)

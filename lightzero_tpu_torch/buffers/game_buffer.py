@@ -13,13 +13,18 @@ buffer's order (the native sampler's seed, the padding actions, and once the
 seed of the reanalyze search's ``torch.Generator``), so that the same
 episodes give the same samples in both packages.
 
+Episodes of the sampled policies (root candidates stored) take the Python
+path, as in the JAX buffer: their actions are (T, D) floats (or ints) and
+the batch is a ``SampledTrainBatch`` with the root candidates of every
+unroll position.
+
 Not ported yet, and refused with ``NotImplementedError``: board-game value
-targets and mirror augmentation (ROADMAP queue 1, slice 17), sampled-action
-episodes (slice 14) and ``reanalyze_buffer`` (slice 15).
+targets and mirror augmentation (ROADMAP queue 1, slice 17) and
+``reanalyze_buffer`` (slice 15).
 """
 from __future__ import annotations
 
-from typing import List, NamedTuple, Optional, Tuple
+from typing import List, NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -27,13 +32,14 @@ from torch import nn
 
 from lightzero_tpu_torch.buffers import native
 from lightzero_tpu_torch.policy.muzero import TrainBatch
+from lightzero_tpu_torch.policy.sampled_muzero import SampledTrainBatch
 
 
 class EpisodeRecord(NamedTuple):
     """One finished (or truncated) episode, host numpy arrays of length T."""
 
     obs: np.ndarray  # (T, *obs_shape) raw observation before action t
-    actions: np.ndarray  # (T,)
+    actions: np.ndarray  # (T,) ints, or (T, D) floats in a continuous action space
     rewards: np.ndarray  # (T,)
     child_visits: np.ndarray  # (T, A) root visit distributions (normalized)
     root_values: np.ndarray  # (T,) searched root values
@@ -41,7 +47,8 @@ class EpisodeRecord(NamedTuple):
     to_play: np.ndarray  # (T,)
     truncated: bool = False  # episode cut by collection end (not terminal)
     chance: Optional[np.ndarray] = None  # (T,) true chance codes
-    # (T, Ks, D) root sampled actions (Sampled MuZero; not ported yet)
+    # (T, Ks, D) root sampled actions ((T, Ks) indices when discrete) of
+    # the sampled policies
     root_sampled_actions: Optional[np.ndarray] = None
     # (P, *obs_shape) observations of the P steps before this record's start
     # when it continues a mid-episode flush; frame stacking reads them
@@ -94,12 +101,6 @@ class GameBuffer:
             T = len(ep.actions)
             if T == 0:
                 continue
-            if (ep.root_sampled_actions is not None or ep.actions.dtype.kind == "f"
-                    or ep.actions.ndim > 1):
-                raise NotImplementedError(
-                    "sampled or continuous-action episodes are not ported yet "
-                    "(ROADMAP queue 1, slice 14: Sampled)"
-                )
             if priorities is not None and priorities[i] is not None:
                 p = np.asarray(priorities[i], np.float64)
             else:
@@ -162,8 +163,9 @@ class GameBuffer:
             ])
         self._flat_dirty = False
 
-    def sample(self, batch_size: int, target_model: nn.Module) -> Tuple[TrainBatch, np.ndarray]:
-        """Returns (TrainBatch on the policy's device, flat sample indices
+    def sample(self, batch_size: int, target_model: nn.Module
+               ) -> Tuple[Union[TrainBatch, SampledTrainBatch], np.ndarray]:
+        """Returns (the batch on the policy's device, flat sample indices
         for ``update_priority``)."""
         self._rebuild_flat()
         n = len(self._flat_priorities)
@@ -269,15 +271,15 @@ class GameBuffer:
         return target_policy
 
     def _to_device(self, obs, actions, mask, target_reward, target_value, target_policy,
-                   weights, chance) -> TrainBatch:
+                   weights, chance, sampled_actions=None) -> Union[TrainBatch, SampledTrainBatch]:
         dev = self.policy.device
 
         def put(x, dtype):
             return torch.from_numpy(np.ascontiguousarray(x)).to(dev, dtype)
 
-        return TrainBatch(
+        batch = TrainBatch(
             obs=put(obs, torch.float32),
-            actions=put(actions, torch.int64),
+            actions=put(actions, torch.float32 if actions.dtype.kind == "f" else torch.int64),
             mask=put(mask, torch.float32),
             target_reward=put(target_reward, torch.float32),
             target_value=put(target_value, torch.float32),
@@ -285,6 +287,9 @@ class GameBuffer:
             weights=put(weights, torch.float32),
             chance=put(chance, torch.int64),
         )
+        if sampled_actions is None:
+            return batch
+        return SampledTrainBatch(base=batch, sampled_actions=put(sampled_actions, torch.float32))
 
     def _make_batch_native(self, idx: np.ndarray, target_model: nn.Module, weights: np.ndarray) -> TrainBatch:
         """The native path: C++ index assembly and numpy bulk gathers."""
@@ -323,18 +328,25 @@ class GameBuffer:
         return self._to_device(obs, actions, out["mask"], target_reward, target_value,
                                target_policy, weights, chance)
 
-    def _make_batch(self, idx: np.ndarray, target_model: nn.Module, weights: np.ndarray) -> TrainBatch:
+    def _make_batch(self, idx: np.ndarray, target_model: nn.Module, weights: np.ndarray
+                    ) -> Union[TrainBatch, SampledTrainBatch]:
         self._rebuild_flat()
         K, td, gamma = self.K, self.td_steps, self.discount
         B = len(idx)
-        if self._use_native and self.frame_stack == 1:
+        rsa0 = self._episodes[0].root_sampled_actions
+        if self._use_native and self.frame_stack == 1 and rsa0 is None:
             return self._make_batch_native(idx, target_model, weights)
         obs_shape = self._stacked_obs(self._episodes[0], 0).shape
         A = self._episodes[0].child_visits.shape[1]
 
         obs = np.zeros((B, K + 1) + obs_shape, np.float32)
         chance = np.zeros((B, K), np.int64)
-        actions = np.zeros((B, K), np.int64)
+        act0 = self._episodes[0].actions
+        continuous = act0.dtype.kind == "f" or act0.ndim > 1
+        act_shape = act0.shape[1:]
+        actions = np.zeros((B, K) + act_shape, np.float32 if continuous else np.int64)
+        sampled_actions = (np.zeros((B, K + 1) + rsa0.shape[1:], np.float32)
+                           if rsa0 is not None else None)
         mask = np.zeros((B, K), np.float32)
         target_reward = np.zeros((B, K), np.float32)
         reward_sum = np.zeros((B, K + 1), np.float32)
@@ -356,6 +368,8 @@ class GameBuffer:
                 s = cv.sum()
                 if s > 0:
                     target_policy[b, k] = cv / s
+                if sampled_actions is not None:
+                    sampled_actions[b, k] = ep.root_sampled_actions[t]
                 # n-step value target pieces; a truncated (time-limit)
                 # episode caps the horizon at T-1 so that its tail
                 # bootstraps from the last stored obs
@@ -379,6 +393,8 @@ class GameBuffer:
                         chance[b, k] = ep.chance[t]
                     if t + 1 < T:
                         mask[b, k] = 1.0
+                elif continuous:
+                    actions[b, k] = self._rng.uniform(-1, 1, size=act_shape)
                 else:
                     actions[b, k] = self._rng.randint(0, A)
 
@@ -388,4 +404,4 @@ class GameBuffer:
         target_value = reward_sum + boot_discount * boot_v * boot_valid
         target_policy = self._apply_reanalyze(idx, target_policy, target_model)
         return self._to_device(obs, actions, mask, target_reward, target_value, target_policy,
-                               weights, chance)
+                               weights, chance, sampled_actions)

@@ -1,7 +1,8 @@
 """Training entry (``lightzero_tpu/entry/train_muzero.py``) for the ported
-policies: MuZero, EfficientZero, Gumbel MuZero and Stochastic MuZero, chosen
-by ``cfg.policy.type`` from ``POLICIES`` as the JAX entry does from its
-registry, on the ported envs (CartPole, 2048), chosen by ``cfg.env.env_id``.
+policies: MuZero, EfficientZero, Gumbel MuZero, Stochastic MuZero, Sampled
+MuZero and Sampled EfficientZero, chosen by ``cfg.policy.type`` from
+``POLICIES`` as the JAX entry does from its registry, on the ported envs
+(CartPole, 2048, Pendulum), chosen by ``cfg.env.env_id``.
 
 Loop: [eval every ``eval_freq`` train iterations, stopping after
 ``stop_consecutive_evals`` evals at ``stop_value``] -> collect (episode mode,
@@ -21,7 +22,7 @@ Usage (on the card, or with ``device="cpu"``)::
     policy, state, stats = train_muzero(main_config, seed=0, max_env_step=100_000)
 
 Not ported yet, and refused with ``NotImplementedError``: the other policies,
-the conv models, envs other than CartPole and 2048, ``buffer_reanalyze_freq``
+the conv models, envs other than CartPole, 2048 and Pendulum, ``buffer_reanalyze_freq``
 and the loss-landscape analysis (their ROADMAP slices are named in the
 errors).
 """
@@ -38,12 +39,14 @@ import torch
 from lightzero_tpu_torch.buffers import GameBuffer
 from lightzero_tpu_torch.config import Config, compile_config
 from lightzero_tpu_torch.entry.utils import calculate_update_per_collect, random_collect, safe_eval
-from lightzero_tpu_torch.envs import CartPoleEnv, Game2048Env, TensorEnv
+from lightzero_tpu_torch.envs import CartPoleEnv, Game2048Env, PendulumEnv, TensorEnv
 from lightzero_tpu_torch.ops import visit_count_temperature
 from lightzero_tpu_torch.policy import (
     EfficientZeroPolicy,
     GumbelMuZeroPolicy,
     MuZeroPolicy,
+    SampledEfficientZeroPolicy,
+    SampledMuZeroPolicy,
     StochasticMuZeroPolicy,
 )
 from lightzero_tpu_torch.utils.checkpoint import (
@@ -62,17 +65,19 @@ ENVS = {
     "CartPole-v1": (CartPoleEnv, {"max_episode_steps": 500}),
     "cartpole": (CartPoleEnv, {}),
     "game_2048": (Game2048Env, {}),
+    "Pendulum-v1": (PendulumEnv, {}),
+    "pendulum": (PendulumEnv, {}),
 }
 # cfg.policy.type -> the policy that train_muzero builds
 POLICIES = {
     "muzero": MuZeroPolicy, "efficientzero": EfficientZeroPolicy,
     "gumbel_muzero": GumbelMuZeroPolicy, "stochastic_muzero": StochasticMuZeroPolicy,
+    "sampled_muzero": SampledMuZeroPolicy, "sampled_efficientzero": SampledEfficientZeroPolicy,
 }
 # the policy types of the JAX entry that are not ported yet, and the ROADMAP
 # slice that ports each
 OTHER_POLICIES = {
-    "sampled_muzero": 14,
-    "sampled_efficientzero": 14, "muzero_rnn_full_obs": 15, "muzero_context": 15,
+    "muzero_rnn_full_obs": 15, "muzero_context": 15,
     "unizero": 18, "sampled_unizero": 18, "muzero_multitask": 19, "unizero_multitask": 19,
     "sampled_unizero_multitask": 19,
 }
@@ -80,14 +85,13 @@ OTHER_POLICIES = {
 
 def create_env(env_cfg: Config) -> TensorEnv:
     """The env of ``env_cfg.env_id``, with the env-config keys that match its
-    constructor's arguments (``max_episode_steps``) and ``env_kwargs``
+    constructor's arguments (``max_episode_steps``, ``discrete_bins``, ...) and ``env_kwargs``
     forwarded, as the JAX entry does (train_muzero.py:61-82)."""
     env_id = env_cfg.get("env_id", env_cfg.get("type"))
     if env_id not in ENVS:
         raise NotImplementedError(
-            f"env {env_id!r} is not ported yet: the port has CartPole and 2048 (ROADMAP queue 1: "
-            "Pendulum in slice 14, image envs in slice 16, board games in slice 17, host envs "
-            "in slice 20)"
+            f"env {env_id!r} is not ported yet: the port has CartPole, 2048 and Pendulum (ROADMAP "
+            "queue 1: image envs in slice 16, board games in slice 17, host envs in slice 20)"
         )
     env_cls, kwargs = ENVS[env_id]
     kwargs = dict(kwargs)
@@ -246,6 +250,9 @@ def train_muzero(
                 "temperature": temperature,
                 "visit_entropy": cstats["visit_entropy"],
                 "searched_value": cstats["searched_value"],
+                # Sampled MuZero's telemetry
+                **{k: v for k, v in cstats.items()
+                   if k in ("visit_mean_action", "collect_mu", "collect_sigma")},
             },
             collector.total_env_steps,
             prefix="collector/",

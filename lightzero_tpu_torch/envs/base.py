@@ -39,7 +39,8 @@ class TensorEnv:
         raise NotImplementedError
 
     def step(self, state: Any, action: torch.Tensor, generator: torch.Generator) -> EnvStep:
-        """Apply the actions. MUST auto-reset every env whose episode ended:
+        """Apply the actions: (B,) ints, or (B, D) floats in a continuous
+        action space (Pendulum). MUST auto-reset every env whose episode ended:
         the returned state and obs belong to the fresh episode there, and
         ``done`` flags the boundary (``base.py:46-50``)."""
         raise NotImplementedError

@@ -41,7 +41,7 @@ class EZNetworkOutput(NamedTuple):
     reward_hidden: Tuple[torch.Tensor, torch.Tensor]  # (c, h), each (B, lstm_hidden)
 
 
-def _flax_lstm_cell(in_dim: int, hidden: int, generator: Optional[torch.Generator]) -> nn.LSTMCell:
+def flax_lstm_cell(in_dim: int, hidden: int, generator: Optional[torch.Generator]) -> nn.LSTMCell:
     """``nn.LSTMCell`` with flax ``OptimizedLSTMCell``'s parameters and init:
     input kernels lecun-normal, hidden kernels orthogonal (per gate), the
     hidden-side bias zero, and no input-side bias (a zero buffer)."""
@@ -108,7 +108,7 @@ class EfficientZeroModel(nn.Module):
             output_activation=True,
             generator=generator,
         )
-        self.lstm = _flax_lstm_cell(latent_state_dim, lstm_hidden_size, generator)
+        self.lstm = flax_lstm_cell(latent_state_dim, lstm_hidden_size, generator)
         # a bare flax LayerNorm: eps 1e-6 (torch's default is 1e-5)
         self.value_prefix_norm = nn.LayerNorm(lstm_hidden_size, eps=LAYER_NORM_EPS)
         self.value_prefix_head = MLPTorso(

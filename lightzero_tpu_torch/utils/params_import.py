@@ -1,6 +1,7 @@
 """Carry flax parameters of the JAX ``MuZeroModel`` (MLP branch, with the SSL
-projector), ``EfficientZeroModel`` (MLP branch) and ``StochasticMuZeroModel``
-(MLP branch) into the port's models, and back.
+projector), ``EfficientZeroModel``, ``StochasticMuZeroModel``,
+``SampledMuZeroModel`` and ``SampledEfficientZeroModel`` (MLP branches) into
+the port's models, and back.
 
 ``flax_to_state_dict`` takes the flax params as nested dicts of numpy arrays
 (``{"params": {...}}`` or the inner dict), e.g.
@@ -16,12 +17,14 @@ Each model class has its own map (``_PARAM_MAPS``), since the same name
 means different modules in different models: MuZero's flax ``_dyn`` holds
 two torsos and the port's ``dynamics_network`` a torso and a reward head,
 while Stochastic MuZero's ``_dyn`` and ``dynamics_network`` are one torso.
-The map is picked by a module that only its model has: ``_lstm`` (port:
-``lstm``) for EfficientZero, ``_afterstate_dyn`` (port:
-``afterstate_dynamics_network``) for Stochastic MuZero, else MuZero's.
+The map is picked by a module that only its model has: ``_common`` (port:
+``prediction_torso``) for the two sampled models, with ``_lstm`` (port:
+``lstm``) for Sampled EfficientZero; else ``_lstm`` for EfficientZero,
+``_afterstate_dyn`` (port: ``afterstate_dynamics_network``) for Stochastic
+MuZero, else MuZero's.
 
-EfficientZero's LSTM: flax ``OptimizedLSTMCell`` holds per gate an input
-kernel ``i{i,f,g,o}/kernel`` (in, H) without bias and a hidden kernel
+The LSTM of both EfficientZero models: flax ``OptimizedLSTMCell`` holds per
+gate an input kernel ``i{i,f,g,o}/kernel`` (in, H) without bias and a hidden kernel
 ``h{i,f,g,o}/kernel`` (H, H) with ``bias``; ``nn.LSTMCell`` holds
 ``weight_ih`` (4H, in) and ``weight_hh`` (4H, H), rows in gate order i, f,
 g, o, and ``bias_hh`` (4H). The kernels are transposed and stacked in that
@@ -63,6 +66,16 @@ _REPR_PRED = {
     "_pred/MLPTorso_1": "prediction_network.value_head",
     "_pred/MLPTorso_2": "prediction_network.policy_head",
 }
+# the prediction side of both sampled models: a common torso, the value head,
+# and the Gaussian (mu, sigma) heads or the logits head
+_SAMPLED_PRED = {
+    "_repr/MLPTorso_0": "representation_network.torso",
+    "_common": "prediction_torso",
+    "_value_head": "value_head",
+    "_mu_head": "mu_head",
+    "_sigma_head": "sigma_head",
+    "_policy_head": "policy_head",
+}
 _PARAM_MAPS = {
     "MuZeroModel": _ParamMap(
         torsos=dict(_REPR_PRED, **{"_dyn/MLPTorso_0": "dynamics_network.torso",
@@ -83,11 +96,19 @@ _PARAM_MAPS = {
             _chance_encoder="chance_encoder",
         ),
         norms={}, projector=False, lstm=False),
+    "SampledMuZeroModel": _ParamMap(
+        torsos=dict(_SAMPLED_PRED, _dyn_torso="dynamics_torso", _reward_head="reward_head"),
+        norms={}, projector=True, lstm=False),
+    "SampledEfficientZeroModel": _ParamMap(
+        torsos=dict(_SAMPLED_PRED, _dyn_torso="dynamics_torso", _vp_head="value_prefix_head"),
+        norms={"_vp_norm": "value_prefix_norm"}, projector=True, lstm=True),
 }
 
 
 def _map_of_flax(flat: Mapping[str, Any]) -> _ParamMap:
     tops = {k.split("/")[0] for k in flat}
+    if "_common" in tops:
+        return _PARAM_MAPS["SampledEfficientZeroModel" if "_lstm" in tops else "SampledMuZeroModel"]
     if "_lstm" in tops:
         return _PARAM_MAPS["EfficientZeroModel"]
     if "_afterstate_dyn" in tops:
@@ -97,6 +118,8 @@ def _map_of_flax(flat: Mapping[str, Any]) -> _ParamMap:
 
 def _map_of_port(names) -> _ParamMap:
     tops = {k.split(".")[0] for k in names}
+    if "prediction_torso" in tops:
+        return _PARAM_MAPS["SampledEfficientZeroModel" if _LSTM in tops else "SampledMuZeroModel"]
     if _LSTM in tops:
         return _PARAM_MAPS["EfficientZeroModel"]
     if "afterstate_dynamics_network" in tops:
@@ -136,7 +159,7 @@ def _port_name(pmap: _ParamMap, key: str) -> str:
 
 
 def flax_to_state_dict(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
-    """Map flax params of one of the three models to the port's state_dict
+    """Map flax params of one of the five models to the port's state_dict
     keys."""
     if "params" in params:
         params = params["params"]

@@ -11,6 +11,12 @@ episodes have ended, so it can return more; segment mode (``min_steps``)
 stops after that many env steps and flushes every partial episode of at
 least ``flush_min_len`` steps as truncated. ``total_env_steps`` grows by
 ``rollout_length`` x ``num_envs`` per chunk in both.
+
+Actions are stored as the policy gives them: ints, or (D,) floats in a
+continuous action space. A sampled policy's root candidates
+(``root_sampled_actions``, (K, D) or (K,) per step) go into the episode
+record, and its telemetry (``visit_mean_action``, ``collect_mu``,
+``collect_sigma``) into the stats, averaged over the last chunk.
 """
 from __future__ import annotations
 
@@ -24,8 +30,8 @@ from lightzero_tpu_torch.buffers.game_buffer import EpisodeRecord
 from lightzero_tpu_torch.envs.base import TensorEnv
 from lightzero_tpu_torch.utils.device import resolve_device
 
-_RECORD_KEYS = ("obs", "legal", "to_play", "action", "reward", "done", "truncated", "chance",
-                "visit_counts", "searched_value", "predicted_value")
+# the sampled policies' telemetry, recorded when the policy's output has it
+_TELEMETRY_KEYS = ("visit_mean_action", "collect_mu", "collect_sigma")
 
 
 class _EpisodeBuilder:
@@ -37,7 +43,7 @@ class _EpisodeBuilder:
         # buffer's frame stacking does not zero-pad across the flush boundary
         self.prefix_obs = prefix_obs
         self.obs: List[np.ndarray] = []
-        self.actions: List[int] = []
+        self.actions: List[Union[int, np.ndarray]] = []
         self.rewards: List[float] = []
         self.child_visits: List[np.ndarray] = []
         self.root_values: List[float] = []
@@ -45,8 +51,10 @@ class _EpisodeBuilder:
         self.to_play: List[int] = []
         self.priorities: List[float] = []
         self.chance: List[int] = []
+        self.root_sampled_actions: List[np.ndarray] = []
 
-    def append(self, obs, action, reward, visits, root_value, legal, to_play, priority, chance=0):
+    def append(self, obs, action, reward, visits, root_value, legal, to_play, priority, chance=0,
+               root_sampled_actions=None):
         self.obs.append(obs)
         self.actions.append(action)
         self.rewards.append(reward)
@@ -56,6 +64,8 @@ class _EpisodeBuilder:
         self.to_play.append(to_play)
         self.priorities.append(priority)
         self.chance.append(chance)
+        if root_sampled_actions is not None:
+            self.root_sampled_actions.append(root_sampled_actions)
 
     def __len__(self):
         return len(self.actions)
@@ -63,9 +73,11 @@ class _EpisodeBuilder:
     def finish(self, truncated: bool) -> Tuple[EpisodeRecord, np.ndarray]:
         visits = np.asarray(self.child_visits, np.float32)
         sums = visits.sum(-1, keepdims=True)
+        actions = np.asarray(self.actions)
+        continuous = actions.dtype.kind == "f" or actions.ndim > 1
         ep = EpisodeRecord(
             obs=np.asarray(self.obs, np.float32),
-            actions=np.asarray(self.actions, np.int64),
+            actions=actions.astype(np.float32 if continuous else np.int64),
             rewards=np.asarray(self.rewards, np.float32),
             child_visits=visits / np.maximum(sums, 1e-9),
             root_values=np.asarray(self.root_values, np.float32),
@@ -73,6 +85,8 @@ class _EpisodeBuilder:
             to_play=np.asarray(self.to_play, np.int64),
             truncated=truncated,
             chance=np.asarray(self.chance, np.int64),
+            root_sampled_actions=(np.asarray(self.root_sampled_actions, np.float32)
+                                  if self.root_sampled_actions else None),
             prefix_obs=self.prefix_obs,
         )
         return ep, np.asarray(self.priorities, np.float64)
@@ -129,15 +143,16 @@ class RolloutCollector:
             )
             step = self.env.step(env_state, out["action"], self.generator)
             chance = (step.chance if step.chance is not None
-                      else torch.zeros_like(out["action"], dtype=torch.int64))
+                      else torch.zeros_like(step.reward, dtype=torch.int64))
             records.append(dict(
                 obs=obs, legal=legal, to_play=to_play, action=out["action"],
                 reward=step.reward, done=step.done, truncated=step.truncated, chance=chance,
                 visit_counts=out["visit_counts"], searched_value=out["searched_value"],
                 predicted_value=out["predicted_value"],
+                **{k: out[k] for k in ("root_sampled_actions",) + _TELEMETRY_KEYS if k in out},
             ))
             env_state, obs, legal, to_play = step.state, step.obs, step.legal_mask, step.to_play
-        stacked = {k: torch.stack([r[k] for r in records]).cpu().numpy() for k in _RECORD_KEYS}
+        stacked = {k: torch.stack([r[k] for r in records]).cpu().numpy() for k in records[0]}
         return (env_state, obs, legal, to_play), stacked
 
     def collect(
@@ -164,9 +179,10 @@ class RolloutCollector:
             for t in range(T):
                 for e in range(self.num_envs):
                     b = self._builders[e]
+                    action = records["action"][t, e]
                     b.append(
                         records["obs"][t, e],
-                        int(records["action"][t, e]),
+                        action if action.ndim > 0 else int(action),
                         float(records["reward"][t, e]),
                         records["visit_counts"][t, e],
                         float(records["searched_value"][t, e]),
@@ -174,6 +190,8 @@ class RolloutCollector:
                         int(records["to_play"][t, e]),
                         float(pri[t, e]),
                         chance=int(records["chance"][t, e]),
+                        root_sampled_actions=(records["root_sampled_actions"][t, e]
+                                              if "root_sampled_actions" in records else None),
                     )
                     self._env_return[e] += float(records["reward"][t, e])
                     if records["done"][t, e]:
@@ -215,4 +233,5 @@ class RolloutCollector:
         p = vc / np.maximum(vc.sum(-1, keepdims=True), 1e-9)
         stats["visit_entropy"] = float(np.mean(-np.sum(p * np.log(np.maximum(p, 1e-12)), axis=-1)))
         stats["searched_value"] = float(np.mean(records["searched_value"]))
+        stats.update({k: float(np.mean(records[k])) for k in _TELEMETRY_KEYS if k in records})
         return episodes, priorities, stats

@@ -174,7 +174,9 @@ def test_refuses_unported_modes(policies):
     buf = GameBuffer(port.cfg, port)
     with pytest.raises(NotImplementedError, match="slice 15"):
         buf.reanalyze_buffer()
+    # float actions (a continuous action space) are accepted since Sampled
+    # MuZero is ported (tests/test_torch_sampled.py samples such episodes)
     episodes, _ = random_episodes(1, n=1)
     e = dict(episodes[0], actions=episodes[0]["actions"].astype(np.float32))
-    with pytest.raises(NotImplementedError, match="slice 14"):
-        buf.push_episodes([EpisodeRecord(**e)])
+    buf.push_episodes([EpisodeRecord(**e)])
+    assert buf.num_episodes == 1 and buf._episodes[0].actions.dtype == np.float32

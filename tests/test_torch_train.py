@@ -10,7 +10,8 @@ simulations, batch 16, the SSL loss on.
 - checkpoints round-trip exactly, and the lenient load of a params export
   keeps the fresh optimizer;
 - the entry refuses what is not ported and, with no GPU, a call without a
-  device;
+  device; both sampled policies refuse reanalyze, which the JAX policies
+  cannot run (their forward_reanalyze raises an AttributeError, shown);
 - each policy type it builds is the port of the JAX registry's policy of
   that name.
 """
@@ -156,7 +157,7 @@ def test_lenient_load_of_a_params_export_keeps_the_fresh_optimizer(tmp_path):
     (dict(policy=dict(type="gumbel_muzero", env_type="board_games")), "slice 17"),
     (dict(policy=dict(buffer_reanalyze_freq=0.5)), "slice 15"),
     (dict(policy=dict(analysis_loss_landscape=True)), "slice 20"),
-    (dict(env=dict(env_id="Pendulum-v1")), "slice 14"),
+    (dict(policy=dict(type="sampled_muzero", model=dict(model_type="conv"))), "slice 16"),
 ])
 def test_train_muzero_refuses_what_is_not_ported(tmp_path, override, match):
     cfg = tiny_cfg(tmp_path / "exp")
@@ -166,15 +167,54 @@ def test_train_muzero_refuses_what_is_not_ported(tmp_path, override, match):
         train_muzero(cfg, device="cpu")
 
 
+SAMPLED = ["sampled_muzero", "sampled_efficientzero"]
+
+
+@pytest.mark.parametrize("policy_type", SAMPLED)
+def test_sampled_policies_refuse_reanalyze(tmp_path, policy_type):
+    cfg = tiny_cfg(tmp_path / "exp", type=policy_type, reanalyze_ratio=0.25,
+                   model=dict(observation_shape=3, action_space_size=1, latent_state_dim=8,
+                              support_scale=5))
+    cfg.env = dict(cfg.env, env_id="Pendulum-v1")
+    with pytest.raises(NotImplementedError, match="reanalyze"):
+        train_muzero(cfg, device="cpu")
+
+
+@pytest.mark.parametrize("policy_type", SAMPLED)
+def test_the_jax_sampled_policys_reanalyze_fails_on_its_models_outputs(policy_type):
+    """The JAX policies do not override _forward_reanalyze
+    (lightzero_tpu/policy/muzero.py:493), which reads ``policy_logits`` off
+    the dict their models return (ROADMAP queue 3)."""
+    import importlib
+
+    import jax
+    import jax.numpy as jnp
+
+    from lightzero_tpu.config.core import deep_merge as jax_deep_merge
+    from lightzero_tpu.utils.registry import POLICY_REGISTRY
+
+    importlib.import_module(f"lightzero_tpu.policy.{policy_type}")  # registers it
+    cls = POLICY_REGISTRY.get(policy_type)
+    jax_policy = cls(jax_deep_merge(cls.default_config(), dict(
+        num_of_sampled_actions=3, num_simulations=2,
+        model=dict(observation_shape=3, action_space_size=1, latent_state_dim=8,
+                   lstm_hidden_size=8, support_scale=5))))
+    params = jax_policy.model.init_params(jax.random.PRNGKey(0))
+    with pytest.raises(AttributeError, match="policy_logits"):
+        jax_policy.forward_reanalyze(params, jax.random.PRNGKey(1), jnp.zeros((2, 3)),
+                                     jnp.ones((2, 1), bool))
+
+
 @pytest.mark.parametrize("policy_type",
-                         ["muzero", "efficientzero", "gumbel_muzero", "stochastic_muzero"])
+                         ["muzero", "efficientzero", "gumbel_muzero", "stochastic_muzero"] + SAMPLED)
 def test_train_muzero_builds_the_port_of_the_jax_policy(policy_type):
     import importlib
 
     from lightzero_tpu.utils.registry import POLICY_REGISTRY
     from lightzero_tpu_torch.entry.train_muzero import POLICIES
 
-    assert sorted(POLICIES) == ["efficientzero", "gumbel_muzero", "muzero", "stochastic_muzero"]
+    assert sorted(POLICIES) == ["efficientzero", "gumbel_muzero", "muzero", "sampled_efficientzero",
+                                "sampled_muzero", "stochastic_muzero"]
     importlib.import_module(f"lightzero_tpu.policy.{policy_type}")  # registers it
     policy_cls = POLICIES[policy_type]
     assert policy_cls.__name__ == POLICY_REGISTRY.get(policy_type).__name__
