@@ -31,9 +31,9 @@ Phases, each of a fixed size, in one process:
      phase 3 is run once more on those tables;
   6. train: train_muzero on the CartPole MuZero config at full width (batch
      256, latent 128, projector 1024, 25 simulations, 8 collect envs), exp
-     dir under a temporary directory, for 200 learn steps with evals at
-     iter 0 and 100: finite losses, the target net equal to the online net
-     after the copy at iter 200, descent launches = (collect + eval
+     dir under a temporary directory, for TRAIN_ITERS = 100 learn steps
+     with an eval at iter 0: finite losses, the target net equal to the
+     online net after the copy at iter 100, descent launches = (collect + eval
      searches) x 25; one learn step on the card against one on the CPU from
      the same params and batch; one sample at reanalyze_ratio=0.25 adds 25
      launches; the median learn-step time over 20 steps (CUDA events), the
@@ -86,7 +86,29 @@ Phases, each of a fixed size, in one process:
      one learn step on the card against one on the CPU; the median
      learn-step time. For Sampled MuZero also the descent inputs of one
      eval search at simulations 1, 25 and 50, rerun kernel against plain as
-     in phase 3.
+     in phase 3;
+ 11. rezero_history: ReZero, MuZero-Context and MuZero-RNN-full-obs on
+     CartPole at full width (latent 128, 25 simulations, batch 256).
+     ReZero (supports of 51 atoms): a short train_muzero run as in phase 7,
+     its episodes truncated at REZERO_TRAIN_EPISODE_STEPS, whose collect
+     round triggers the whole-buffer reuse reanalyze (groups of 160
+     episodes, backward in time): launches = (collect + eval searches) x 25
+     + 25 x groups, since only each group's first search takes the kernel
+     and the reuse searches the generic descent (25 x (longest episode - 1)
+     descents a group), and the logged count of reanalyzed transitions is
+     that of the newest episodes covering 75 % of the buffer; a reuse search
+     of 4 numpy-seeded CartPole states on the card and on the CPU with the
+     same Dirichlet noise, true actions and reused values and
+     tie_break='first' (no launch); one plain reanalyze_buffer
+     (reuse_search=False) of the trained buffer, 25 launches a batch of 160.
+     MuZero-Context: the Evaluator on 3 envs (launches = env steps x 25)
+     through the stateful path; the root latents of 7 stateful steps on the
+     card against the CPU, across an episode reset after step 2 and the
+     context reset at step 5; a short train_muzero run as in phase 7.
+     MuZero-RNN-full-obs (the CartPole MuZero config with its policy type,
+     GRU 128): the Evaluator, a batch of 4 searched on the card against the
+     CPU, a short train_muzero run as in phase 7 with its learn step on the
+     card against the CPU.
 
 The last lines are the card's name and power limit, one JSON object with a
 record per kernel, and {"ok": true, "device": {...}}; that last line is printed
@@ -104,6 +126,7 @@ import faulthandler
 import json
 import math
 import os
+import re
 import signal
 import subprocess
 import sys
@@ -117,19 +140,24 @@ from lightzero_tpu_torch import _build
 from lightzero_tpu_torch.configs.cartpole_efficientzero import main_config as ez_config
 from lightzero_tpu_torch.configs.cartpole_gumbel_muzero import main_config as gumbel_config
 from lightzero_tpu_torch.configs.cartpole_muzero import main_config
+from lightzero_tpu_torch.configs.cartpole_muzero_context import main_config as context_config
+from lightzero_tpu_torch.configs.cartpole_rezero_mz import main_config as rezero_config
 from lightzero_tpu_torch.configs.game_2048_stochastic_muzero import main_config as stoch_config
 from lightzero_tpu_torch.configs.pendulum_sampled_efficientzero import main_config as sez_config
 from lightzero_tpu_torch.configs.pendulum_sampled_muzero import main_config as smz_config
+from lightzero_tpu_torch.buffers import GameBuffer
 from lightzero_tpu_torch.entry import train_muzero
 from lightzero_tpu_torch.envs import CartPoleEnv, Game2048Env, PendulumEnv
 from lightzero_tpu_torch.envs.game_2048 import legal_moves
-from lightzero_tpu_torch.models import EfficientZeroModel, StochasticMuZeroModel
+from lightzero_tpu_torch.models import EfficientZeroModel, MuZeroRNNModel, StochasticMuZeroModel
 from lightzero_tpu_torch.models.common import lecun_normal_
 from lightzero_tpu_torch.models.sampled_muzero import SampledHeads
 from lightzero_tpu_torch.policy import (
     EfficientZeroPolicy,
     GumbelMuZeroPolicy,
+    MuZeroContextPolicy,
     MuZeroPolicy,
+    MuZeroRNNFullObsPolicy,
     SampledEfficientZeroPolicy,
     SampledMuZeroPolicy,
     StochasticMuZeroPolicy,
@@ -147,7 +175,9 @@ from lightzero_tpu_torch.workers import Evaluator
 
 # phases 9 and 10 took the script to 259 s on one host and to 371 s on a
 # slower one (every phase 1.4-1.9x slower there), 29 s short of the 400 s
-# this watchdog had through phase 9; 600 s is half the 1200 s a run may take
+# this watchdog had through phase 9; 600 s is half the 1200 s a run may take.
+# Phase 11 took the script to 317 s on the first host (with 200 learn steps
+# in phase 6, now 100)
 WATCHDOG_S = 600
 # H100 SXM peaks (NVIDIA data sheet): HBM bandwidth and float32 outside the
 # tensor cores; the bound of a kernel is the larger of bytes/rate, ops/rate
@@ -163,6 +193,9 @@ OPS_PER_ACTION = {True: 30, False: 52}
 STATS_RTOL = STATS_ATOL = 1e-6
 # card vs CPU search on the same weights: float32 matmuls in another order
 VALUE_TOL = 1e-4
+# card vs CPU root latents of MuZero-Context: float32 matmuls and LayerNorm
+# statistics in another order
+LATENT_TOL = 1e-5
 # launches in one CUDA graph when timing a kernel, and searches timed at the
 # bench shape (the median is reported)
 GRAPH_REPS = 50
@@ -170,9 +203,11 @@ BENCH_SEARCHES = 5
 # simulations of the bench search whose descent inputs phase 3 reruns
 CAPTURED_SIMS = (1, 25, 50)
 EDGE_SHAPES = [(256, 4, 26), (256, 18, 26)]
-# train phase: learn steps of the CartPole run, learn steps timed after it,
-# learn steps under the profiler
-TRAIN_ITERS = 200
+# train phase: learn steps of the CartPole run (100, where the target net is
+# copied: the run's depth was halved from 200 when phase 11 came, to keep the
+# script within half the run limit on slower hosts), learn steps timed after
+# it, learn steps under the profiler
+TRAIN_ITERS = 100
 TIMED_LEARN_STEPS = 20
 PROFILED_LEARN_STEPS = 5
 # phases 7 and 8: learn steps of the short train_muzero run, the
@@ -194,6 +229,15 @@ STOCH_TRAIN_EPISODE_STEPS = 16
 SAMPLED_EVAL_STEPS = 12
 SAMPLED_TRAIN_EPISODE_STEPS = 32
 SAMPLED_CAPTURED_SIMS = (1, 25, 50)
+# phase 11: ReZero's reuse reanalyze searches each group of episodes once per
+# position of its longest episode, so its training run truncates episodes at
+# REZERO_TRAIN_EPISODE_STEPS to bound that count; MuZero-Context's card-vs-CPU
+# check steps CONTEXT_STEPS times with its context reset every
+# context_length_init = 5 steps; the CartPole MuZero config becomes
+# MuZero-RNN-full-obs with the JAX default GRU width
+REZERO_TRAIN_EPISODE_STEPS = 50
+CONTEXT_STEPS = 7
+RNN_HIDDEN_SIZE = 128
 # card vs CPU learn step from the same params and batch (TF32 off): the
 # logged terms to 1e-4 relative (float32 matmuls of batch 256 summed in
 # another order). Adam's first update is lr * g / (|g| + 1e-8), g the
@@ -299,6 +343,8 @@ def randomize_heads(model, seed: int) -> None:
         heads = [getattr(model, name) for name in (
             "value_head", "reward_head", "value_prefix_head", "mu_head", "sigma_head",
             "policy_head") if hasattr(model, name)]
+    elif isinstance(model, MuZeroRNNModel):
+        heads = (model.reward_head, model.value_head, model.policy_head)
     else:
         if isinstance(model, EfficientZeroModel):
             first = model.value_prefix_head
@@ -748,8 +794,8 @@ def time_learn_steps(policy, state, buffer, n: int) -> tuple:
 
 def phase_train(card: str) -> dict:
     """The CartPole config at full width through train_muzero on the card:
-    200 learn steps after the collect rounds they need, evals at iter 0 and
-    100, with the launch counter read around the call."""
+    TRAIN_ITERS learn steps after the collect rounds they need, an eval at
+    iter 0, with the launch counter read around the call."""
     cfg = copy.deepcopy(main_config)
     sims = cfg.policy.num_simulations
     n_envs = cfg.env.collector_env_num
@@ -858,11 +904,14 @@ def eval_episodes(policy, card: str, label: str, env=None, returns_range=(0, mat
     return rec
 
 
-def short_train(cfg, card: str, label: str, launches_per_search: int) -> tuple:
+def short_train(cfg, card: str, label: str, launches_per_search: int,
+                extra_launches=lambda: 0) -> tuple:
     """train_muzero with the device left unset (the card): an eval at iter
     0, one collect round and SHORT_TRAIN_ITERS learn steps, the launch
-    counter read around it; then one learn step on the card against one on
-    the CPU, and the learn-step time. (record, policy, state, buffer)"""
+    counter read around it (``extra_launches()`` adds what the run launched
+    outside its collect and eval searches); then one learn step on the card
+    against one on the CPU, and the learn-step time. (record, problems,
+    policy, state, buffer)"""
     cfg = copy.deepcopy(cfg)
     cfg.policy.update_per_collect = SHORT_TRAIN_ITERS
     n_envs = cfg.env.collector_env_num
@@ -876,10 +925,13 @@ def short_train(cfg, card: str, label: str, launches_per_search: int) -> tuple:
         launches = fused_traverse.launches
         with open(os.path.join(cfg.exp_name, "log", "train.jsonl")) as f:
             records = [json.loads(line) for line in f]
+        with open(os.path.join(cfg.exp_name, "log", "train.txt")) as f:
+            reanalyzed = [int(n) for n in re.findall(r"rezero: reanalyzed (\d+) transitions",
+                                                     f.read())]
     losses = [r["learner/total_loss"] for r in records if "learner/total_loss" in r]
     collect_sps = [r["collector/steps_per_sec"] for r in records if "collector/steps_per_sec" in r]
     collect_searches = stats["env_steps"] // n_envs
-    expected = (collect_searches + stats["eval_env_steps"]) * launches_per_search
+    expected = (collect_searches + stats["eval_env_steps"]) * launches_per_search + extra_launches()
     buffer = stats["buffer"]
     batch, _ = buffer.sample(int(policy.cfg.batch_size), state.target_model)
     agreement, agree = learn_step_card_vs_cpu(policy, batch)
@@ -888,6 +940,7 @@ def short_train(cfg, card: str, label: str, launches_per_search: int) -> tuple:
     rec = dict(phase=f"{label}_train", train_iter=stats["train_iter"], env_steps=stats["env_steps"],
                collect_searches=collect_searches, eval_searches=stats["eval_env_steps"],
                launches=launches, expected_launches=expected, logged_total_losses=losses,
+               logged_reanalyzed=reanalyzed,
                collect_steps_per_s=collect_sps, wall_s=wall,
                learn_step_ms_median=float(np.median(step_ms)), learn_step_ms=step_ms,
                card_vs_cpu=agreement, card=card)
@@ -898,7 +951,7 @@ def short_train(cfg, card: str, label: str, launches_per_search: int) -> tuple:
         problems.append("non-finite loss or params")
     if launches != expected:
         problems.append(f"traverse launches {launches} != (collect + eval searches) x "
-                        f"{launches_per_search}")
+                        f"{launches_per_search} + {extra_launches()}")
     return rec, problems, policy, state, buffer
 
 
@@ -1193,6 +1246,234 @@ def phase_sampled(card: str, l2_ns: float) -> tuple:
     return records, cases
 
 
+def newest_covering(buffer, partition: float) -> list:
+    """The episodes, newest first, that reanalyze_buffer picks: the newest
+    ones until they hold ``partition`` of the stored transitions."""
+    budget, covered, episodes = int(buffer.num_transitions * partition), 0, []
+    for e in range(buffer.num_episodes - 1, -1, -1):
+        episodes.append(e)
+        covered += len(buffer._episodes[e].actions)
+        if covered >= budget:
+            break
+    return episodes
+
+
+def watch_reanalyze(sims: int):
+    """Wrap GameBuffer.reanalyze_buffer and the generic descent: each call
+    records what it should launch and descend, worked out from the buffer
+    it is given (only a reuse group's first search, or each plain batch,
+    takes the kernel; every later search of a group descends
+    longest episode - 1 times per simulation), and what it launched,
+    descended and returned. Returns (calls, restore)."""
+    calls, descents = [], [0]
+    reanalyze, generic = GameBuffer.reanalyze_buffer, puct._generic_traverse
+
+    def counting_generic(*args, **kwargs):
+        descents[0] += 1
+        return generic(*args, **kwargs)
+
+    def watched(self, target_model, reanalyze_batch_size=256, partition=0.75,
+                reuse_search=False):
+        lengths = [len(self._episodes[e].actions) for e in newest_covering(self, partition)]
+        G = reanalyze_batch_size
+        if reuse_search:
+            groups = [lengths[i:i + G] for i in range(0, len(lengths), G)]
+            expected_launches = sims * len(groups)
+            expected_descents = sims * sum(max(g) - 1 for g in groups)
+        else:
+            expected_launches, expected_descents = sims * math.ceil(sum(lengths) / G), 0
+        launches, descended = fused_traverse.launches, descents[0]
+        t0 = time.perf_counter()
+        n = reanalyze(self, target_model, reanalyze_batch_size, partition, reuse_search)
+        torch.cuda.synchronize()
+        calls.append(dict(
+            reuse_search=reuse_search, batch=G, episodes=len(lengths),
+            longest_episode=max(lengths), transitions=n, expected_transitions=sum(lengths),
+            launches=fused_traverse.launches - launches, expected_launches=expected_launches,
+            generic_descents=descents[0] - descended, expected_generic_descents=expected_descents,
+            wall_s=time.perf_counter() - t0))
+        return n
+
+    GameBuffer.reanalyze_buffer = watched
+    puct._generic_traverse = counting_generic
+
+    def restore():
+        GameBuffer.reanalyze_buffer = reanalyze
+        puct._generic_traverse = generic
+
+    return calls, restore
+
+
+def reanalyze_problems(calls: list) -> list:
+    return [f"reanalyze {c}" for c in calls
+            if (c["launches"], c["generic_descents"], c["transitions"])
+            != (c["expected_launches"], c["expected_generic_descents"], c["expected_transitions"])]
+
+
+def reuse_search_card_vs_cpu(policy) -> dict:
+    """A reuse search (forward_reanalyze with true actions and reused values)
+    of 4 numpy-seeded CartPole states on the card and on the CPU, with the
+    same Dirichlet noise and tie_break='first': the visit distributions
+    equal, the root values within VALUE_TOL, and no kernel launch."""
+    rng = np.random.default_rng(MAIN_SEED + 8)
+    B = 4
+    obs = torch.from_numpy(rng.uniform(-0.2, 0.2, (B, 4)).astype(np.float32))
+    legal = torch.ones((B, 2), dtype=torch.bool)
+    noise = torch.from_numpy(rng.dirichlet(np.full(2, 0.3), B).astype(np.float32))
+    true_action = torch.from_numpy(rng.integers(0, 2, B))
+    reuse_value = torch.from_numpy(rng.uniform(0.0, 20.0, B).astype(np.float32))
+    cpu_policy = type(policy)(policy.cfg, model=copy.deepcopy(policy.model).cpu(), device="cpu")
+    search_cfg = policy.search_cfg
+    outs = []
+    launches = fused_traverse.launches
+    try:
+        for p in (policy, cpu_policy):
+            p.search_cfg = dataclasses.replace(search_cfg, tie_break="first")
+            d = p.device
+            visits, values = p.forward_reanalyze(
+                p.model, obs.to(d), legal.to(d), true_action=true_action.to(d),
+                reuse_value=reuse_value.to(d), noise=noise.to(d))
+            outs.append((visits.cpu(), values.cpu()))
+    finally:
+        policy.search_cfg = search_cfg
+    launches = fused_traverse.launches - launches
+    (card_visits, card_values), (cpu_visits, cpu_values) = outs
+    err = float((card_values - cpu_values).abs().max())
+    rec = dict(phase="rezero_reuse_card_vs_cpu", batch=B, tie_break="first",
+               true_action=true_action.tolist(), reuse_value=reuse_value.tolist(),
+               visit_distribution=card_visits.tolist(), root_value=card_values.tolist(),
+               max_abs_err=err, launches=launches)
+    emit(rec)
+    if not torch.equal(card_visits, cpu_visits):
+        raise AssertionError(f"rezero: card and CPU reuse searches differ: "
+                             f"{card_visits.tolist()} vs {cpu_visits.tolist()}")
+    if not (torch.isfinite(card_values).all()
+            and torch.allclose(card_values, cpu_values, rtol=VALUE_TOL, atol=VALUE_TOL)):
+        raise AssertionError(f"rezero: card and CPU root values differ: "
+                             f"{card_values.tolist()} vs {cpu_values.tolist()}")
+    if launches:
+        raise AssertionError(f"rezero: the reuse search launched the descent kernel {launches} times")
+    return rec
+
+
+def context_card_vs_cpu(policy) -> dict:
+    """CONTEXT_STEPS stateful eval steps of 3 envs on the card and on the
+    CPU from the same weights and numpy-seeded observations, env 1's episode
+    ending after step 2: the root latents within LATENT_TOL, the contexts,
+    visit counts and actions equal; env 0 is encoded again at step 5 (the
+    context reset) and env 1 at step 3."""
+    rng = np.random.default_rng(MAIN_SEED + 9)
+    B = 3
+    steps = [torch.from_numpy(rng.uniform(-0.2, 0.2, (B, 4)).astype(np.float32))
+             for _ in range(CONTEXT_STEPS)]
+    done = torch.tensor([False, True, False])
+    legal = torch.ones((B, 2), dtype=torch.bool)
+    to_play = torch.full((B,), -1, dtype=torch.int32)
+    cpu_policy = type(policy)(policy.cfg, model=copy.deepcopy(policy.model).cpu(), device="cpu")
+    runs = []
+    for p in (policy, cpu_policy):
+        d, state, run = p.device, p.init_collect_state(B), []
+        for t, obs in enumerate(steps):
+            out, state = p._forward_collect_stateful(obs.to(d), legal.to(d), to_play.to(d), 1.0,
+                                                     0.0, state, deterministic=True)
+            with torch.no_grad():
+                encoded = p.model.representation(obs.to(d))
+            run.append(dict(latent=state["latent"].cpu(), encoded=encoded.cpu(),
+                            action=out["action"].cpu(), visit_counts=out["visit_counts"].cpu(),
+                            timestep=state["timestep"].cpu()))
+            if t == 2:
+                state = p.reset_collect_state(state, done.to(d))
+        runs.append(run)
+    err = max(float((a["latent"] - b["latent"]).abs().max()) for a, b in zip(*runs))
+    reencoded = [torch.isclose(r["latent"], r["encoded"], rtol=0, atol=1e-6).all(-1).tolist()
+                 for r in runs[0]]
+    rec = dict(phase="muzero_context_card_vs_cpu", batch=B, steps=CONTEXT_STEPS,
+               latent_max_abs_err=err, encoded_at=reencoded,
+               actions=[r["action"].tolist() for r in runs[0]])
+    emit(rec)
+    for t, (a, b) in enumerate(zip(*runs)):
+        for key in ("action", "visit_counts", "timestep"):
+            if not torch.equal(a[key], b[key]):
+                raise AssertionError(f"muzero_context: card and CPU {key} differ at step {t}")
+    if err > LATENT_TOL:
+        raise AssertionError(f"muzero_context: root latents differ by {err} > {LATENT_TOL}")
+    if [r[0] for r in reencoded] != [True, False, False, False, False, True, False] or \
+            [r[1] for r in reencoded] != [True, False, False, True, False, False, False]:
+        raise AssertionError(f"muzero_context: encoded at the wrong steps: {reencoded}")
+    return rec
+
+
+def phase_rezero_history(card: str) -> dict:
+    """ReZero, MuZero-Context and MuZero-RNN-full-obs on CartPole at full
+    width; every collect and eval search through the descent kernel, the
+    reuse searches through the generic descent."""
+    records, t0 = {}, time.perf_counter()
+    # ReZero: MuZero with the whole-buffer reuse reanalyze
+    policy = MuZeroPolicy(rezero_config.policy, device="cuda", seed=MAIN_SEED)
+    randomize_heads(policy.model, MAIN_SEED + 8)
+    sims = policy.search_cfg.num_simulations
+    ev = eval_episodes(policy, card, "rezero")
+    emit(ev)
+    if ev["launches"] != ev["env_steps"] * sims:
+        raise AssertionError(f"rezero: traverse launches {ev['launches']} != env steps "
+                             f"{ev['env_steps']} x {sims}")
+    cfg = copy.deepcopy(rezero_config)
+    cfg.env.max_episode_steps = REZERO_TRAIN_EPISODE_STEPS
+    calls, restore = watch_reanalyze(sims)
+    try:
+        train, problems, policy, state, buffer = short_train(
+            cfg, card, "rezero", sims,
+            extra_launches=lambda: sum(c["expected_launches"] for c in calls))
+        reuse = reuse_search_card_vs_cpu(policy)
+        buffer.reanalyze_buffer(state.target_model, reanalyze_batch_size=160, partition=0.75,
+                                reuse_search=False)
+    finally:
+        restore()
+    train.update(episodes_truncated_at=REZERO_TRAIN_EPISODE_STEPS, reanalyze=calls[:-1],
+                 plain_reanalyze=calls[-1])
+    emit(train)
+    problems += reanalyze_problems(calls)
+    if [c["transitions"] for c in calls[:-1]] != train["logged_reanalyzed"] or len(calls) != 2:
+        problems.append(f"logged reanalyze counts {train['logged_reanalyzed']}, calls {calls}")
+    if problems:
+        raise AssertionError(f"rezero failed: {problems}")
+    records["rezero"] = dict(eval=ev, train=train, reuse_card_vs_cpu=reuse)
+
+    # MuZero-Context: the stateful collect and eval path
+    policy = MuZeroContextPolicy(context_config.policy, device="cuda", seed=MAIN_SEED)
+    randomize_heads(policy.model, MAIN_SEED + 9)
+    ev = eval_episodes(policy, card, "muzero_context")
+    emit(ev)
+    if ev["launches"] != ev["env_steps"] * sims:
+        raise AssertionError(f"muzero_context: traverse launches {ev['launches']} != env steps "
+                             f"{ev['env_steps']} x {sims}")
+    latents = context_card_vs_cpu(policy)
+    train, problems, *_ = short_train(context_config, card, "muzero_context", sims)
+    emit(train)
+    if problems:
+        raise AssertionError(f"muzero_context train failed: {problems}")
+    records["muzero_context"] = dict(eval=ev, train=train, card_vs_cpu=latents)
+
+    # MuZero-RNN-full-obs at the CartPole MuZero config's width
+    cfg = copy.deepcopy(main_config)
+    cfg.policy.type = "muzero_rnn_full_obs"
+    cfg.policy.model.rnn_hidden_size = RNN_HIDDEN_SIZE
+    policy = MuZeroRNNFullObsPolicy(cfg.policy, device="cuda", seed=MAIN_SEED)
+    randomize_heads(policy.model, MAIN_SEED + 10)
+    ev = eval_episodes(policy, card, "muzero_rnn")
+    emit(ev)
+    if ev["launches"] != ev["env_steps"] * sims:
+        raise AssertionError(f"muzero_rnn: traverse launches {ev['launches']} != env steps "
+                             f"{ev['env_steps']} x {sims}")
+    agreement = search_card_vs_cpu(policy, "muzero_rnn")
+    train, problems, *_ = short_train(cfg, card, "muzero_rnn", sims)
+    emit(train)
+    if problems:
+        raise AssertionError(f"muzero_rnn train failed: {problems}")
+    records["muzero_rnn"] = dict(eval=ev, train=train, card_vs_cpu=agreement)
+    return records, time.perf_counter() - t0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs on a GPU", file=sys.stderr)
@@ -1220,6 +1501,7 @@ def main() -> int:
     smz = phase_stochastic(card)
     sampled, sampled_cases = phase_sampled(card, l2_ns)
     cases += sampled_cases
+    history, history_wall = phase_rezero_history(card)
 
     main_case = next(c for c in cases if (c["B"], c["A"], c["N"], c["tie_break"]) == (3, 2, 26, "noise"))
     kernels = [dict(
@@ -1242,6 +1524,17 @@ def main() -> int:
         launches_sampled_muzero_train=sampled["sampled_muzero"]["train"]["launches"],
         launches_sampled_efficientzero=sampled["sampled_efficientzero"]["eval"]["launches"],
         launches_sampled_efficientzero_train=sampled["sampled_efficientzero"]["train"]["launches"],
+        # phase 11: ReZero's training run (collect and eval searches and the
+        # first search of each reuse group), its whole-buffer reuse
+        # reanalyze alone, and the plain reanalyze of the trained buffer;
+        # MuZero-Context's and MuZero-RNN's evals and training runs
+        launches_rezero_train=history["rezero"]["train"]["launches"],
+        launches_rezero_reanalyze=sum(c["launches"] for c in history["rezero"]["train"]["reanalyze"]),
+        launches_rezero_plain_reanalyze=history["rezero"]["train"]["plain_reanalyze"]["launches"],
+        launches_muzero_context=history["muzero_context"]["eval"]["launches"],
+        launches_muzero_context_train=history["muzero_context"]["train"]["launches"],
+        launches_muzero_rnn=history["muzero_rnn"]["eval"]["launches"],
+        launches_muzero_rnn_train=history["muzero_rnn"]["train"]["launches"],
         max_abs_err=max(c["max_abs_err"] for c in cases),
         ms=main_case["ms"],
         # launch to launch through the wrapper, the host's dispatch included:
@@ -1269,7 +1562,12 @@ def main() -> int:
               sampled_efficientzero_eval_s_per_env_step=sampled["sampled_efficientzero"]["eval"][
                   "wall_per_env_step_s"],
               sampled_efficientzero_learn_step_ms=sampled["sampled_efficientzero"]["train"][
-                  "learn_step_ms_median"]))
+                  "learn_step_ms_median"],
+              rezero_history_wall_s=history_wall,
+              **{f"{name}_eval_s_per_env_step": rec["eval"]["wall_per_env_step_s"]
+                 for name, rec in history.items()},
+              **{f"{name}_learn_step_ms": rec["train"]["learn_step_ms_median"]
+                 for name, rec in history.items()}))
     faulthandler.cancel_dump_traceback_later()
     signal.alarm(0)
     print(card, flush=True)

@@ -18,9 +18,15 @@ path, as in the JAX buffer: their actions are (T, D) floats (or ints) and
 the batch is a ``SampledTrainBatch`` with the root candidates of every
 unroll position.
 
+ReZero's whole-buffer reanalyze (``reanalyze_buffer``) searches again, with
+the target network, the newest transitions up to a share of the buffer and
+overwrites their stored policy targets and root values in place; with
+``reuse_search`` it goes backward in time through each episode so that every
+search reuses its successor's fresh root value. Its randomness comes from the
+policy's generator, where the JAX buffer takes a key from its caller.
+
 Not ported yet, and refused with ``NotImplementedError``: board-game value
-targets and mirror augmentation (ROADMAP queue 1, slice 17) and
-``reanalyze_buffer`` (slice 15).
+targets and mirror augmentation (ROADMAP queue 1, slice 17).
 """
 from __future__ import annotations
 
@@ -195,10 +201,94 @@ class GameBuffer:
         for j, flat_i in enumerate(np.asarray(idx)):
             self._priorities[self._flat_ep[flat_i]][self._flat_pos[flat_i]] = new_p[j]
 
-    def reanalyze_buffer(self, *args, **kwargs) -> int:
-        raise NotImplementedError(
-            "whole-buffer reanalyze is not ported yet (ROADMAP queue 1, slice 15: ReZero)"
+    # ---------------------------------------------------------------- rezero
+    def _search_rows(self, rows, target_model: nn.Module, **reuse):
+        """One reanalyze search over the stored positions ``rows`` ((episode,
+        position, ...) tuples): (normalized visits, root values), on the
+        policy's device."""
+        dev = self.policy.device
+        eps = [(self._episodes[r[0]], r[1]) for r in rows]
+        obs = np.stack([self._stacked_obs(ep, t) for ep, t in eps]).astype(np.float32)
+        legal = np.stack([ep.legal_mask[t] for ep, t in eps])
+        to_play = np.asarray([ep.to_play[t] for ep, t in eps])
+        return self.policy.forward_reanalyze(
+            target_model, torch.from_numpy(obs).to(dev), torch.from_numpy(legal).to(dev),
+            torch.from_numpy(to_play).to(dev, torch.int32), **reuse,
         )
+
+    def _write_targets(self, rows, fresh: torch.Tensor, values: torch.Tensor) -> None:
+        fresh, values = fresh.cpu().numpy(), values.cpu().numpy()
+        for j, (e, t) in enumerate(rows):
+            self._episodes[e].child_visits[t] = fresh[j]
+            self._episodes[e].root_values[t] = values[j]
+
+    def reanalyze_buffer(self, target_model: nn.Module, reanalyze_batch_size: int = 256,
+                         partition: float = 0.75, reuse_search: bool = False) -> int:
+        """ReZero's periodic whole-buffer reanalyze (game_buffer.py:263-320):
+        search again with ``target_model`` the newest episodes until they
+        hold ``partition`` of the stored transitions, in batches of
+        ``reanalyze_batch_size`` (the last padded with its own last row),
+        and overwrite their policy targets and root values in place. With
+        ``reuse_search`` the episodes go backward in time and each search
+        reuses its successor's root value. Returns the number of
+        transitions reanalyzed."""
+        if reuse_search:
+            n = self._reanalyze_buffer_with_reuse(target_model, reanalyze_batch_size, partition)
+        else:
+            budget = int(self._total_transitions * partition)
+            todo = []  # (episode, position), newest episodes first
+            for e in range(len(self._episodes) - 1, -1, -1):
+                todo += [(e, t) for t in range(len(self._episodes[e].actions))]
+                if len(todo) >= budget:
+                    break
+            for start in range(0, len(todo), reanalyze_batch_size):
+                chunk = todo[start:start + reanalyze_batch_size]
+                padded = chunk + [chunk[-1]] * (reanalyze_batch_size - len(chunk))
+                self._write_targets(chunk, *self._search_rows(padded, target_model))
+            n = len(todo)
+        # the native path serves policy targets from the flat pool: rebuild
+        # it so that the fresh targets are sampled from now on
+        self._flat_dirty = True
+        return n
+
+    def _reanalyze_buffer_with_reuse(self, target_model: nn.Module, group_size: int,
+                                     partition: float) -> int:
+        """Backward-in-time reanalyze with root-value reuse
+        (game_buffer.py:322-391): episodes in groups of ``group_size``;
+        iteration k searches every episode's position T_e - k, k = 1 with a
+        plain search, every later k with the stored action as
+        ``true_action`` and the previous iteration's root values as
+        ``reuse_value``. Rows keep JAX's layout: G = ``group_size`` rows,
+        one per episode of the group, then padding rows at (group[0], 0);
+        an episode already done searches its position 0 again. Only the
+        valid rows are written back."""
+        budget = int(self._total_transitions * partition)
+        eps, covered = [], 0  # newest episodes first
+        for e in range(len(self._episodes) - 1, -1, -1):
+            eps.append(e)
+            covered += len(self._episodes[e].actions)
+            if covered >= budget:
+                break
+        G = max(1, int(group_size))
+        done_count = 0
+        for gstart in range(0, len(eps), G):
+            group = eps[gstart:gstart + G]
+            lengths = [len(self._episodes[e].actions) for e in group]
+            reuse_value = None
+            for k in range(1, max(lengths) + 1):
+                pos = [T - k for T in lengths]
+                rows = [(e, max(p, 0), p >= 0) for e, p in zip(group, pos)]
+                rows += [(group[0], 0, False)] * (G - len(rows))
+                reuse = {}
+                if k > 1:
+                    actions = np.asarray([self._episodes[e].actions[p] for e, p, _ in rows])
+                    reuse = dict(true_action=torch.from_numpy(actions).to(self.policy.device),
+                                 reuse_value=reuse_value)
+                fresh, reuse_value = self._search_rows(rows, target_model, **reuse)
+                keep = [j for j, (_, _, v) in enumerate(rows) if v]
+                self._write_targets([rows[j][:2] for j in keep], fresh[keep], reuse_value[keep])
+                done_count += len(keep)
+        return done_count
 
     # ------------------------------------------------------------- targets
     def _stacked_obs(self, ep: EpisodeRecord, pos: int) -> np.ndarray:

@@ -1,1 +1,7 @@
 from lightzero_tpu_torch.entry.train_muzero import train_muzero
+
+# ReZero is the shared loop with buffer_reanalyze_freq > 0, and the segment
+# pipeline the shared loop with policy.num_segments set, as in the JAX
+# package's entry/__init__.py
+train_rezero = train_muzero
+train_muzero_segment = train_muzero

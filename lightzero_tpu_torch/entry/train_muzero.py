@@ -1,13 +1,15 @@
 """Training entry (``lightzero_tpu/entry/train_muzero.py``) for the ported
 policies: MuZero, EfficientZero, Gumbel MuZero, Stochastic MuZero, Sampled
-MuZero and Sampled EfficientZero, chosen by ``cfg.policy.type`` from
-``POLICIES`` as the JAX entry does from its registry, on the ported envs
-(CartPole, 2048, Pendulum), chosen by ``cfg.env.env_id``.
+MuZero, Sampled EfficientZero, MuZero-Context and MuZero-RNN-full-obs,
+chosen by ``cfg.policy.type`` from ``POLICIES`` as the JAX entry does from
+its registry, on the ported envs (CartPole, 2048, Pendulum), chosen by
+``cfg.env.env_id``.
 
 Loop: [eval every ``eval_freq`` train iterations, stopping after
 ``stop_consecutive_evals`` evals at ``stop_value``] -> collect (episode mode,
-or segment mode with ``num_segments``) -> push to the buffer ->
-``update_per_collect`` (or replay-ratio) learn steps, each on a fresh
+or segment mode with ``num_segments``) -> push to the buffer -> [ReZero's
+whole-buffer reanalyze with the target net, every ``1 / buffer_reanalyze_freq``
+collect rounds] -> ``update_per_collect`` (or replay-ratio) learn steps, each on a fresh
 prioritized sample, once the buffer holds a batch and
 ``train_start_after_envsteps`` env steps are done -> until ``max_env_step``
 or ``max_train_iter``. A non-finite loss saves ``ckpt/ckpt_nan`` and raises;
@@ -22,9 +24,8 @@ Usage (on the card, or with ``device="cpu"``)::
     policy, state, stats = train_muzero(main_config, seed=0, max_env_step=100_000)
 
 Not ported yet, and refused with ``NotImplementedError``: the other policies,
-the conv models, envs other than CartPole, 2048 and Pendulum, ``buffer_reanalyze_freq``
-and the loss-landscape analysis (their ROADMAP slices are named in the
-errors).
+the conv models, envs other than CartPole, 2048 and Pendulum, and the
+loss-landscape analysis (their ROADMAP slices are named in the errors).
 """
 from __future__ import annotations
 
@@ -44,7 +45,9 @@ from lightzero_tpu_torch.ops import visit_count_temperature
 from lightzero_tpu_torch.policy import (
     EfficientZeroPolicy,
     GumbelMuZeroPolicy,
+    MuZeroContextPolicy,
     MuZeroPolicy,
+    MuZeroRNNFullObsPolicy,
     SampledEfficientZeroPolicy,
     SampledMuZeroPolicy,
     StochasticMuZeroPolicy,
@@ -73,11 +76,11 @@ POLICIES = {
     "muzero": MuZeroPolicy, "efficientzero": EfficientZeroPolicy,
     "gumbel_muzero": GumbelMuZeroPolicy, "stochastic_muzero": StochasticMuZeroPolicy,
     "sampled_muzero": SampledMuZeroPolicy, "sampled_efficientzero": SampledEfficientZeroPolicy,
+    "muzero_context": MuZeroContextPolicy, "muzero_rnn_full_obs": MuZeroRNNFullObsPolicy,
 }
 # the policy types of the JAX entry that are not ported yet, and the ROADMAP
 # slice that ports each
 OTHER_POLICIES = {
-    "muzero_rnn_full_obs": 15, "muzero_context": 15,
     "unizero": 18, "sampled_unizero": 18, "muzero_multitask": 19, "unizero_multitask": 19,
     "sampled_unizero_multitask": 19,
 }
@@ -107,11 +110,6 @@ def _check_scope(pcfg: Config) -> None:
         slice_ = OTHER_POLICIES.get(policy_type)
         where = f"ROADMAP queue 1, slice {slice_}" if slice_ else "ROADMAP queue 1"
         raise NotImplementedError(f"policy type {policy_type!r} is not ported yet ({where})")
-    if float(pcfg.get("buffer_reanalyze_freq", 0.0)) > 0:
-        raise NotImplementedError(
-            "buffer_reanalyze_freq (whole-buffer reanalyze) is not ported yet "
-            "(ROADMAP queue 1, slice 15: ReZero)"
-        )
     if pcfg.get("analysis_loss_landscape", False):
         raise NotImplementedError(
             "the loss-landscape analysis is not ported yet (ROADMAP queue 1, slice 20)"
@@ -242,6 +240,19 @@ def train_muzero(
                 num_episodes=n_episode,
             )
         buffer.push_episodes(episodes, priorities)
+        # ReZero's periodic whole-buffer reanalyze (train_muzero.py:274-289)
+        br_freq = float(pcfg.get("buffer_reanalyze_freq", 0.0))
+        if br_freq > 0:
+            collect_round = collector.total_episodes // max(n_episode, 1)
+            every = max(1, int(round(1.0 / br_freq)))
+            if collect_round % every == 0 and buffer.num_transitions > 0:
+                n_re = buffer.reanalyze_buffer(
+                    state.target_model,
+                    reanalyze_batch_size=int(pcfg.get("reanalyze_batch_size", 256)),
+                    partition=float(pcfg.get("reanalyze_partition", 0.75)),
+                    reuse_search=bool(pcfg.get("reuse_search", False)),
+                )
+                logger.info(f"rezero: reanalyzed {n_re} transitions")
         logger.log_scalars(
             {
                 "collect_mean_return": cstats["mean_return"],

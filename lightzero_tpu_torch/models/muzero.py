@@ -47,6 +47,7 @@ class MuZeroModel(nn.Module):
     ):
         super().__init__()
         self.action_space_size = action_space_size
+        self.latent_state_dim = latent_state_dim
         self.reward_support_size = reward_support_size
         self.discrete_action_encoding_type = discrete_action_encoding_type
         enc_dim = action_space_size if discrete_action_encoding_type == "one_hot" else 1

@@ -416,6 +416,22 @@ class MuZeroPolicy:
         root = RootOutput(
             prior_logits=out0.policy_logits, value=pred_value, embedding=self._root_embedding(out0)
         )
+        return self._search_and_act(root, legal_mask, to_play, temperature, epsilon, deterministic)
+
+    def _search_and_act(
+        self,
+        root: RootOutput,
+        legal_mask: torch.Tensor,
+        to_play: torch.Tensor,
+        temperature: float,
+        epsilon: float,
+        deterministic: bool,
+        noise: Optional[torch.Tensor] = None,
+    ) -> Dict[str, torch.Tensor]:
+        """Search from ``root`` with the policy's model and pick the action
+        from the visit counts, epsilon-greedy when collecting. ``noise``
+        (B, A) replaces the Dirichlet draw (for tests)."""
+        g = self.generator
         search_out = batch_puct_search(
             root,
             functools.partial(self._recurrent_fn, self.model),
@@ -423,6 +439,7 @@ class MuZeroPolicy:
             legal_mask,
             to_play=to_play.to(self.device),
             with_noise=not deterministic,
+            noise=noise,
             generator=g,
             device=self.device,
         )
@@ -439,8 +456,8 @@ class MuZeroPolicy:
             action=actions,
             visit_counts=search_out.visit_counts,
             searched_value=search_out.root_value,
-            predicted_value=pred_value,
-            policy_logits=out0.policy_logits,
+            predicted_value=root.value,
+            policy_logits=root.prior_logits,
             distribution_entropy=dist_entropy,
         )
 
@@ -468,18 +485,15 @@ class MuZeroPolicy:
     @torch.no_grad()
     def forward_reanalyze(
         self, target_model, obs, legal_mask, to_play=None, generator=None,
-        true_action=None, reuse_value=None,
+        true_action=None, reuse_value=None, noise=None,
     ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Search again with the target network on stored observations: the
         normalized root visit distributions (the reanalyzed policy targets)
         and the root values. Root noise per ``reanalyze_noise``;
         ``generator`` (on the policy's device) draws it and the tie-break
-        uniforms, the policy's own generator by default."""
-        if true_action is not None or reuse_value is not None:
-            raise NotImplementedError(
-                "reanalyze with search reuse (true_action, reuse_value) is not ported yet "
-                "(ROADMAP queue 1, slice 15: ReZero)"
-            )
+        uniforms, the policy's own generator by default; ``noise`` (B, A)
+        replaces the Dirichlet draw (for tests). ``true_action`` with
+        ``reuse_value`` selects ReZero's reuse search (muzero.py:493-533)."""
         obs = obs.to(self.device, torch.float32)
         out0 = target_model.initial_inference(obs)
         root = RootOutput(
@@ -494,6 +508,9 @@ class MuZeroPolicy:
             legal_mask.to(self.device),
             to_play=self._to_play(obs, to_play).to(self.device),
             with_noise=bool(self.cfg.get("reanalyze_noise", True)),
+            noise=noise,
+            true_action=true_action,
+            reuse_value=reuse_value,
             generator=generator or self.generator,
             device=self.device,
         )

@@ -1,5 +1,5 @@
 """Batched pUCT MCTS (``lightzero_tpu/search/puct.py``), for single-player
-searches without reuse.
+searches, with and without ReZero's reuse.
 
 One call runs ``num_simulations`` iterations of
 [pack tables -> descent -> recurrent_fn -> expand + backup] for a whole
@@ -8,16 +8,25 @@ program; here it runs eagerly, and the tree tensors are updated in place.
 
 Two descents read the same packed table. Non-stochastic searches take
 ``fused_traverse``: the CUDA kernel on the card, its plain version on the
-CPU. Stochastic searches (Stochastic MuZero's chance nodes) take the generic
-descent ``_generic_traverse``, the torch form of the JAX package's XLA
+CPU. Stochastic searches (Stochastic MuZero's chance nodes) and ReZero's
+reuse searches (``true_action``, ``reuse_value``) take the generic descent
+``_generic_traverse``, the torch form of the JAX package's XLA
 ``_traverse``, which is plain jnp there and plain PyTorch here: one level of
 every tree per step, with the done flags read back to the host once per
-level where the JAX loop is a ``while_loop`` on the device.
+level where the JAX loop is a ``while_loop`` on the device. The JAX package
+routes them the same way (puct.py:372-378).
+
+The reuse search (cnode.cpp:827 in the reference): at the root, once the
+true action's child has visits, that arm scores only the normalised
+r + discount * reuse_value, with no prior term; whenever the root picks the
+true action the descent stops there, and the backup takes ``reuse_value``
+as the leaf's value, whether the child was expanded in this simulation or
+already existed (then it is re-used without expansion, like a terminal).
 
 Not ported yet, and refused with ``NotImplementedError`` rather than
-answered wrongly: ``players == 2`` (ROADMAP queue 1, slice 17, board games)
-and the ReZero reuse search, ``true_action`` (slice 15); both are branches
-of the generic descent and the backup.
+answered wrongly: ``players == 2``, with or without reuse (ROADMAP queue 1,
+slice 17, board games); it is a branch of the generic descent and the
+backup.
 """
 from __future__ import annotations
 
@@ -62,17 +71,20 @@ class _TraverseState(NamedTuple):
     path_reward: torch.Tensor  # (B, D)
     path_vsum: torch.Tensor  # (B, D) pre-backup value_sum
     path_visit: torch.Tensor  # (B, D) pre-backup visit count
+    # (B,) bool, reuse searches only: the root picked the true action, so
+    # the backup takes the reused value
+    reuse_hit: Optional[torch.Tensor] = None
 
 
-def _check_scope(cfg: SearchConfig, true_action: Optional[torch.Tensor]) -> None:
+def _check_scope(cfg: SearchConfig, true_action: Optional[torch.Tensor],
+                 reuse_value: Optional[torch.Tensor]) -> None:
     if cfg.players != 1:
+        what = "reuse search (true_action) with" if true_action is not None else "search with"
         raise NotImplementedError(
-            "players == 2 search is not ported yet (ROADMAP queue 1, slice 17: board games)"
+            f"{what} players == 2 is not ported yet (ROADMAP queue 1, slice 17: board games)"
         )
-    if true_action is not None:
-        raise NotImplementedError(
-            "reuse search (true_action) is not ported yet (ROADMAP queue 1, slice 15: ReZero)"
-        )
+    if (true_action is None) != (reuse_value is None):
+        raise ValueError("a reuse search takes both true_action and reuse_value")
 
 
 def _pack_traverse_tables(tree: Tree) -> torch.Tensor:
@@ -220,6 +232,8 @@ def _generic_traverse(
     packed: torch.Tensor,
     noise_u: Optional[torch.Tensor],
     noise_g: Optional[torch.Tensor],
+    true_action: Optional[torch.Tensor] = None,
+    reuse_value: Optional[torch.Tensor] = None,
 ) -> _TraverseState:
     """Lockstep selection from the roots to unexpanded leaves, one level of
     every tree per step (the XLA ``_traverse``, puct.py:335-541), on the
@@ -228,7 +242,9 @@ def _generic_traverse(
     tie-break uniforms) and ``noise_g`` (Gumbel draws, stochastic searches)
     serves one depth. A chance node takes the outcome
     argmax(log(max(prior, 1e-30)) + g) over its legal outcomes instead of
-    the pUCT argmax. The loop reads the done flags back once per level and
+    the pUCT argmax. With ``true_action`` and ``reuse_value`` (B,) the root
+    scores and stops as the reuse search does (puct.py:444-460, 486-495).
+    The loop reads the done flags back once per level and
     stops when every tree is done, as JAX's ``while_loop`` does, so path
     columns past the last level stay zero."""
     B, N, A = tree.num_trees, tree.num_nodes, tree.num_actions
@@ -254,6 +270,12 @@ def _generic_traverse(
     path_reward[:, 0] = tree.reward[:, 0]
     path_vsum[:, 0] = tree.value_sum[:, 0]
     path_visit[:, 0] = tree.visit_count[:, 0].to(dtype)
+    reuse = true_action is not None
+    if reuse:
+        true_action = true_action.to(dev, torch.long)
+        reuse_value = reuse_value.to(dev, dtype)
+        is_true = torch.arange(A, device=dev)[None, :] == true_action[:, None]  # (B, A)
+        reuse_hit = zeros(torch.bool)
 
     for t in range(max_depth - 1):
         row = torch.gather(packed, 1, node[:, None, None].expand(B, 1, C))[:, 0]
@@ -262,6 +284,16 @@ def _generic_traverse(
         mean_q = _mean_q(totals[:, 0], totals[:, 1], is_root, parent_q)
         scores = _ucb_scores(cfg, tree, row[:, 7 * A], ch.visit, ch.value, ch.reward, ch.prior,
                              ch.legal, mean_q)
+        if reuse:
+            # carm_score (cnode.cpp:702): the visited true-action arm at the
+            # root scores normalised(r + discount * reuse_value) alone
+            ta = true_action[:, None]
+            q_arm = torch.gather(ch.reward, 1, ta)[:, 0] + cfg.discount * reuse_value
+            v_arm = torch.clamp(
+                minmax_normalize(tree.vmin, tree.vmax, cfg.value_delta_max, q_arm), 0.0, 1.0)
+            visited_true = torch.gather(ch.visit, 1, ta)[:, 0] > 0
+            override = (is_root & visited_true)[:, None] & is_true
+            scores = torch.where(override, v_arm[:, None], scores)
         action = _select_action(cfg, scores, None if noise_u is None else noise_u[t])
         if cfg.stochastic:
             chance_logits = torch.where(ch.legal, torch.log(torch.clamp(ch.prior, min=1e-30)),
@@ -272,6 +304,13 @@ def _generic_traverse(
         a1 = action[:, None]
         next_child = torch.gather(ch.index, 1, a1)[:, 0]
         child_is_terminal = torch.gather(ch.terminal, 1, a1)[:, 0]
+        if reuse:
+            # the descent stops whenever the root picks the true action
+            # (cnode.cpp:894-897); an existing child is re-used without
+            # expansion, like a terminal stop
+            reuse_stop = is_root & ~done & (action == true_action)
+            child_is_terminal = child_is_terminal | (reuse_stop & (next_child >= 0))
+            reuse_hit = reuse_hit | reuse_stop
         now_done = ~done & ((next_child < 0) | child_is_terminal)
         move = ~done & (next_child >= 0)
         flipped = torch.where(vtp == 1, 2, torch.where(vtp == 2, 1, -1)).to(torch.int32)
@@ -307,6 +346,7 @@ def _generic_traverse(
         path_reward=path_reward,
         path_vsum=path_vsum,
         path_visit=path_visit,
+        reuse_hit=reuse_hit if reuse else None,
     )
 
 
@@ -316,9 +356,11 @@ def _traverse(
     to_play: torch.Tensor,
     generator: Optional[torch.Generator],
     chance_noise: Optional[torch.Tensor] = None,
+    true_action: Optional[torch.Tensor] = None,
+    reuse_value: Optional[torch.Tensor] = None,
 ) -> _TraverseState:
     """Lockstep selection from the roots to unexpanded leaves (puct.py:335):
-    the generic descent for stochastic searches, ``fused_traverse``
+    the generic descent for stochastic and reuse searches, ``fused_traverse``
     otherwise (puct.py:372-378). The randomness is drawn up front as
     (max_depth, B, A) tables, one row per depth: the 'noise' tie-break's
     uniforms and, for stochastic searches, the chance nodes' Gumbel draws,
@@ -331,12 +373,13 @@ def _traverse(
     noise_u = None
     if cfg.tie_break != "first":
         noise_u = torch.rand((max_depth, B, A), generator=generator, device=dev, dtype=dtype)
-    if not cfg.stochastic:
+    if not cfg.stochastic and true_action is None:
         return _fused_descent(cfg, tree, to_play, packed, noise_u)
-    if chance_noise is None:
+    if cfg.stochastic and chance_noise is None:
         u = torch.rand((max_depth, B, A), generator=generator, device=dev, dtype=dtype)
         chance_noise = -torch.log(-torch.log(torch.clamp(u, min=torch.finfo(dtype).tiny)))
-    return _generic_traverse(cfg, tree, to_play, packed, noise_u, chance_noise.to(dev, dtype))
+    noise_g = chance_noise.to(dev, dtype) if cfg.stochastic else None
+    return _generic_traverse(cfg, tree, to_play, packed, noise_u, noise_g, true_action, reuse_value)
 
 
 def _fused_descent(
@@ -412,12 +455,15 @@ def _expand_and_backup(
     sim: int,
     out: RecurrentOutput,
     prior_is_logits: bool = False,
+    value_override: Optional[torch.Tensor] = None,
 ) -> Tree:
     """Expand the leaves (node sim + 1) and back the values up the paths
     (puct.py:544-708, players == 1). Updates the tree tensors in place; a
     recurrent output with ``is_chance`` marks the new row's node kind.
     ``prior_is_logits``: the new row keeps the raw logits, illegal actions
-    at -1e9, instead of their softmax (Gumbel trees, puct.py:572-574)."""
+    at -1e9, instead of their softmax (Gumbel trees, puct.py:572-574).
+    ``value_override`` (B,) is backed up as the leaf value where the reuse
+    descent set ``reuse_hit`` (puct.py:637-638)."""
     B, N, A = tree.num_trees, tree.num_nodes, tree.num_actions
     dev = tree.value_sum.device
     dtype = tree.value_sum.dtype
@@ -475,6 +521,8 @@ def _expand_and_backup(
     pre_visit = torch.where(exp_mask, 0.0, st.path_visit)
     valid = pos < (leaf_pos + 1)[:, None]  # (B, P)
     value = out.value.to(dtype)
+    if value_override is not None:
+        value = torch.where(st.reuse_hit, value_override.to(dtype), value)
 
     # bootstrap recurrence (right to left): contrib at the leaf is its value,
     # contrib_i = r_{i+1} + g * contrib_{i+1}. A suffix composition of affine
@@ -565,6 +613,7 @@ def batch_puct_search(
     generator: Optional[torch.Generator] = None,
     device: Optional[torch.device] = None,
     chance_noise: Optional[torch.Tensor] = None,
+    reuse_value: Optional[torch.Tensor] = None,
 ) -> SearchOutput:
     """Run the full batched search (puct.py:756-825).
 
@@ -573,8 +622,10 @@ def batch_puct_search(
     the Dirichlet noise, the 'noise' tie-break uniforms and the chance
     nodes' Gumbel draws. ``chance_noise`` (num_simulations, N + 1, B, A),
     standard Gumbel draws, replaces the last (for tests: JAX draws its own
-    table per simulation, puct.py:379-385)."""
-    _check_scope(cfg, true_action)
+    table per simulation, puct.py:379-385). ``true_action`` (B,) with
+    ``reuse_value`` (B,) selects ReZero's reuse search
+    (search_with_reuse, mcts_ctree.py:368-465)."""
+    _check_scope(cfg, true_action, reuse_value)
     dev = resolve_device(device)
     root = RootOutput(
         prior_logits=root.prior_logits.to(dev),
@@ -587,16 +638,19 @@ def batch_puct_search(
     if to_play is None:
         to_play = torch.full((B,), -1, dtype=torch.int32, device=dev)
     to_play = to_play.to(dev)
+    if reuse_value is not None:
+        reuse_value = reuse_value.to(dev)
 
     tree = init_tree(B, N, A, root.embedding, dtype=root.prior_logits.dtype, device=dev)
     tree = prepare_roots(cfg, tree, root, legal_mask, to_play, with_noise, noise, generator)
     bidx = torch.arange(B, device=dev)
     for sim in range(cfg.num_simulations):
         st = _traverse(cfg, tree, to_play, generator,
-                       None if chance_noise is None else chance_noise[sim])
+                       None if chance_noise is None else chance_noise[sim], true_action,
+                       reuse_value)
         parent_embedding = map_embedding(lambda e: e[bidx, st.parent], tree.embedding)
         out = recurrent_fn(st.last_action, parent_embedding)
-        tree = _expand_and_backup(cfg, tree, st, sim, out)
+        tree = _expand_and_backup(cfg, tree, st, sim, out, value_override=reuse_value)
 
     return SearchOutput(
         visit_counts=root_visit_counts(tree),

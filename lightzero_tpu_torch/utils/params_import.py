@@ -1,7 +1,7 @@
 """Carry flax parameters of the JAX ``MuZeroModel`` (MLP branch, with the SSL
 projector), ``EfficientZeroModel``, ``StochasticMuZeroModel``,
-``SampledMuZeroModel`` and ``SampledEfficientZeroModel`` (MLP branches) into
-the port's models, and back.
+``SampledMuZeroModel``, ``SampledEfficientZeroModel`` and ``MuZeroRNNModel``
+(MLP branches) into the port's models, and back.
 
 ``flax_to_state_dict`` takes the flax params as nested dicts of numpy arrays
 (``{"params": {...}}`` or the inner dict), e.g.
@@ -17,11 +17,11 @@ Each model class has its own map (``_PARAM_MAPS``), since the same name
 means different modules in different models: MuZero's flax ``_dyn`` holds
 two torsos and the port's ``dynamics_network`` a torso and a reward head,
 while Stochastic MuZero's ``_dyn`` and ``dynamics_network`` are one torso.
-The map is picked by a module that only its model has: ``_common`` (port:
-``prediction_torso``) for the two sampled models, with ``_lstm`` (port:
-``lstm``) for Sampled EfficientZero; else ``_lstm`` for EfficientZero,
-``_afterstate_dyn`` (port: ``afterstate_dynamics_network``) for Stochastic
-MuZero, else MuZero's.
+The map is picked by a module that only its model has: ``_gru`` (port:
+``gru``) for MuZero-RNN; else ``_common`` (port: ``prediction_torso``) for
+the two sampled models, with ``_lstm`` (port: ``lstm``) for Sampled
+EfficientZero; else ``_lstm`` for EfficientZero, ``_afterstate_dyn`` (port:
+``afterstate_dynamics_network``) for Stochastic MuZero, else MuZero's.
 
 The LSTM of both EfficientZero models: flax ``OptimizedLSTMCell`` holds per
 gate an input kernel ``i{i,f,g,o}/kernel`` (in, H) without bias and a hidden kernel
@@ -31,6 +31,12 @@ g, o, and ``bias_hh`` (4H). The kernels are transposed and stacked in that
 order, the hidden biases go to ``bias_hh``, and ``bias_ih`` (a zero buffer
 in the port's model) is zero; the inverse splits them back and raises if
 ``bias_ih`` is not zero, which flax could not hold.
+
+The GRU of MuZero-RNN: flax ``GRUCell`` holds input kernels ``i{r,z,n}``
+(in, H) with ``bias``, recurrent kernels ``h{r,z}`` (H, H) without and
+``hn`` with ``bias``; the port's ``FlaxGRUCell`` holds ``weight_ih`` (3H,
+in) and ``bias_ih`` (3H), rows in gate order r, z, n, ``weight_hh`` (3H, H)
+and ``bias_hn`` (H). The kernels are transposed and stacked in that order.
 """
 from __future__ import annotations
 
@@ -43,6 +49,8 @@ import torch
 _TORSO_LAYERS = {"Dense": "dense", "LayerNorm": "norm"}
 _LSTM = "lstm"
 _GATES = ("i", "f", "g", "o")
+_GRU = "gru"
+_GRU_GATES = ("r", "z", "n")
 # flax SSLProjector layer -> port SSLProjector layer
 _PROJECTOR_LAYERS = {"proj": "proj", "proj_norms": "proj_norms", "pred": "pred"}
 _LEAVES = {"kernel": "weight", "scale": "weight", "bias": "bias"}
@@ -51,12 +59,14 @@ _LEAVES = {"kernel": "weight", "scale": "weight", "bias": "bias"}
 class _ParamMap(NamedTuple):
     """One model class's names: flax MLPTorso path -> port MLPTorso path
     (layers Dense_i / LayerNorm_i), flax bare LayerNorm -> port LayerNorm,
-    and whether the model has the SSL projector (``_proj``) and the LSTM."""
+    and whether the model has the SSL projector (``_proj``), the LSTM and
+    the GRU."""
 
     torsos: Dict[str, str]
     norms: Dict[str, str]
     projector: bool
     lstm: bool
+    gru: bool = False
 
 
 # the MLP representation and prediction networks every model has
@@ -102,11 +112,19 @@ _PARAM_MAPS = {
     "SampledEfficientZeroModel": _ParamMap(
         torsos=dict(_SAMPLED_PRED, _dyn_torso="dynamics_torso", _vp_head="value_prefix_head"),
         norms={"_vp_norm": "value_prefix_norm"}, projector=True, lstm=True),
+    "MuZeroRNNModel": _ParamMap(
+        torsos={"_repr/MLPTorso_0": "representation_network.torso",
+                "_dyn_torso": "dynamics_torso", "_reward_head": "reward_head",
+                "_common": "prediction_torso", "_value_head": "value_head",
+                "_policy_head": "policy_head"},
+        norms={}, projector=True, lstm=False, gru=True),
 }
 
 
 def _map_of_flax(flat: Mapping[str, Any]) -> _ParamMap:
     tops = {k.split("/")[0] for k in flat}
+    if "_gru" in tops:
+        return _PARAM_MAPS["MuZeroRNNModel"]
     if "_common" in tops:
         return _PARAM_MAPS["SampledEfficientZeroModel" if "_lstm" in tops else "SampledMuZeroModel"]
     if "_lstm" in tops:
@@ -118,6 +136,8 @@ def _map_of_flax(flat: Mapping[str, Any]) -> _ParamMap:
 
 def _map_of_port(names) -> _ParamMap:
     tops = {k.split(".")[0] for k in names}
+    if _GRU in tops:
+        return _PARAM_MAPS["MuZeroRNNModel"]
     if "prediction_torso" in tops:
         return _PARAM_MAPS["SampledEfficientZeroModel" if _LSTM in tops else "SampledMuZeroModel"]
     if _LSTM in tops:
@@ -159,7 +179,7 @@ def _port_name(pmap: _ParamMap, key: str) -> str:
 
 
 def flax_to_state_dict(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
-    """Map flax params of one of the five models to the port's state_dict
+    """Map flax params of one of the six models to the port's state_dict
     keys."""
     if "params" in params:
         params = params["params"]
@@ -168,6 +188,8 @@ def flax_to_state_dict(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     pmap = _map_of_flax(flat)
     if pmap.lstm:
         out.update(_lstm_to_torch({k: flat.pop(k) for k in list(flat) if k.startswith("_lstm/")}))
+    if pmap.gru:
+        out.update(_gru_to_torch({k: flat.pop(k) for k in list(flat) if k.startswith("_gru/")}))
     for key, value in flat.items():
         if key.endswith("/kernel"):
             value = value.T
@@ -211,6 +233,38 @@ def _lstm_to_flax(name: str, value: np.ndarray) -> Dict[str, np.ndarray]:
             for g, p in zip(_GATES, parts)}
 
 
+def _gru_to_torch(gru: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+    """flax ``_gru/...`` leaves -> ``gru.*`` tensors (gate order r, z, n)."""
+    expected = {f"_gru/i{g}/{leaf}" for g in _GRU_GATES for leaf in ("kernel", "bias")}
+    expected |= {f"_gru/h{g}/kernel" for g in _GRU_GATES} | {"_gru/hn/bias"}
+    if set(gru) != expected:
+        unknown = sorted(set(gru) - expected) or sorted(expected - set(gru))
+        raise KeyError(f"no counterpart in the port for flax GRU parameters {unknown!r}")
+
+    def stack(parts):
+        return torch.from_numpy(np.ascontiguousarray(np.concatenate(parts, 0), np.float32))
+
+    return {
+        f"{_GRU}.weight_ih": stack([gru[f"_gru/i{g}/kernel"].T for g in _GRU_GATES]),
+        f"{_GRU}.bias_ih": stack([gru[f"_gru/i{g}/bias"] for g in _GRU_GATES]),
+        f"{_GRU}.weight_hh": stack([gru[f"_gru/h{g}/kernel"].T for g in _GRU_GATES]),
+        f"{_GRU}.bias_hn": stack([gru["_gru/hn/bias"]]),
+    }
+
+
+def _gru_to_flax(name: str, value: np.ndarray) -> Dict[str, np.ndarray]:
+    """One ``gru.*`` tensor -> its flax leaves ('/'-joined paths)."""
+    leaf = name[len(_GRU) + 1:]
+    if leaf == "bias_hn":
+        return {"_gru/hn/bias": np.ascontiguousarray(value)}
+    if leaf not in ("weight_ih", "bias_ih", "weight_hh"):
+        raise KeyError(f"no counterpart in flax for port parameter {name!r}")
+    side = "h" if leaf == "weight_hh" else "i"
+    kind = "bias" if leaf == "bias_ih" else "kernel"
+    return {f"_gru/{side}{g}/{kind}": np.ascontiguousarray(p.T if kind == "kernel" else p)
+            for g, p in zip(_GRU_GATES, np.split(value, 3, axis=0))}
+
+
 def _flax_paths(pmap: _ParamMap) -> Dict[str, str]:
     """Every port state_dict key of the model -> its flax path."""
     paths = {}
@@ -246,6 +300,9 @@ def state_dict_to_flax(state_dict: Mapping[str, torch.Tensor]) -> Dict[str, Any]
         value = tensor.detach().cpu().numpy().astype(np.float32)
         if pmap.lstm and name.startswith(f"{_LSTM}."):
             flat.update(_lstm_to_flax(name, value))
+            continue
+        if pmap.gru and name.startswith(f"{_GRU}."):
+            flat.update(_gru_to_flax(name, value))
             continue
         m = re.fullmatch(r"(.+)\.(\d+)\.(weight|bias)", name)
         if m is not None:

@@ -17,6 +17,10 @@ continuous action space. A sampled policy's root candidates
 (``root_sampled_actions``, (K, D) or (K,) per step) go into the episode
 record, and its telemetry (``visit_mean_action``, ``collect_mu``,
 ``collect_sigma``) into the stats, averaged over the last chunk.
+
+A policy with ``stateful_collect`` (MuZero-Context) keeps a per-env state
+across steps: the collector threads it through ``_forward_collect_stateful``
+and resets it per env when an episode ends (collector.py:128-154).
 """
 from __future__ import annotations
 
@@ -124,6 +128,7 @@ class RolloutCollector:
         self.episode_returns: List[float] = []
         self._env_return = np.zeros(num_envs)
         self._state = None
+        self._collect_state = None  # the stateful policies' per-env state
 
     def _reset_all(self):
         state, obs = self.env.reset(self.num_envs, self.generator)
@@ -136,12 +141,24 @@ class RolloutCollector:
         """``rollout_length`` search + env steps; the records as numpy
         arrays of shape (rollout_length, num_envs, ...)."""
         env_state, obs, legal, to_play = carry
+        stateful = getattr(self.policy, "stateful_collect", False)
+        if stateful and self._collect_state is None:
+            self._collect_state = self.policy.init_collect_state(self.num_envs)
         records = []
         for _ in range(self.rollout_length):
-            out = self.policy._forward_collect(
-                obs, legal, to_play, temperature, epsilon, deterministic=False
-            )
+            if stateful:
+                out, self._collect_state = self.policy._forward_collect_stateful(
+                    obs, legal, to_play, temperature, epsilon, self._collect_state,
+                    deterministic=False,
+                )
+            else:
+                out = self.policy._forward_collect(
+                    obs, legal, to_play, temperature, epsilon, deterministic=False
+                )
             step = self.env.step(env_state, out["action"], self.generator)
+            if stateful:
+                self._collect_state = self.policy.reset_collect_state(self._collect_state,
+                                                                      step.done)
             chance = (step.chance if step.chance is not None
                       else torch.zeros_like(step.reward, dtype=torch.int64))
             records.append(dict(

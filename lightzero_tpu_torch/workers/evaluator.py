@@ -6,6 +6,11 @@ where the JAX one falls back to a fixed ``PRNGKey(1234)``; and it steps one
 batched env step at a time (the JAX one scans ``rollout_length`` steps per
 compiled call), stopping once every env has finished an episode and at least
 ``n_episodes`` episodes have ended.
+
+A policy with ``stateful_collect`` (MuZero-Context) is evaluated through
+``_forward_collect_stateful`` with ``deterministic=True``, its per-env state
+threaded through the steps and reset per env when an episode ends, as the
+JAX evaluator does (evaluator.py:40-72).
 """
 from __future__ import annotations
 
@@ -37,9 +42,17 @@ class Evaluator:
         self.best_return = -np.inf
 
     @torch.no_grad()
-    def _rollout_step(self, state, obs, legal, to_play):
-        out = self.policy.forward_eval(obs, legal, to_play)
-        return self.env.step(state, out["action"].to(self.device), self.generator)
+    def _rollout_step(self, state, obs, legal, to_play, collect_state=None):
+        """One batched env step: (the env's step, the policy's next state)."""
+        if collect_state is None:
+            out = self.policy.forward_eval(obs, legal, to_play)
+        else:
+            out, collect_state = self.policy._forward_collect_stateful(
+                obs, legal, to_play, 1.0, 0.0, collect_state, deterministic=True)
+        step = self.env.step(state, out["action"].to(self.device), self.generator)
+        if collect_state is not None:
+            collect_state = self.policy.reset_collect_state(collect_state, step.done)
+        return step, collect_state
 
     def eval(self, n_episodes: Optional[int] = None, max_steps: int = 10_000) -> Dict:
         """Step every env until each has finished one episode and at least
@@ -49,12 +62,14 @@ class Evaluator:
         state, obs = self.env.reset(self.num_envs, self.generator)
         legal = self.env.legal_mask(state)
         to_play = torch.full((self.num_envs,), -1, dtype=torch.int32, device=self.device)
+        collect_state = (self.policy.init_collect_state(self.num_envs)
+                         if getattr(self.policy, "stateful_collect", False) else None)
         returns = []
         finished = np.zeros(self.num_envs, bool)
         acc = np.zeros(self.num_envs)
         steps = 0
         while (len(returns) < n_episodes or not finished.all()) and steps < max_steps:
-            step = self._rollout_step(state, obs, legal, to_play)
+            step, collect_state = self._rollout_step(state, obs, legal, to_play, collect_state)
             state, obs, legal, to_play = step.state, step.obs, step.legal_mask, step.to_play
             steps += 1
             reward = step.reward.cpu().numpy()

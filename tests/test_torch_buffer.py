@@ -172,8 +172,17 @@ def test_refuses_unported_modes(policies):
     with pytest.raises(NotImplementedError, match="slice 17"):
         GameBuffer(jax_deep_merge(port.cfg, dict(mirror_augmentation=True)), port)
     buf = GameBuffer(port.cfg, port)
-    with pytest.raises(NotImplementedError, match="slice 15"):
-        buf.reanalyze_buffer()
+    # whole-buffer reanalyze is ported (tests/test_torch_rezero.py holds it
+    # against JAX): it runs and rewrites the stored targets
+    episodes, _ = random_episodes(2, n=2)
+    buf.push_episodes([EpisodeRecord(**{k: (v.copy() if isinstance(v, np.ndarray) else v)
+                                        for k, v in e.items()}) for e in episodes])
+    n = buf.reanalyze_buffer(port.model, reanalyze_batch_size=8, partition=1.0)
+    assert n == buf.num_transitions
+    for ep, e in zip(buf._episodes, episodes):
+        assert not np.array_equal(ep.child_visits, e["child_visits"])
+        np.testing.assert_allclose(ep.child_visits.sum(-1), 1.0, rtol=1e-6)
+    buf = GameBuffer(port.cfg, port)
     # float actions (a continuous action space) are accepted since Sampled
     # MuZero is ported (tests/test_torch_sampled.py samples such episodes)
     episodes, _ = random_episodes(1, n=1)

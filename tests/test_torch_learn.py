@@ -284,10 +284,13 @@ def test_learn_step_refuses_harmony_and_reuse():
         MuZeroPolicy(dict(model=dict(harmony_balance=True)), device="cpu")
     with pytest.raises(NotImplementedError, match="slice 19"):
         MuZeroPolicy(dict(model=dict(num_tasks=2)), device="cpu")
-    port = MuZeroPolicy(dict(model=dict(latent_state_dim=8)), device="cpu")
-    with pytest.raises(NotImplementedError, match="slice 15"):
+    # the reuse search is ported for one player; two players wait for slice 17
+    port = MuZeroPolicy(dict(model=dict(latent_state_dim=8), env_type="board_games"),
+                        device="cpu")
+    with pytest.raises(NotImplementedError, match="slice 17"):
         port.forward_reanalyze(port.model, torch.zeros(2, 4), torch.ones(2, 2, dtype=torch.bool),
-                               true_action=torch.zeros(2, dtype=torch.long))
+                               true_action=torch.zeros(2, dtype=torch.long),
+                               reuse_value=torch.zeros(2))
 
 
 def test_buffer_learn_priority_sample_chain_matches_jax(jax_policy):

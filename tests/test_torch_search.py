@@ -148,7 +148,8 @@ def test_noise_tie_break_search_runs_and_counts_every_simulation():
     [
         (dict(players=2), {}, "players == 2"),
         (dict(stochastic=True, players=2), {}, "players == 2"),
-        ({}, dict(true_action=torch.zeros(B, dtype=torch.long)), "true_action"),
+        (dict(players=2), dict(true_action=torch.zeros(B, dtype=torch.long),
+                               reuse_value=torch.zeros(B)), "true_action.*slice 17"),
     ],
 )
 def test_out_of_scope_searches_raise(change, kwargs, match):

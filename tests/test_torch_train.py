@@ -155,7 +155,7 @@ def test_lenient_load_of_a_params_export_keeps_the_fresh_optimizer(tmp_path):
     (dict(policy=dict(type="stochastic_muzero", model=dict(model_type="conv"))), "slice 16"),
     (dict(policy=dict(type="efficientzero", model=dict(model_type="conv"))), "slice 16"),
     (dict(policy=dict(type="gumbel_muzero", env_type="board_games")), "slice 17"),
-    (dict(policy=dict(buffer_reanalyze_freq=0.5)), "slice 15"),
+    (dict(policy=dict(type="muzero_context", model=dict(model_type="conv"))), "slice 16"),
     (dict(policy=dict(analysis_loss_landscape=True)), "slice 20"),
     (dict(policy=dict(type="sampled_muzero", model=dict(model_type="conv"))), "slice 16"),
 ])
@@ -206,14 +206,16 @@ def test_the_jax_sampled_policys_reanalyze_fails_on_its_models_outputs(policy_ty
 
 
 @pytest.mark.parametrize("policy_type",
-                         ["muzero", "efficientzero", "gumbel_muzero", "stochastic_muzero"] + SAMPLED)
+                         ["muzero", "efficientzero", "gumbel_muzero", "stochastic_muzero"] + SAMPLED
+                         + ["muzero_context", "muzero_rnn_full_obs"])
 def test_train_muzero_builds_the_port_of_the_jax_policy(policy_type):
     import importlib
 
     from lightzero_tpu.utils.registry import POLICY_REGISTRY
     from lightzero_tpu_torch.entry.train_muzero import POLICIES
 
-    assert sorted(POLICIES) == ["efficientzero", "gumbel_muzero", "muzero", "sampled_efficientzero",
+    assert sorted(POLICIES) == ["efficientzero", "gumbel_muzero", "muzero", "muzero_context",
+                                "muzero_rnn_full_obs", "sampled_efficientzero",
                                 "sampled_muzero", "stochastic_muzero"]
     importlib.import_module(f"lightzero_tpu.policy.{policy_type}")  # registers it
     policy_cls = POLICIES[policy_type]
