@@ -108,7 +108,23 @@ Phases, each of a fixed size, in one process:
      MuZero-RNN-full-obs (the CartPole MuZero config with its policy type,
      GRU 128): the Evaluator, a batch of 4 searched on the card against the
      CPU, a short train_muzero run as in phase 7 with its learn step on the
-     card against the CPU.
+     card against the CPU;
+ 12. grid: the conv stack on the MinAtar-class grids at the zoo configs'
+     full width. Grid Breakout MuZero (observations 10x10x4, A=3, 32
+     channels, 1 res block, supports of 101 atoms, SSL projector 1024 over
+     the 3200-wide latent, 25 simulations) and Space Invaders EfficientZero
+     (A=4, LSTM 256 over the 1600-wide 1x1 reduction), both searching
+     through the descent kernel's small-A route: for each, the Evaluator on
+     3 envs with episodes truncated at GRID_EVAL_STEPS (launches = env
+     steps x 25); a batch of 4 grid states searched on the card and on the
+     CPU with the same Dirichlet noise and tie_break='first'; the descent
+     inputs of one eval search (simulations 1, 13, 25) rerun kernel against
+     plain as in phase 3; a short train_muzero run as in phase 7 with
+     episodes truncated at GRID_TRAIN_EPISODE_STEPS (launches = (collect +
+     eval searches) x 25), one learn step on the card against one on the
+     CPU and the median learn-step time. Then one initial and one recurrent
+     inference of conv MuZero at the Atari width (96x96x12, 64 channels,
+     the DownSample pyramid) on 4 seeded frames, card against CPU.
 
 The last lines are the card's name and power limit, one JSON object with a
 record per kernel, and {"ok": true, "device": {...}}; that last line is printed
@@ -145,11 +161,26 @@ from lightzero_tpu_torch.configs.cartpole_rezero_mz import main_config as rezero
 from lightzero_tpu_torch.configs.game_2048_stochastic_muzero import main_config as stoch_config
 from lightzero_tpu_torch.configs.pendulum_sampled_efficientzero import main_config as sez_config
 from lightzero_tpu_torch.configs.pendulum_sampled_muzero import main_config as smz_config
+from lightzero_tpu_torch.configs.breakout_grid_muzero import main_config as breakout_config
+from lightzero_tpu_torch.configs.space_invaders_grid_efficientzero import (
+    main_config as invaders_config,
+)
 from lightzero_tpu_torch.buffers import GameBuffer
 from lightzero_tpu_torch.entry import train_muzero
-from lightzero_tpu_torch.envs import CartPoleEnv, Game2048Env, PendulumEnv
+from lightzero_tpu_torch.envs import (
+    BreakoutGridEnv,
+    CartPoleEnv,
+    Game2048Env,
+    PendulumEnv,
+    SpaceInvadersGridEnv,
+)
 from lightzero_tpu_torch.envs.game_2048 import legal_moves
-from lightzero_tpu_torch.models import EfficientZeroModel, MuZeroRNNModel, StochasticMuZeroModel
+from lightzero_tpu_torch.models import (
+    EfficientZeroModel,
+    MuZeroModel,
+    MuZeroRNNModel,
+    StochasticMuZeroModel,
+)
 from lightzero_tpu_torch.models.common import lecun_normal_
 from lightzero_tpu_torch.models.sampled_muzero import SampledHeads
 from lightzero_tpu_torch.policy import (
@@ -238,6 +269,16 @@ SAMPLED_CAPTURED_SIMS = (1, 25, 50)
 REZERO_TRAIN_EPISODE_STEPS = 50
 CONTEXT_STEPS = 7
 RNN_HIDDEN_SIZE = 128
+# phase 12: a grid episode runs up to 400-500 steps, so the evals truncate
+# episodes at GRID_EVAL_STEPS and the short training runs at
+# GRID_TRAIN_EPISODE_STEPS (one collect round of 64 steps x 8 envs fills the
+# batch of 256 either way); the Atari-width check's frames and tolerance
+# (float32 convolutions of up to 576 terms by other algorithms on the card)
+GRID_EVAL_STEPS = 16
+GRID_TRAIN_EPISODE_STEPS = 32
+GRID_CAPTURED_SIMS = (1, 13, 25)
+ATARI_BATCH = 4
+ATARI_TOL = 1e-4
 # card vs CPU learn step from the same params and batch (TF32 off): the
 # logged terms to 1e-4 relative (float32 matmuls of batch 256 summed in
 # another order). Adam's first update is lr * g / (|g| + 1e-8), g the
@@ -345,6 +386,11 @@ def randomize_heads(model, seed: int) -> None:
             "policy_head") if hasattr(model, name)]
     elif isinstance(model, MuZeroRNNModel):
         heads = (model.reward_head, model.value_head, model.policy_head)
+    elif getattr(model, "model_type", "mlp") == "conv":
+        # the conv heads' MLPs: value, policy, and reward or value prefix
+        first = (model.value_prefix_head if isinstance(model, EfficientZeroModel)
+                 else model.dynamics_network.mlp[0])
+        heads = (first, *model.prediction_network.mlp)
     else:
         if isinstance(model, EfficientZeroModel):
             first = model.value_prefix_head
@@ -757,8 +803,13 @@ def learn_step_card_vs_cpu(policy, batch) -> tuple:
             loose_err = max(loose_err, float(err[sensitive].max()))
         loose += int(sensitive.sum())
         total += sensitive.numel()
-    priorities_agree = torch.allclose(card["priority"], cpu["priority"], rtol=VALUE_TOL,
-                                      atol=VALUE_TOL)
+    # a priority is |root value - target value|: it carries the root value's
+    # error, VALUE_TOL relative to the value (at most |target| + priority),
+    # not relative to the difference, in which the two values cancel
+    base = getattr(batch, "base", batch)
+    value_scale = 1.0 + base.target_value[:, 0].abs().cpu() + cpu["priority"].abs()
+    priorities_agree = bool(((card["priority"] - cpu["priority"]).abs()
+                             <= VALUE_TOL * value_scale).all())
     rec = dict(phase="train_card_vs_cpu", batch=int(cpu["priority"].shape[0]),
                max_log_rel_err=max(log_err.values()), log_rel_err=log_err,
                priority_max_abs_err=float((card["priority"] - cpu["priority"]).abs().max()),
@@ -1474,6 +1525,103 @@ def phase_rezero_history(card: str) -> dict:
     return records, time.perf_counter() - t0
 
 
+def grid_states(env, n: int, seed: int) -> tuple:
+    """``n`` grid observations and legal masks from seeded random play (each
+    env a few steps into its episode)."""
+    g = torch.Generator().manual_seed(seed)
+    state, obs = env.reset(n, g)
+    for _ in range(3):
+        step = env.step(state, torch.randint(0, env.action_space_size, (n,), generator=g), g)
+        state, obs = step.state, step.obs
+    return obs, env.legal_mask(state)
+
+
+def atari_width_card_vs_cpu(card: str) -> dict:
+    """Conv MuZero at the Atari config's width (zoo/atari/config/
+    atari_muzero_config.py: 96x96x12, 64 channels, downsample, A=6, supports
+    of 601 atoms): one initial and one recurrent inference of ATARI_BATCH
+    seeded frames on the card and on the CPU, every output within
+    ATARI_TOL; the card's times from CUDA events."""
+    cfg = MuZeroPolicy.default_config().model
+    cfg.update(observation_shape=(96, 96, 12), action_space_size=6, model_type="conv",
+               num_channels=64, downsample=True, value_support_size=601,
+               reward_support_size=601, self_supervised_learning_loss=True)
+    model = MuZeroModel.from_config(cfg, torch.Generator().manual_seed(MAIN_SEED + 13))
+    randomize_heads(model, MAIN_SEED + 13)
+    rng = np.random.default_rng(MAIN_SEED + 13)
+    obs = torch.from_numpy(rng.random((ATARI_BATCH, 96, 96, 12)).astype(np.float32))
+    action = torch.from_numpy(rng.integers(0, 6, ATARI_BATCH))
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        m = copy.deepcopy(model).to(dev).eval()
+        with torch.no_grad():
+            out0 = m.initial_inference(obs.to(dev))
+            out1 = m.recurrent_inference(out0.latent_state, action.to(dev))
+        outs[dev] = [t.cpu() for t in (*out0, *out1)]
+    m = model.cuda().eval()
+    with torch.no_grad():
+        initial_ms = cuda_ms(lambda: m.initial_inference(obs.cuda()), reps=10)
+        latent = m.initial_inference(obs.cuda()).latent_state
+        recurrent_ms = cuda_ms(lambda: m.recurrent_inference(latent, action.cuda()), reps=10)
+    names = ["value_logits", "reward_logits", "policy_logits", "latent_state"]
+    err = {}
+    for i, (a, b) in enumerate(zip(outs["cuda"], outs["cpu"])):
+        step = "initial" if i < 4 else "recurrent"
+        key = f"{step}_{names[i % 4]}"
+        err[key] = float((a - b).abs().max())
+        if not (torch.isfinite(a).all() and torch.allclose(a, b, rtol=ATARI_TOL, atol=ATARI_TOL)):
+            raise AssertionError(f"atari width: card and CPU {key} differ by {err[key]}")
+    rec = dict(phase="atari_width_card_vs_cpu", batch=ATARI_BATCH, observation=[96, 96, 12],
+               num_channels=64, latent=list(outs["cuda"][3].shape[1:]), max_abs_err=err,
+               initial_inference_ms=initial_ms, recurrent_inference_ms=recurrent_ms, card=card)
+    emit(rec)
+    return rec
+
+
+def phase_grid(card: str, l2_ns: float) -> tuple:
+    """Conv MuZero on Grid Breakout and conv EfficientZero on the Space
+    Invaders grid at the zoo configs' width, their searches through the
+    descent kernel's small-A route; then the Atari-width conv model."""
+    records, cases, t0 = {}, [], time.perf_counter()
+    for i, (label, policy_cls, config, env_cls) in enumerate((
+            ("breakout_muzero", MuZeroPolicy, breakout_config, BreakoutGridEnv),
+            ("space_invaders_efficientzero", EfficientZeroPolicy, invaders_config,
+             SpaceInvadersGridEnv))):
+        policy = policy_cls(config.policy, device="cuda", seed=MAIN_SEED)
+        randomize_heads(policy.model, MAIN_SEED + 11 + i)
+        sims = policy.search_cfg.num_simulations
+        A = env_cls.action_space_size
+        ev = eval_episodes(policy, card, label, env=env_cls(max_steps=GRID_EVAL_STEPS),
+                           returns_range=(0.0, float(GRID_EVAL_STEPS)))
+        ev.update(config=label, num_simulations=sims, A=A, route=kernel_route(A),
+                  episodes_truncated_at=GRID_EVAL_STEPS)
+        emit(ev)
+        if ev["launches"] != ev["env_steps"] * sims:
+            raise AssertionError(f"{label}: traverse launches {ev['launches']} != env steps "
+                                 f"{ev['env_steps']} x {sims}")
+        obs, legal = grid_states(env_cls(), 4, MAIN_SEED + 11 + i)
+        noise = np.random.default_rng(MAIN_SEED + 11 + i).dirichlet(np.full(A, 0.3), 4)
+        agreement = seeded_search_card_vs_cpu(policy, label, obs, legal,
+                                              noise=torch.from_numpy(noise.astype(np.float32)))
+        obs, legal = grid_states(env_cls(), 3, MAIN_SEED + 21 + i)
+        captures = capture_descent_inputs(policy, obs.cuda(), legal.cuda(), GRID_CAPTURED_SIMS)
+        if sorted(captures) != list(GRID_CAPTURED_SIMS):
+            raise AssertionError(f"captured simulations {sorted(captures)}, "
+                                 f"expected {GRID_CAPTURED_SIMS}")
+        cases += phase_captured(captures, l2_ns, search=f"{label} eval search")
+
+        cfg = copy.deepcopy(config)
+        cfg.env.max_steps = GRID_TRAIN_EPISODE_STEPS
+        train, problems, *_ = short_train(cfg, card, label, sims)
+        train.update(episodes_truncated_at=GRID_TRAIN_EPISODE_STEPS)
+        emit(train)
+        if problems:
+            raise AssertionError(f"{label} train failed: {problems}")
+        records[label] = dict(eval=ev, card_vs_cpu=agreement, train=train)
+    records["atari_width"] = atari_width_card_vs_cpu(card)
+    return records, cases, time.perf_counter() - t0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs on a GPU", file=sys.stderr)
@@ -1502,6 +1650,8 @@ def main() -> int:
     sampled, sampled_cases = phase_sampled(card, l2_ns)
     cases += sampled_cases
     history, history_wall = phase_rezero_history(card)
+    grid, grid_cases, grid_wall = phase_grid(card, l2_ns)
+    cases += grid_cases
 
     main_case = next(c for c in cases if (c["B"], c["A"], c["N"], c["tie_break"]) == (3, 2, 26, "noise"))
     kernels = [dict(
@@ -1535,6 +1685,11 @@ def main() -> int:
         launches_muzero_context_train=history["muzero_context"]["train"]["launches"],
         launches_muzero_rnn=history["muzero_rnn"]["eval"]["launches"],
         launches_muzero_rnn_train=history["muzero_rnn"]["train"]["launches"],
+        # phase 12: the grids' conv MuZero and conv EfficientZero evals and
+        # training runs, A = 3 and 4 on the small-A route
+        **{f"launches_{name}{suffix}": grid[name][part]["launches"]
+           for name in ("breakout_muzero", "space_invaders_efficientzero")
+           for suffix, part in (("", "eval"), ("_train", "train"))},
         max_abs_err=max(c["max_abs_err"] for c in cases),
         ms=main_case["ms"],
         # launch to launch through the wrapper, the host's dispatch included:
@@ -1567,7 +1722,13 @@ def main() -> int:
               **{f"{name}_eval_s_per_env_step": rec["eval"]["wall_per_env_step_s"]
                  for name, rec in history.items()},
               **{f"{name}_learn_step_ms": rec["train"]["learn_step_ms_median"]
-                 for name, rec in history.items()}))
+                 for name, rec in history.items()},
+              grid_wall_s=grid_wall,
+              **{f"{name}_eval_s_per_env_step": grid[name]["eval"]["wall_per_env_step_s"]
+                 for name in ("breakout_muzero", "space_invaders_efficientzero")},
+              **{f"{name}_learn_step_ms": grid[name]["train"]["learn_step_ms_median"]
+                 for name in ("breakout_muzero", "space_invaders_efficientzero")},
+              atari_width_initial_inference_ms=grid["atari_width"]["initial_inference_ms"]))
     faulthandler.cancel_dump_traceback_later()
     signal.alarm(0)
     print(card, flush=True)

@@ -1,0 +1,22 @@
+"""Grid Breakout EfficientZero (conv, value-prefix LSTM, SSL) config: the values of
+``zoo/breakout_grid/config/breakout_grid_efficientzero_config.py``,
+copied so that the port never loads the zoo file (it imports
+``lightzero_tpu.config``). What the zoo file leaves to the policy comes from
+``EfficientZeroPolicy.default_config()`` when the policy merges this tree in: its
+supports have 101 atoms (``support_scale`` 50)."""
+from lightzero_tpu_torch.config import Config
+
+main_config = Config(dict(
+    exp_name="data_ez/breakout_grid_efficientzero_seed0",
+    env=dict(type="breakout_grid", stop_value=30,
+             collector_env_num=8, evaluator_env_num=3),
+    policy=dict(
+        type="efficientzero",
+        model=dict(observation_shape=(10, 10, 4), action_space_size=3,
+                   model_type="conv", num_channels=32, num_res_blocks=1,
+                   downsample=False, support_scale=50, lstm_hidden_size=128),
+        ssl_loss_weight=2.0, lstm_horizon_len=5,
+        num_simulations=25, batch_size=256, update_per_collect=100,
+        n_episode=8, eval_freq=200, manual_temperature_decay=True,
+    ),
+))

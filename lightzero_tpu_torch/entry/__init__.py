@@ -1,4 +1,4 @@
-from lightzero_tpu_torch.entry.train_muzero import train_muzero
+from lightzero_tpu_torch.entry.train_muzero import eval_muzero, train_muzero
 
 # ReZero is the shared loop with buffer_reanalyze_freq > 0, and the segment
 # pipeline the shared loop with policy.num_segments set, as in the JAX

@@ -2,8 +2,9 @@
 policies: MuZero, EfficientZero, Gumbel MuZero, Stochastic MuZero, Sampled
 MuZero, Sampled EfficientZero, MuZero-Context and MuZero-RNN-full-obs,
 chosen by ``cfg.policy.type`` from ``POLICIES`` as the JAX entry does from
-its registry, on the ported envs (CartPole, 2048, Pendulum), chosen by
-``cfg.env.env_id``.
+its registry, on the ported envs (CartPole, 2048, Pendulum, and the five
+MinAtar-class grids: breakout, asterix, freeway, space invaders, seaquest),
+chosen by ``cfg.env.env_id`` (or ``cfg.env.type``).
 
 Loop: [eval every ``eval_freq`` train iterations, stopping after
 ``stop_consecutive_evals`` evals at ``stop_value``] -> collect (episode mode,
@@ -23,9 +24,12 @@ Usage (on the card, or with ``device="cpu"``)::
     from lightzero_tpu_torch.entry import train_muzero
     policy, state, stats = train_muzero(main_config, seed=0, max_env_step=100_000)
 
+``eval_muzero`` loads a checkpoint (or params export) and runs the
+deterministic eval.
+
 Not ported yet, and refused with ``NotImplementedError``: the other policies,
-the conv models, envs other than CartPole, 2048 and Pendulum, and the
-loss-landscape analysis (their ROADMAP slices are named in the errors).
+the other envs and the loss-landscape analysis (their ROADMAP slices are
+named in the errors).
 """
 from __future__ import annotations
 
@@ -38,9 +42,19 @@ import numpy as np
 import torch
 
 from lightzero_tpu_torch.buffers import GameBuffer
-from lightzero_tpu_torch.config import Config, compile_config
+from lightzero_tpu_torch.config import Config, compile_config, deep_merge
 from lightzero_tpu_torch.entry.utils import calculate_update_per_collect, random_collect, safe_eval
-from lightzero_tpu_torch.envs import CartPoleEnv, Game2048Env, PendulumEnv, TensorEnv
+from lightzero_tpu_torch.envs import (
+    AsterixGridEnv,
+    BreakoutGridEnv,
+    CartPoleEnv,
+    FreewayGridEnv,
+    Game2048Env,
+    PendulumEnv,
+    SeaquestGridEnv,
+    SpaceInvadersGridEnv,
+    TensorEnv,
+)
 from lightzero_tpu_torch.ops import visit_count_temperature
 from lightzero_tpu_torch.policy import (
     EfficientZeroPolicy,
@@ -70,6 +84,11 @@ ENVS = {
     "game_2048": (Game2048Env, {}),
     "Pendulum-v1": (PendulumEnv, {}),
     "pendulum": (PendulumEnv, {}),
+    "breakout_grid": (BreakoutGridEnv, {}),
+    "asterix_grid": (AsterixGridEnv, {}),
+    "freeway_grid": (FreewayGridEnv, {}),
+    "space_invaders_grid": (SpaceInvadersGridEnv, {}),
+    "seaquest_grid": (SeaquestGridEnv, {}),
 }
 # cfg.policy.type -> the policy that train_muzero builds
 POLICIES = {
@@ -93,8 +112,9 @@ def create_env(env_cfg: Config) -> TensorEnv:
     env_id = env_cfg.get("env_id", env_cfg.get("type"))
     if env_id not in ENVS:
         raise NotImplementedError(
-            f"env {env_id!r} is not ported yet: the port has CartPole, 2048 and Pendulum (ROADMAP "
-            "queue 1: image envs in slice 16, board games in slice 17, host envs in slice 20)"
+            f"env {env_id!r} is not ported yet: the port has CartPole, 2048, Pendulum and the "
+            "grid envs of ENVS (ROADMAP queue 1: bsuite and memory envs in slice 16, board "
+            "games in slice 17, host envs in slice 20)"
         )
     env_cls, kwargs = ENVS[env_id]
     kwargs = dict(kwargs)
@@ -102,6 +122,31 @@ def create_env(env_cfg: Config) -> TensorEnv:
     kwargs.update({k: v for k, v in dict(env_cfg).items() if k in params and k != "self"})
     kwargs.update(env_cfg.get("env_kwargs", {}))
     return env_cls(**kwargs)
+
+
+def check_observation_shape(env: TensorEnv, pcfg: Config, policy_cls) -> None:
+    """Raise ``ValueError`` where the env's observations do not fit the
+    model of ``pcfg.model``: a conv model reads them as they are, an MLP
+    model as a flat vector, flattened first only by a policy with
+    ``flattens_observations`` (Stochastic MuZero). The zoo's plain MuZero
+    2048 configs set an MLP over 256 inputs on (4, 4, 16) planes, which the
+    JAX package takes as they are and fails on (ROADMAP queue 3)."""
+    model = pcfg.model
+    env_shape = tuple(np.atleast_1d(env.observation_shape).tolist())
+    model_shape = tuple(np.atleast_1d(model.get("observation_shape", 4)).tolist())
+    if getattr(policy_cls, "flattens_observations", False):
+        fits = int(np.prod(env_shape)) == int(np.prod(model_shape))
+    else:
+        fits = env_shape == model_shape
+    if not fits:
+        kind = model.get("model_type", "mlp")
+        raise ValueError(
+            f"the {kind} model of cfg.policy.model reads observations of shape {model_shape}, "
+            f"but the env {type(env).__name__} gives {env_shape}, and the "
+            f"{pcfg.get('type', 'muzero')} policy does not flatten them (the JAX package fails "
+            "on such configs too, e.g. zoo/game_2048/config/muzero_2048_config.py: ROADMAP "
+            "queue 3)"
+        )
 
 
 def _check_scope(pcfg: Config) -> None:
@@ -143,6 +188,7 @@ def train_muzero(
     pcfg.seed = seed
 
     env = create_env(cfg.env)
+    check_observation_shape(env, pcfg, policy_cls)
     policy = policy_cls(pcfg, device=dev, seed=seed)
     state = policy.init_train_state()
     if model_path:
@@ -311,3 +357,35 @@ def train_muzero(
         eval_env_steps=eval_env_steps,
         buffer=buffer,
     )
+
+
+def eval_muzero(
+    cfg,
+    seed: int = 0,
+    model_path: Optional[str] = None,
+    n_episodes: int = 5,
+    device: Optional[Union[str, torch.device]] = None,
+) -> Dict:
+    """Load a checkpoint or params export (``model_path``; random weights from
+    ``seed`` without one) into the policy that ``cfg.policy.type`` names and
+    run the deterministic eval on ``cfg.env.evaluator_env_num`` envs until
+    ``n_episodes`` episodes have ended (``entry/train_muzero.py:367``). Runs
+    on ``device``: ``cuda`` unless the caller names another. Writes nothing.
+    Returns the ``Evaluator.eval`` record."""
+    if isinstance(cfg, (list, tuple)):
+        cfg = cfg[0]
+    dev = resolve_device(device)
+    cfg = Config(cfg)
+    pcfg = Config(cfg.get("policy", {}))
+    _check_scope(pcfg)
+    policy_cls = POLICIES[pcfg.get("type", "muzero")]
+    pcfg = deep_merge(policy_cls.default_config(), pcfg)
+    pcfg.seed = seed
+    env = create_env(cfg.env)
+    check_observation_shape(env, pcfg, policy_cls)
+    policy = policy_cls(pcfg, device=dev, seed=seed)
+    state = policy.init_train_state()
+    if model_path:
+        load_checkpoint_lenient(model_path, target=state)
+    evaluator = Evaluator(env, policy, cfg.env.get("evaluator_env_num", 3), seed=seed, device=dev)
+    return evaluator.eval(n_episodes=n_episodes)

@@ -1,10 +1,14 @@
-"""MuZero model, MLP branch (``lightzero_tpu/models/muzero.py:31``):
-representation + dynamics + prediction, and the SSL projector when
-``self_supervised_learning_loss`` is set.
+"""MuZero model (``lightzero_tpu/models/muzero.py:31``): representation +
+dynamics + prediction, and the SSL projector when
+``self_supervised_learning_loss`` is set, with ``model_type`` 'mlp' (flat
+observations) or 'conv' (NHWC image observations (H, W, C); latents
+(B, h, w, C); the action enters the dynamics as one-hot planes, or one plane
+of a / A under 'not_one_hot'; the projector reads the latent flattened in
+(h, w, c) order).
 
-Not ported yet, and refused by ``from_config``: the conv branch (ROADMAP
-queue 1, slice 16), the HarmonyDream loss weights (slice 20) and the
-multitask task embedding (slice 19).
+Not ported yet, and refused by ``from_config``: the HarmonyDream loss
+weights (ROADMAP queue 1, slice 20) and the multitask task embedding
+(slice 19).
 """
 from __future__ import annotations
 
@@ -14,19 +18,25 @@ import torch
 from torch import nn
 
 from lightzero_tpu_torch.models.common import (
+    DynamicsNetworkConv,
     DynamicsNetworkMLP,
     NetworkOutput,
+    PredictionNetworkConv,
     PredictionNetworkMLP,
+    RepresentationNetworkConv,
     RepresentationNetworkMLP,
     SSLProjector,
+    action_planes,
+    conv_latent_shape,
 )
 
 
 class MuZeroModel(nn.Module):
     def __init__(
         self,
-        observation_shape: int = 4,
+        observation_shape: Any = 4,
         action_space_size: int = 2,
+        model_type: str = "mlp",
         latent_state_dim: int = 256,
         value_support_size: int = 601,
         reward_support_size: int = 601,
@@ -35,6 +45,9 @@ class MuZeroModel(nn.Module):
         value_head_hidden_channels: Sequence[int] = (32,),
         policy_head_hidden_channels: Sequence[int] = (32,),
         res_connection_in_dynamics: bool = False,
+        num_channels: int = 64,
+        num_res_blocks: int = 1,
+        downsample: bool = True,
         norm_type: str = "LN",
         last_linear_layer_init_zero: bool = True,
         discrete_action_encoding_type: str = "one_hot",
@@ -47,53 +60,88 @@ class MuZeroModel(nn.Module):
     ):
         super().__init__()
         self.action_space_size = action_space_size
+        self.model_type = model_type
         self.latent_state_dim = latent_state_dim
         self.reward_support_size = reward_support_size
         self.discrete_action_encoding_type = discrete_action_encoding_type
         enc_dim = action_space_size if discrete_action_encoding_type == "one_hot" else 1
-        self.representation_network = RepresentationNetworkMLP(
-            int(observation_shape), latent_state_dim, norm_type, generator=generator
-        )
-        self.dynamics_network = DynamicsNetworkMLP(
-            enc_dim,
-            latent_state_dim=latent_state_dim,
-            reward_support_size=reward_support_size,
-            common_layer_num=common_layer_num,
-            reward_head_hidden_channels=reward_head_hidden_channels,
-            norm_type=norm_type,
-            res_connection_in_dynamics=res_connection_in_dynamics,
-            last_linear_layer_init_zero=last_linear_layer_init_zero,
-            generator=generator,
-        )
-        self.prediction_network = PredictionNetworkMLP(
-            action_space_size,
-            latent_state_dim,
-            value_support_size=value_support_size,
-            common_layer_num=common_layer_num,
-            value_head_hidden_channels=value_head_hidden_channels,
-            policy_head_hidden_channels=policy_head_hidden_channels,
-            norm_type=norm_type,
-            last_linear_layer_init_zero=last_linear_layer_init_zero,
-            generator=generator,
-        )
+        if model_type == "mlp":
+            self.representation_network = RepresentationNetworkMLP(
+                int(observation_shape), latent_state_dim, norm_type, generator=generator
+            )
+            self.dynamics_network = DynamicsNetworkMLP(
+                enc_dim,
+                latent_state_dim=latent_state_dim,
+                reward_support_size=reward_support_size,
+                common_layer_num=common_layer_num,
+                reward_head_hidden_channels=reward_head_hidden_channels,
+                norm_type=norm_type,
+                res_connection_in_dynamics=res_connection_in_dynamics,
+                last_linear_layer_init_zero=last_linear_layer_init_zero,
+                generator=generator,
+            )
+            self.prediction_network = PredictionNetworkMLP(
+                action_space_size,
+                latent_state_dim,
+                value_support_size=value_support_size,
+                common_layer_num=common_layer_num,
+                value_head_hidden_channels=value_head_hidden_channels,
+                policy_head_hidden_channels=policy_head_hidden_channels,
+                norm_type=norm_type,
+                last_linear_layer_init_zero=last_linear_layer_init_zero,
+                generator=generator,
+            )
+            proj_in = latent_state_dim
+        elif model_type == "conv":
+            h, w, c = self.latent_shape = conv_latent_shape(observation_shape, num_channels,
+                                                            downsample)
+            self.representation_network = RepresentationNetworkConv(
+                int(observation_shape[2]), num_channels, num_res_blocks, downsample, generator
+            )
+            self.dynamics_network = DynamicsNetworkConv(
+                num_channels, enc_dim, h * w, num_res_blocks,
+                reward_support_size=reward_support_size,
+                reward_head_hidden_channels=reward_head_hidden_channels,
+                norm_type=norm_type,
+                last_linear_layer_init_zero=last_linear_layer_init_zero,
+                generator=generator,
+            )
+            self.prediction_network = PredictionNetworkConv(
+                action_space_size, num_channels, h * w,
+                value_support_size=value_support_size,
+                num_res_blocks=num_res_blocks,
+                value_head_hidden_channels=value_head_hidden_channels,
+                policy_head_hidden_channels=policy_head_hidden_channels,
+                norm_type=norm_type,
+                last_linear_layer_init_zero=last_linear_layer_init_zero,
+                generator=generator,
+            )
+            proj_in = h * w * c
+        else:
+            raise ValueError(f"unknown model_type {model_type!r}")
         # as in flax, the projector exists only when the SSL loss is on
         self.projector = (
-            SSLProjector(latent_state_dim, proj_hid, proj_out, pred_hid, pred_out, generator)
+            SSLProjector(proj_in, proj_hid, proj_out, pred_hid, pred_out, generator)
             if self_supervised_learning_loss
             else None
         )
 
-    def _encode_action_mlp(self, action: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    def _encode_action(self, action: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        """(B, A) one-hot, or (B, 1) a / A under 'not_one_hot' (reference
+        muzero_model_mlp.py:91); the conv dynamics read it as planes."""
         if self.discrete_action_encoding_type == "one_hot":
             return nn.functional.one_hot(action.long(), self.action_space_size).to(dtype)
-        # 'not_one_hot': scalar action / A (reference muzero_model_mlp.py:91)
         return (action.to(dtype) / self.action_space_size)[:, None]
 
     def representation(self, obs: torch.Tensor) -> torch.Tensor:
         return self.representation_network(obs)
 
     def dynamics(self, latent: torch.Tensor, action: torch.Tensor):
-        return self.dynamics_network(latent, self._encode_action_mlp(action, latent.dtype))
+        enc = self._encode_action(action, latent.dtype)
+        if self.model_type == "conv":
+            # one-hot planes, or one plane of a / A (flax _encode_action_conv)
+            enc = action_planes(enc, latent)
+        return self.dynamics_network(latent, enc)
 
     def prediction(self, latent: torch.Tensor):
         return self.prediction_network(latent)
@@ -126,10 +174,6 @@ class MuZeroModel(nn.Module):
     @staticmethod
     def from_config(model_cfg: Any, generator: Optional[torch.Generator] = None) -> "MuZeroModel":
         """Build from a ``cfg.policy.model`` tree (the JAX package's key names)."""
-        if model_cfg.get("model_type", "mlp") != "mlp":
-            raise NotImplementedError(
-                "only model_type='mlp' is ported (ROADMAP queue 1, slice 16: conv stack)"
-            )
         if model_cfg.get("harmony_balance", False):
             raise NotImplementedError(
                 "the HarmonyDream loss weights are not ported yet (ROADMAP queue 1, slice 20)"
@@ -138,14 +182,19 @@ class MuZeroModel(nn.Module):
             raise NotImplementedError(
                 "the multitask task embedding is not ported yet (ROADMAP queue 1, slice 19)"
             )
+        obs_shape = model_cfg.get("observation_shape", 4)
         kwargs = dict(
-            observation_shape=model_cfg.get("observation_shape", 4),
+            observation_shape=tuple(obs_shape) if isinstance(obs_shape, list) else obs_shape,
             action_space_size=model_cfg.get("action_space_size", 2),
+            model_type=model_cfg.get("model_type", "mlp"),
             latent_state_dim=model_cfg.get("latent_state_dim", 256),
             norm_type=model_cfg.get("norm_type", "LN"),
             discrete_action_encoding_type=model_cfg.get("discrete_action_encoding_type", "one_hot"),
             res_connection_in_dynamics=model_cfg.get("res_connection_in_dynamics", False),
             self_supervised_learning_loss=model_cfg.get("self_supervised_learning_loss", False),
+            num_channels=model_cfg.get("num_channels", 64),
+            num_res_blocks=model_cfg.get("num_res_blocks", 1),
+            downsample=model_cfg.get("downsample", True),
         )
         for k in (
             "value_support_size",

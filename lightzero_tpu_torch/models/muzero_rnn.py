@@ -10,8 +10,10 @@ without and ``hn`` with one. ``torch.nn.GRUCell`` computes the same gates
 but trains a bias on every recurrent third; here those biases do not exist,
 so the parameters, and Adam's steps on them, are flax's.
 
-Not ported yet, and refused by ``from_config``: the conv branch and tuple
-observation shapes (ROADMAP queue 1, slice 16).
+Refused by ``from_config``: a conv model and tuple observation shapes. The
+JAX model has no conv branch to port: it is MLP-only, its ``from_config``
+ignores ``model_type`` and its ``init_params`` calls ``int()`` on a tuple
+shape (``lightzero_tpu/models/muzero_rnn.py:121-137``, ROADMAP queue 3).
 """
 from __future__ import annotations
 
@@ -167,8 +169,8 @@ class MuZeroRNNModel(nn.Module):
         obs_shape = model_cfg.get("observation_shape", 4)
         if model_cfg.get("model_type", "mlp") != "mlp" or isinstance(obs_shape, (tuple, list)):
             raise NotImplementedError(
-                "only the MLP MuZero-RNN-full-obs model on flat observations is ported "
-                "(ROADMAP queue 1, slice 16: conv stack)"
+                "MuZero-RNN-full-obs has an MLP model on flat observations only: the JAX "
+                "model has no conv branch (models/muzero_rnn.py:121-137, ROADMAP queue 3)"
             )
         kwargs = dict(
             observation_shape=obs_shape,

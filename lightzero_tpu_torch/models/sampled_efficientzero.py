@@ -1,4 +1,4 @@
-"""Sampled EfficientZero model, MLP branch
+"""Sampled EfficientZero model
 (``lightzero_tpu/models/sampled_efficientzero.py:27-286``): the Sampled MuZero
 representation, prediction side (Gaussian or logits policy) and projector
 (``SampledHeads``) over EfficientZero's dynamics: latent ⊕ action encoding
@@ -9,8 +9,10 @@ The LSTM is built as ``models/efficientzero.py`` builds it: ``nn.LSTMCell``
 with flax ``OptimizedLSTMCell``'s parameters (``bias_ih`` a zero buffer),
 its state ``(c, h)`` in flax's order.
 
-Not ported yet, and refused by ``from_config``: the conv branch (ROADMAP
-queue 1, slice 16).
+``model_type='conv'`` (:71-90, :167-210): the conv ``SampledHeads``, and
+EfficientZero's conv dynamics (``models/efficientzero.py``'s
+``conv_value_prefix_stack``) fed the action encoding as (B, h, w, D) planes,
+the LSTM reading the 16-channel 1x1 reduction flattened in (h, w, c) order.
 """
 from __future__ import annotations
 
@@ -20,7 +22,12 @@ import torch
 from torch import nn
 
 from lightzero_tpu_torch.models.common import LAYER_NORM_EPS, MLPTorso
-from lightzero_tpu_torch.models.efficientzero import flax_lstm_cell
+from lightzero_tpu_torch.models.efficientzero import (
+    VALUE_PREFIX_REDUCE_CHANNELS,
+    conv_value_prefix_stack,
+    conv_value_prefix_step,
+    flax_lstm_cell,
+)
 from lightzero_tpu_torch.models.sampled_muzero import SampledHeads, sampled_model_kwargs
 
 
@@ -31,7 +38,7 @@ class SampledEZOutput(NamedTuple):
 
     value_logits: torch.Tensor  # (B, value_support)
     value_prefix_logits: torch.Tensor  # (B, reward_support)
-    latent_state: torch.Tensor  # (B, latent)
+    latent_state: torch.Tensor  # (B, latent) or (B, h, w, C)
     reward_hidden: Tuple[torch.Tensor, torch.Tensor]  # (c, h), each (B, lstm_hidden)
     mu: Optional[torch.Tensor] = None
     sigma: Optional[torch.Tensor] = None
@@ -41,7 +48,7 @@ class SampledEZOutput(NamedTuple):
 class SampledEfficientZeroModel(SampledHeads):
     def __init__(
         self,
-        observation_shape: int = 3,
+        observation_shape: Any = 3,
         action_space_size: int = 1,
         continuous_action_space: bool = True,
         latent_state_dim: int = 128,
@@ -56,19 +63,31 @@ class SampledEfficientZeroModel(SampledHeads):
         sigma_type: str = "conditioned",
         fixed_sigma_value: float = 0.3,
         bound_mu: bool = True,
+        model_type: str = "mlp",
+        num_channels: int = 64,
+        num_res_blocks: int = 1,
+        downsample: bool = True,
         generator: Optional[torch.Generator] = None,
     ):
         super().__init__(observation_shape, action_space_size, continuous_action_space,
                          latent_state_dim, value_support_size, common_layer_num, norm_type,
                          last_linear_layer_init_zero, sigma_min, sigma_max, sigma_type,
-                         fixed_sigma_value, bound_mu, generator)
+                         fixed_sigma_value, bound_mu, model_type, num_channels, num_res_blocks,
+                         downsample, generator)
         L = latent_state_dim
         self.lstm_hidden_size = lstm_hidden_size
         self.reward_support_size = reward_support_size
-        self.dynamics_torso = MLPTorso(L + action_space_size, (L,) * (common_layer_num - 1), L,
-                                       norm_type=norm_type, output_norm=True,
-                                       output_activation=True, generator=generator)
-        self.lstm = flax_lstm_cell(L, lstm_hidden_size, generator)
+        if model_type == "conv":
+            h, w, _ = self.latent_shape
+            conv_value_prefix_stack(self, num_channels, num_res_blocks, action_space_size,
+                                    generator)
+            lstm_in = h * w * VALUE_PREFIX_REDUCE_CHANNELS
+        else:
+            self.dynamics_torso = MLPTorso(L + action_space_size, (L,) * (common_layer_num - 1),
+                                           L, norm_type=norm_type, output_norm=True,
+                                           output_activation=True, generator=generator)
+            lstm_in = L
+        self.lstm = flax_lstm_cell(lstm_in, lstm_hidden_size, generator)
         self.value_prefix_norm = nn.LayerNorm(lstm_hidden_size, eps=LAYER_NORM_EPS)
         self.value_prefix_head = MLPTorso(
             lstm_hidden_size, (32,), reward_support_size, norm_type=norm_type,
@@ -81,10 +100,13 @@ class SampledEfficientZeroModel(SampledHeads):
 
     def dynamics(self, latent: torch.Tensor, reward_hidden, action: torch.Tensor):
         """-> (next_latent, (c', h'), value_prefix_logits)."""
-        x = torch.cat([latent, self.action_encoding(action).to(latent.dtype)], dim=-1)
-        next_latent = self.dynamics_torso(x)
+        enc = self.action_encoding(action).to(latent.dtype)
+        if self.model_type == "conv":
+            next_latent, lstm_in = conv_value_prefix_step(self, latent, enc)
+        else:
+            next_latent = lstm_in = self.dynamics_torso(torch.cat([latent, enc], dim=-1))
         c, h = reward_hidden
-        h_new, c_new = self.lstm(next_latent, (h, c))
+        h_new, c_new = self.lstm(lstm_in, (h, c))
         vp = torch.relu(self.value_prefix_norm(h_new))
         return next_latent, (c_new, h_new), self.value_prefix_head(vp)
 
@@ -111,6 +133,6 @@ class SampledEfficientZeroModel(SampledHeads):
                     ) -> "SampledEfficientZeroModel":
         """Build from a ``cfg.policy.model`` tree, reading the keys the flax
         ``from_config`` reads."""
-        kwargs = sampled_model_kwargs(model_cfg, "Sampled EfficientZero")
+        kwargs = sampled_model_kwargs(model_cfg)
         kwargs["lstm_hidden_size"] = model_cfg.get("lstm_hidden_size", 256)
         return SampledEfficientZeroModel(generator=generator, **kwargs)

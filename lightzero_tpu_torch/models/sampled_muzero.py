@@ -1,5 +1,5 @@
-"""Sampled MuZero model, MLP branch (``lightzero_tpu/models/sampled_muzero.py``
-:28-279): MuZero's MLP representation and SSL projector, a prediction
+"""Sampled MuZero model (``lightzero_tpu/models/sampled_muzero.py``
+:28-279): MuZero's representation and SSL projector, a prediction
 network whose policy side is a Gaussian head (mu, sigma) over a continuous
 action of ``action_space_size`` dimensions, or ``action_space_size`` logits
 when ``continuous_action_space`` is False, and a dynamics network fed the
@@ -12,11 +12,14 @@ raw action vector (the one-hot action when discrete).
 - ``dynamics``: latent ⊕ action encoding -> next latent (output normalised
   and activated), then the reward head on the next latent.
 
+``model_type='conv'`` (flax ``_setup_conv``, :128-160, used at :175, 201,
+252): the conv representation, a ``PredictionNetworkConv`` whose policy head
+emits concat[mu_raw, sigma_raw] (2 D units; A logits when discrete) split in
+halves, and a ``DynamicsNetworkConv`` fed the action encoding as
+(B, h, w, D) planes; latents are NHWC.
+
 ``SampledEfficientZeroModel`` (``models/sampled_efficientzero.py``) shares the
 representation, the prediction side and the projector (``SampledHeads``).
-
-Not ported yet, and refused by ``from_config``: the conv branch (ROADMAP
-queue 1, slice 16).
 """
 from __future__ import annotations
 
@@ -25,7 +28,16 @@ from typing import Any, NamedTuple, Optional
 import torch
 from torch import nn
 
-from lightzero_tpu_torch.models.common import MLPTorso, RepresentationNetworkMLP, SSLProjector
+from lightzero_tpu_torch.models.common import (
+    DynamicsNetworkConv,
+    MLPTorso,
+    PredictionNetworkConv,
+    RepresentationNetworkConv,
+    RepresentationNetworkMLP,
+    SSLProjector,
+    action_planes,
+    conv_latent_shape,
+)
 
 
 class SampledNetworkOutput(NamedTuple):
@@ -35,7 +47,7 @@ class SampledNetworkOutput(NamedTuple):
 
     value_logits: torch.Tensor  # (B, value_support)
     reward_logits: torch.Tensor  # (B, reward_support)
-    latent_state: torch.Tensor  # (B, latent)
+    latent_state: torch.Tensor  # (B, latent) or (B, h, w, C)
     mu: Optional[torch.Tensor] = None  # (B, D)
     sigma: Optional[torch.Tensor] = None  # (B, D)
     policy_logits: Optional[torch.Tensor] = None  # (B, A)
@@ -44,11 +56,12 @@ class SampledNetworkOutput(NamedTuple):
 class SampledHeads(nn.Module):
     """The representation network, the prediction side and the SSL projector
     of both sampled models (flax ``_repr``, ``_common``, ``_value_head``,
-    ``_mu_head``/``_sigma_head`` or ``_policy_head``, ``_proj``)."""
+    ``_mu_head``/``_sigma_head`` or ``_policy_head``, ``_proj``; conv:
+    ``_repr``, ``_pred``, ``_proj``)."""
 
     def __init__(
         self,
-        observation_shape: int,
+        observation_shape: Any,
         action_space_size: int,
         continuous_action_space: bool,
         latent_state_dim: int,
@@ -61,16 +74,35 @@ class SampledHeads(nn.Module):
         sigma_type: str,
         fixed_sigma_value: float,
         bound_mu: bool,
+        model_type: str,
+        num_channels: int,
+        num_res_blocks: int,
+        downsample: bool,
         generator: Optional[torch.Generator],
     ):
         super().__init__()
         L = latent_state_dim
+        self.model_type = model_type
         self.action_space_size = action_space_size
         self.continuous_action_space = continuous_action_space
         self.sigma_min, self.sigma_max = float(sigma_min), float(sigma_max)
         self.sigma_type = sigma_type
         self.fixed_sigma_value = float(fixed_sigma_value)
         self.bound_mu = bound_mu
+        if model_type == "conv":
+            h, w, C = self.latent_shape = conv_latent_shape(observation_shape, num_channels,
+                                                            downsample)
+            self.representation_network = RepresentationNetworkConv(
+                int(observation_shape[2]), num_channels, num_res_blocks, downsample, generator)
+            self.prediction_network = PredictionNetworkConv(
+                2 * action_space_size if continuous_action_space else action_space_size,
+                num_channels, h * w, value_support_size=value_support_size,
+                num_res_blocks=num_res_blocks, norm_type=norm_type,
+                last_linear_layer_init_zero=last_linear_layer_init_zero, generator=generator)
+            self.projector = SSLProjector(h * w * C, generator=generator)
+            return
+        if model_type != "mlp":
+            raise ValueError(f"unknown model_type {model_type!r}")
         self.representation_network = RepresentationNetworkMLP(int(observation_shape), L, norm_type,
                                                                generator=generator)
         self.prediction_torso = MLPTorso(L, (L,) * (common_layer_num - 1), L, norm_type=norm_type,
@@ -104,6 +136,11 @@ class SampledHeads(nn.Module):
     def prediction(self, latent: torch.Tensor):
         """-> (value_logits, mu, sigma) continuous, (value_logits, logits)
         discrete."""
+        if self.model_type == "conv":
+            value_logits, ms = self.prediction_network(latent)
+            if not self.continuous_action_space:
+                return value_logits, ms
+            return (value_logits, *self._mu_sigma(*ms.chunk(2, dim=-1)))
         x = self.prediction_torso(latent)
         value_logits = self.value_head(x)
         if not self.continuous_action_space:
@@ -127,25 +164,21 @@ class SampledHeads(nn.Module):
         return self.projector(latent, with_grad)
 
 
-def sampled_model_kwargs(model_cfg: Any, slice_name: str) -> dict:
-    """The constructor arguments that both flax ``from_config``s read
-    (the conv branch refused)."""
+def sampled_model_kwargs(model_cfg: Any) -> dict:
+    """The constructor arguments that both flax ``from_config``s read."""
     obs_shape = model_cfg.get("observation_shape", 3)
     default_type = "conv" if isinstance(obs_shape, (list, tuple)) else "mlp"
-    if model_cfg.get("model_type", default_type) != "mlp":
-        raise NotImplementedError(
-            f"only model_type='mlp' is ported for {slice_name} "
-            "(ROADMAP queue 1, slice 16: conv stack)"
-        )
     kwargs = dict(
-        observation_shape=obs_shape,
+        observation_shape=tuple(obs_shape) if isinstance(obs_shape, list) else obs_shape,
         action_space_size=model_cfg.get("action_space_size", 1),
         continuous_action_space=model_cfg.get("continuous_action_space", True),
         latent_state_dim=model_cfg.get("latent_state_dim", 128),
         norm_type=model_cfg.get("norm_type", "LN"),
+        model_type=model_cfg.get("model_type", default_type),
     )
     for k in ("value_support_size", "reward_support_size", "sigma_min", "sigma_max",
-              "sigma_type", "fixed_sigma_value", "bound_mu"):
+              "sigma_type", "fixed_sigma_value", "bound_mu", "num_channels",
+              "num_res_blocks", "downsample"):
         if k in model_cfg:
             kwargs[k] = model_cfg[k]
     return kwargs
@@ -154,7 +187,7 @@ def sampled_model_kwargs(model_cfg: Any, slice_name: str) -> dict:
 class SampledMuZeroModel(SampledHeads):
     def __init__(
         self,
-        observation_shape: int = 3,
+        observation_shape: Any = 3,
         action_space_size: int = 1,
         continuous_action_space: bool = True,
         latent_state_dim: int = 128,
@@ -168,14 +201,26 @@ class SampledMuZeroModel(SampledHeads):
         sigma_type: str = "conditioned",
         fixed_sigma_value: float = 0.3,
         bound_mu: bool = True,
+        model_type: str = "mlp",
+        num_channels: int = 64,
+        num_res_blocks: int = 1,
+        downsample: bool = True,
         generator: Optional[torch.Generator] = None,
     ):
         super().__init__(observation_shape, action_space_size, continuous_action_space,
                          latent_state_dim, value_support_size, common_layer_num, norm_type,
                          last_linear_layer_init_zero, sigma_min, sigma_max, sigma_type,
-                         fixed_sigma_value, bound_mu, generator)
+                         fixed_sigma_value, bound_mu, model_type, num_channels, num_res_blocks,
+                         downsample, generator)
         L = latent_state_dim
         self.reward_support_size = reward_support_size
+        if model_type == "conv":
+            h, w, _ = self.latent_shape
+            self.dynamics_network = DynamicsNetworkConv(
+                num_channels, action_space_size, h * w, num_res_blocks,
+                reward_support_size=reward_support_size, norm_type=norm_type,
+                last_linear_layer_init_zero=last_linear_layer_init_zero, generator=generator)
+            return
         self.dynamics_torso = MLPTorso(L + action_space_size, (L,) * (common_layer_num - 1), L,
                                        norm_type=norm_type, output_norm=True,
                                        output_activation=True, generator=generator)
@@ -186,6 +231,8 @@ class SampledMuZeroModel(SampledHeads):
     def dynamics(self, latent: torch.Tensor, action: torch.Tensor):
         """action: (B, D) floats in [-1, 1], or (B,) ints when discrete ->
         (next_latent, reward_logits)."""
+        if self.model_type == "conv":
+            return self.dynamics_network(latent, action_planes(self.action_encoding(action), latent))
         x = torch.cat([latent, self.action_encoding(action).to(latent.dtype)], dim=-1)
         next_latent = self.dynamics_torso(x)
         return next_latent, self.reward_head(next_latent)
@@ -208,5 +255,4 @@ class SampledMuZeroModel(SampledHeads):
                     ) -> "SampledMuZeroModel":
         """Build from a ``cfg.policy.model`` tree, reading the keys the flax
         ``from_config`` reads."""
-        return SampledMuZeroModel(generator=generator,
-                                  **sampled_model_kwargs(model_cfg, "Sampled MuZero"))
+        return SampledMuZeroModel(generator=generator, **sampled_model_kwargs(model_cfg))

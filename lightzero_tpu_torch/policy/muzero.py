@@ -389,7 +389,11 @@ class MuZeroPolicy:
         temperature: float,
         epsilon: float,
         deterministic: bool = False,
+        noise: Optional[torch.Tensor] = None,
     ) -> Dict[str, torch.Tensor]:
+        """Search from the observations' roots and act (``forward_collect``,
+        ``forward_eval``). ``noise`` (B, A) replaces the Dirichlet draw (for
+        tests)."""
         g = self.generator
         obs = obs.to(self.device, torch.float32)
         legal_mask = legal_mask.to(self.device)
@@ -416,7 +420,8 @@ class MuZeroPolicy:
         root = RootOutput(
             prior_logits=out0.policy_logits, value=pred_value, embedding=self._root_embedding(out0)
         )
-        return self._search_and_act(root, legal_mask, to_play, temperature, epsilon, deterministic)
+        return self._search_and_act(root, legal_mask, to_play, temperature, epsilon, deterministic,
+                                    noise=noise)
 
     def _search_and_act(
         self,

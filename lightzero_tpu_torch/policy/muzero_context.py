@@ -11,10 +11,11 @@ muzero_context_model.py:249-256).
 
 The context is an explicit state ``dict(latent, last_action, timestep)``,
 per env, that the collector and the evaluator thread through their step
-loops (``stateful_collect``) and reset per env when an episode ends.
-
-Not ported yet, and refused with ``NotImplementedError``: the conv branch
-(ROADMAP queue 1, slice 16).
+loops (``stateful_collect``) and reset per env when an episode ends. With
+the conv model the context's latent is (B, h, w, C), h and w the
+observation's divided by 16 under ``downsample`` (the JAX policy's
+``h // 16``; the port takes the representation's own output size, which is
+the same on every config that runs there).
 """
 from __future__ import annotations
 
@@ -44,14 +45,11 @@ class MuZeroContextPolicy(MuZeroPolicy):
     def init_collect_state(self, batch_size: int) -> CollectState:
         """(latent 0, last_action -1, timestep 0) for each of ``batch_size``
         envs."""
-        if self.cfg.model.get("model_type", "mlp") != "mlp":
-            raise NotImplementedError(
-                "the conv branch of MuZero-Context is not ported yet "
-                "(ROADMAP queue 1, slice 16: conv stack)"
-            )
         dev = self.device
+        model = self.model
+        shape = model.latent_shape if model.model_type == "conv" else (model.latent_state_dim,)
         return dict(
-            latent=torch.zeros((batch_size, self.model.latent_state_dim), device=dev),
+            latent=torch.zeros((batch_size, *shape), device=dev),
             last_action=torch.full((batch_size,), -1, dtype=torch.long, device=dev),
             timestep=torch.zeros((batch_size,), dtype=torch.long, device=dev),
         )
@@ -88,7 +86,8 @@ class MuZeroContextPolicy(MuZeroPolicy):
         rolled, _ = model.dynamics(collect_state["latent"], torch.clamp(last_action, min=0))
         ctx = int(self.cfg.get("context_length_init", 5))
         reencode = (last_action < 0) | ((timestep % ctx == 0) & (timestep > 0))
-        root_latent = torch.where(reencode[:, None], encoded, rolled)
+        root_latent = torch.where(reencode.reshape((-1,) + (1,) * (encoded.dim() - 1)),
+                                  encoded, rolled)
         value_logits, policy_logits = model.prediction(root_latent)
         root = RootOutput(
             prior_logits=policy_logits,

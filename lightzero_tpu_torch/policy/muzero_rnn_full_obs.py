@@ -7,8 +7,8 @@ unrolls the model with the history threaded through the unroll, with the SSL
 consistency loss whenever ``ssl_loss_weight > 0`` (the model always has the
 projector).
 
-Not ported yet, and refused by the model's ``from_config``: the conv branch
-(ROADMAP queue 1, slice 16).
+The model's ``from_config`` refuses a conv model: the JAX model has none
+(ROADMAP queue 3).
 """
 from __future__ import annotations
 

@@ -21,6 +21,12 @@ The JAX policy does not override ``_forward_reanalyze``, whose A-wide tree
 meets this policy's ``tree_width``-wide recurrent outputs and fails with a
 broadcasting ``ValueError`` (ROADMAP queue 3); the 2048 configs leave
 ``reanalyze_ratio`` at 0.
+
+Refused with ``ValueError``: a conv model. The model has a conv branch, but
+the JAX policy flattens every observation before the representation network
+(``_flat``, ``lightzero_tpu/policy/stochastic_muzero.py:76-81``), so its conv
+model fails at the first inference with a ``ScopeParamShapeError`` (ROADMAP
+queue 3); the port keeps the policy's semantics and refuses up front.
 """
 from __future__ import annotations
 
@@ -31,7 +37,7 @@ from typing import Any, Dict, Optional
 import torch
 from torch import nn
 
-from lightzero_tpu_torch.config import Config
+from lightzero_tpu_torch.config import Config, deep_merge
 from lightzero_tpu_torch.models.stochastic_muzero import StochasticMuZeroModel
 from lightzero_tpu_torch.ops import (
     cross_entropy_loss,
@@ -44,6 +50,11 @@ from lightzero_tpu_torch.policy.muzero import MuZeroPolicy, TrainBatch
 from lightzero_tpu_torch.search.puct import batch_puct_search
 from lightzero_tpu_torch.search.types import RecurrentOutput, RootOutput
 
+_CONV_REFUSED = (
+    "the Stochastic MuZero policy flattens observations before its model, as the JAX "
+    "policy does (policy/stochastic_muzero.py:76-81), so a conv model cannot read them; "
+    "the JAX policy fails the same way (ROADMAP queue 3)"
+)
 _REANALYZE_REFUSED = (
     "reanalyze is not ported for Stochastic MuZero: the JAX policy's reanalyze search "
     "fails there (ROADMAP queue 3), and the 2048 configs leave reanalyze_ratio at 0"
@@ -56,6 +67,9 @@ def _entropy(logits: torch.Tensor) -> torch.Tensor:
 
 
 class StochasticMuZeroPolicy(MuZeroPolicy):
+    # the model reads each observation flattened (``_flat``)
+    flattens_observations = True
+
     @staticmethod
     def default_config() -> Config:
         cfg = MuZeroPolicy.default_config()
@@ -68,6 +82,9 @@ class StochasticMuZeroPolicy(MuZeroPolicy):
         return cfg
 
     def __init__(self, cfg=None, model=None, device=None, seed: int = 0):
+        model_type = deep_merge(self.default_config(), cfg or {}).model.model_type
+        if model_type != "mlp" or getattr(model, "model_type", "mlp") != "mlp":
+            raise ValueError(_CONV_REFUSED)
         super().__init__(cfg, model=model, device=device, seed=seed)
         if float(self.cfg.get("reanalyze_ratio", 0.0)) > 0:
             raise NotImplementedError(_REANALYZE_REFUSED)

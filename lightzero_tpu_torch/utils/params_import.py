@@ -1,7 +1,7 @@
-"""Carry flax parameters of the JAX ``MuZeroModel`` (MLP branch, with the SSL
-projector), ``EfficientZeroModel``, ``StochasticMuZeroModel``,
-``SampledMuZeroModel``, ``SampledEfficientZeroModel`` and ``MuZeroRNNModel``
-(MLP branches) into the port's models, and back.
+"""Carry flax parameters of the JAX ``MuZeroModel`` (with the SSL projector),
+``EfficientZeroModel``, ``StochasticMuZeroModel``, ``SampledMuZeroModel``,
+``SampledEfficientZeroModel`` (MLP and conv branches) and ``MuZeroRNNModel``
+(MLP) into the port's models, and back.
 
 ``flax_to_state_dict`` takes the flax params as nested dicts of numpy arrays
 (``{"params": {...}}`` or the inner dict), e.g.
@@ -31,6 +31,18 @@ g, o, and ``bias_hh`` (4H). The kernels are transposed and stacked in that
 order, the hidden biases go to ``bias_hh``, and ``bias_ih`` (a zero buffer
 in the port's model) is zero; the inverse splits them back and raises if
 ``bias_ih`` is not zero, which flax could not hold.
+
+The conv branches (a model with a 4-D kernel) take one map for all five
+models (``_conv_port_name``): the port's conv modules keep flax's submodule
+order in lists, so a flax path maps segment by segment. The top module by
+``_CONV_TOPS`` (``_dyn_blocks_i`` -> ``dynamics_blocks.i``), then ``Conv_i``
+-> ``conv.i``, ``LayerNorm_i`` -> ``norm.i``, ``ResBlock_i`` -> ``res.i``,
+``DownSample_0`` -> ``downsample``, ``MLPTorso_i`` -> ``mlp.i``, ``Dense_i``
+-> ``dense.i``, and the projector's ``proj_i``, ``proj_norms_i``, ``pred_i``
+-> ``proj.i``, ``proj_norms.i``, ``pred.i``. A conv ``kernel`` (kh, kw, in,
+out) becomes a ``weight`` (out, in, kh, kw); the way back tells a
+LayerNorm ``weight`` (1-D, flax ``scale``) from a Dense (2-D) or conv (4-D)
+``kernel`` by its rank.
 
 The GRU of MuZero-RNN: flax ``GRUCell`` holds input kernels ``i{r,z,n}``
 (in, H) with ``bias``, recurrent kernels ``h{r,z}`` (H, H) without and
@@ -121,6 +133,88 @@ _PARAM_MAPS = {
 }
 
 
+# flax top-level module -> port attribute, for every conv model
+_CONV_TOPS = {
+    "_repr": "representation_network", "_dyn": "dynamics_network",
+    "_pred": "prediction_network", "_afterstate_pred": "afterstate_prediction_network",
+    "_proj": "projector",
+    "_dyn_conv": "dynamics_conv", "_dyn_norm": "dynamics_norm", "_dyn_blocks": "dynamics_blocks",
+    "_as_dyn_conv": "afterstate_dynamics_conv", "_as_dyn_norm": "afterstate_dynamics_norm",
+    "_as_dyn_blocks": "afterstate_dynamics_blocks",
+    "_vp_reduce": "value_prefix_reduce", "_vp_reduce_norm": "value_prefix_reduce_norm",
+    "_vp_norm": "value_prefix_norm", "_vp_head": "value_prefix_head",
+    "_reward_reduce": "reward_reduce", "_reward_reduce_norm": "reward_reduce_norm",
+    "_reward_head": "reward_head",
+    "_chance_conv": "chance_conv", "_chance_norm": "chance_norm", "_chance_head": "chance_head",
+}
+_CONV_TOPS_BACK = {v: k for k, v in _CONV_TOPS.items()}
+# flax submodule -> port list attribute (``Conv_3`` -> ``conv.3``); the
+# projector's own lists are ``proj_i`` etc. on both sides
+_CONV_LISTS = {"Conv": "conv", "LayerNorm": "norm", "ResBlock": "res", "MLPTorso": "mlp",
+               "Dense": "dense", "proj": "proj", "proj_norms": "proj_norms", "pred": "pred"}
+_CONV_LISTS_BACK = {v: k for k, v in _CONV_LISTS.items()}
+
+
+def _is_conv_flax(flat: Mapping[str, Any]) -> bool:
+    return any(np.ndim(v) == 4 for v in flat.values())
+
+
+def _conv_port_name(key: str) -> str:
+    """Port state_dict key of a conv model's flax parameter path."""
+    top, *mods, leaf = key.split("/")
+    m = re.fullmatch(r"(\w+?)_(\d+)", top)
+    if top in _CONV_TOPS:
+        parts = [_CONV_TOPS[top]]
+    elif m is not None and m.group(1) in _CONV_TOPS and m.group(1).endswith("_blocks"):
+        parts = [_CONV_TOPS[m.group(1)], m.group(2)]
+    else:
+        raise KeyError(f"no counterpart in the port for flax parameter {key!r}")
+    for mod in mods:
+        m = re.fullmatch(r"(\w+?)_(\d+)", mod)
+        if mod == "DownSample_0":
+            parts.append("downsample")
+        elif mod == "pred_norm":
+            parts.append(mod)
+        elif m is not None and m.group(1) in _CONV_LISTS:
+            parts += [_CONV_LISTS[m.group(1)], m.group(2)]
+        else:
+            raise KeyError(f"no counterpart in the port for flax parameter {key!r}")
+    if leaf not in _LEAVES:
+        raise KeyError(f"no counterpart in the port for flax parameter {key!r}")
+    return ".".join(parts + [_LEAVES[leaf]])
+
+
+def _conv_flax_path(name: str, ndim: int) -> str:
+    """The inverse of ``_conv_port_name`` ('/'-joined flax path)."""
+    *mods, leaf = name.split(".")
+    if not mods or leaf not in ("weight", "bias"):
+        raise KeyError(f"no counterpart in flax for port parameter {name!r}")
+    top = _CONV_TOPS_BACK.get(mods[0])
+    if top is None:
+        raise KeyError(f"no counterpart in flax for port parameter {name!r}")
+    rest = mods[1:]
+    if top.endswith("_blocks"):
+        if not rest or not rest[0].isdigit():
+            raise KeyError(f"no counterpart in flax for port parameter {name!r}")
+        top, rest = f"{top}_{rest[0]}", rest[1:]
+    parts, i = [top], 0
+    while i < len(rest):
+        mod = rest[i]
+        if mod == "downsample":
+            parts.append("DownSample_0")
+            i += 1
+        elif mod == "pred_norm":
+            parts.append(mod)
+            i += 1
+        elif mod in _CONV_LISTS_BACK and i + 1 < len(rest) and rest[i + 1].isdigit():
+            parts.append(f"{_CONV_LISTS_BACK[mod]}_{rest[i + 1]}")
+            i += 2
+        else:
+            raise KeyError(f"no counterpart in flax for port parameter {name!r}")
+    parts.append("bias" if leaf == "bias" else ("scale" if ndim == 1 else "kernel"))
+    return "/".join(parts)
+
+
 def _map_of_flax(flat: Mapping[str, Any]) -> _ParamMap:
     tops = {k.split("/")[0] for k in flat}
     if "_gru" in tops:
@@ -185,6 +279,7 @@ def flax_to_state_dict(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
         params = params["params"]
     out: Dict[str, torch.Tensor] = {}
     flat = _flatten(params)
+    conv = _is_conv_flax(flat)
     pmap = _map_of_flax(flat)
     if pmap.lstm:
         out.update(_lstm_to_torch({k: flat.pop(k) for k in list(flat) if k.startswith("_lstm/")}))
@@ -192,8 +287,10 @@ def flax_to_state_dict(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
         out.update(_gru_to_torch({k: flat.pop(k) for k in list(flat) if k.startswith("_gru/")}))
     for key, value in flat.items():
         if key.endswith("/kernel"):
-            value = value.T
-        out[_port_name(pmap, key)] = torch.from_numpy(np.array(value, dtype=np.float32, order="C"))
+            # Dense (in, out) -> (out, in); conv HWIO -> OIHW
+            value = value.transpose(3, 2, 0, 1) if value.ndim == 4 else value.T
+        name = _conv_port_name(key) if conv else _port_name(pmap, key)
+        out[name] = torch.from_numpy(np.array(value, dtype=np.float32, order="C"))
     return out
 
 
@@ -295,6 +392,7 @@ def state_dict_to_flax(state_dict: Mapping[str, torch.Tensor]) -> Dict[str, Any]
     dicts of float32 numpy arrays in flax's layout."""
     pmap = _map_of_port(state_dict)
     patterns = _flax_paths(pmap)
+    conv = any(t.dim() == 4 for t in state_dict.values())
     flat: Dict[str, np.ndarray] = {}
     for name, tensor in state_dict.items():
         value = tensor.detach().cpu().numpy().astype(np.float32)
@@ -303,6 +401,13 @@ def state_dict_to_flax(state_dict: Mapping[str, torch.Tensor]) -> Dict[str, Any]
             continue
         if pmap.gru and name.startswith(f"{_GRU}."):
             flat.update(_gru_to_flax(name, value))
+            continue
+        if conv:
+            path = _conv_flax_path(name, value.ndim)
+            if path.endswith("/kernel"):
+                value = np.ascontiguousarray(
+                    value.transpose(2, 3, 1, 0) if value.ndim == 4 else value.T)
+            flat[path] = value
             continue
         m = re.fullmatch(r"(.+)\.(\d+)\.(weight|bias)", name)
         if m is not None:

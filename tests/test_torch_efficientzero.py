@@ -200,8 +200,15 @@ def test_default_init_is_flax_like():
 
 
 def test_conv_model_is_refused():
-    with pytest.raises(NotImplementedError, match="slice 16"):
-        EfficientZeroPolicy(dict(model=dict(model_type="conv")), device="cpu")
+    """The conv model is ported (tests/test_torch_conv.py holds it against
+    flax): the policy builds it on image observations; a model type the JAX
+    package does not know is refused."""
+    port = EfficientZeroPolicy(dict(model=dict(model_type="conv", observation_shape=(6, 6, 3),
+                                               num_channels=8, downsample=False,
+                                               lstm_hidden_size=16)), device="cpu")
+    assert port.model.model_type == "conv" and port.model.lstm.input_size == 6 * 6 * 16
+    with pytest.raises(ValueError, match="model_type"):
+        EfficientZeroPolicy(dict(model=dict(model_type="transformer")), device="cpu")
 
 
 @pytest.fixture(scope="module")

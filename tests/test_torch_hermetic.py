@@ -59,6 +59,34 @@ def test_every_module_imports_without_jax_or_the_jax_package():
     assert int(proc.stdout.split()[-1]) >= 20  # modules walked
 
 
+# the conv stack and the grid envs, named so that a rename cannot drop them
+# from the walk above unnoticed
+_IMPORT_NAMED = """
+import importlib, sys
+for name in {forbidden!r}:
+    sys.modules[name] = None
+for name in {modules!r}:
+    importlib.import_module(name)
+leaked = [m for m in sys.modules if m.split(".")[0] in {forbidden!r} and sys.modules[m] is not None]
+assert not leaked, leaked
+"""
+GRID_AND_CONV_MODULES = (
+    "lightzero_tpu_torch.envs.breakout_grid", "lightzero_tpu_torch.envs.minatar_like",
+    "lightzero_tpu_torch.models.common", "lightzero_tpu_torch.configs.breakout_grid_muzero",
+    "lightzero_tpu_torch.configs.space_invaders_grid_efficientzero",
+)
+
+
+def test_grid_envs_and_conv_stack_import_without_jax():
+    proc = subprocess.run(
+        [sys.executable, "-c", _IMPORT_NAMED.format(forbidden=FORBIDDEN,
+                                                    modules=GRID_AND_CONV_MODULES)],
+        cwd=REPO, capture_output=True, text=True, timeout=120,
+        env=dict(os.environ, PYTHONPATH=str(REPO)),
+    )
+    assert proc.returncode == 0, proc.stderr
+
+
 def _imported_roots(path: pathlib.Path):
     tree = ast.parse(path.read_text(), filename=str(path))
     for node in ast.walk(tree):

@@ -31,7 +31,8 @@ carried across with utils/params_import.py.
 - train_muzero on a small MuZero-RNN config on the CPU;
 - the JAX model cannot be built from the zoo's only MuZero-RNN config
   (Atari, conv, tuple observation shape): ``init_params`` calls int() on
-  the tuple (ROADMAP queue 3); the port refuses that config, naming slice 16.
+  the tuple (ROADMAP queue 3); the port refuses that config: the JAX model has
+  no conv branch to port.
 """
 import functools
 import json
@@ -302,11 +303,11 @@ def test_the_zoo_rnn_config_fails_in_jax_and_is_refused_by_the_port():
     """The zoo's only MuZero-RNN config is Atari's (conv, observations
     (96, 96, 12)): the JAX model's from_config ignores model_type and
     init_params calls int() on the tuple (ROADMAP queue 3); the port
-    refuses it, naming the conv slice."""
+    refuses it: there is no conv branch to port."""
     from zoo.atari.config.atari_muzero_rnn_fullobs_config import main_config
 
     model = JaxRNNModel.from_config(main_config.policy.model)
     with pytest.raises(TypeError, match="int\\(\\) argument"):
         model.init_params(jax.random.PRNGKey(0))
-    with pytest.raises(NotImplementedError, match="slice 16"):
+    with pytest.raises(NotImplementedError, match="no conv branch"):
         MuZeroRNNFullObsPolicy(main_config.policy.to_dict(), device="cpu")

@@ -49,7 +49,7 @@ and carried across with utils/params_import.py.
   The term does not depend on the params, so the gradients do not see it;
   op by op, JAX evaluates its formula as written, and the port agrees with
   it to ~1e-7.
-- Refusals: the conv model (slice 16) and reanalyze, which the JAX policy
+- Refusals: an unknown model type and reanalyze, which the JAX policy
   cannot run (tests/test_torch_train.py shows its AttributeError); without
   a GPU and a device the policy and train_muzero raise.
 - The collector stores float actions and the root candidates; the buffer's
@@ -321,8 +321,12 @@ def test_default_init_is_flax_like():
 
 
 def test_conv_model_and_reanalyze_are_refused():
-    with pytest.raises(NotImplementedError, match="slice 16"):
-        SampledMuZeroPolicy(dict(model=dict(model_type="conv")), device="cpu")
+    # the conv model is ported (tests/test_torch_conv.py); an unknown type is not
+    port = SampledMuZeroPolicy(dict(model=dict(model_type="conv", observation_shape=(6, 6, 3),
+                                               num_channels=8, downsample=False)), device="cpu")
+    assert port.model.model_type == "conv"
+    with pytest.raises(ValueError, match="model_type"):
+        SampledMuZeroPolicy(dict(model=dict(model_type="transformer")), device="cpu")
     with pytest.raises(NotImplementedError, match="reanalyze"):
         SampledMuZeroPolicy(policy_cfg(False, reanalyze_ratio=0.25), device="cpu")
     port = SampledMuZeroPolicy(policy_cfg(False), device="cpu")

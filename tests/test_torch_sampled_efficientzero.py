@@ -162,8 +162,13 @@ def test_import_is_exact_both_ways(models):
 
 
 def test_conv_model_and_reanalyze_are_refused():
-    with pytest.raises(NotImplementedError, match="slice 16"):
-        SampledEfficientZeroPolicy(dict(model=dict(model_type="conv")), device="cpu")
+    # the conv model is ported (tests/test_torch_conv.py); an unknown type is not
+    port = SampledEfficientZeroPolicy(dict(model=dict(
+        model_type="conv", observation_shape=(6, 6, 3), num_channels=8, downsample=False)),
+        device="cpu")
+    assert port.model.model_type == "conv"
+    with pytest.raises(ValueError, match="model_type"):
+        SampledEfficientZeroPolicy(dict(model=dict(model_type="transformer")), device="cpu")
     with pytest.raises(NotImplementedError, match="reanalyze"):
         SampledEfficientZeroPolicy(sez_cfg(False, reanalyze_ratio=0.25), device="cpu")
 

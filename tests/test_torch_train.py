@@ -10,7 +10,10 @@ simulations, batch 16, the SSL loss on.
 - checkpoints round-trip exactly, and the lenient load of a params export
   keeps the fresh optimizer;
 - the entry refuses what is not ported and, with no GPU, a call without a
-  device; both sampled policies refuse reanalyze, which the JAX policies
+  device; it refuses, with a ValueError, observations its model cannot read
+  (the zoo's plain MuZero 2048 configs, on which the JAX entry raises a
+  ScopeParamShapeError, shown), and the Stochastic MuZero policy refuses a
+  conv model, on which the JAX policy fails the same way (shown); both sampled policies refuse reanalyze, which the JAX policies
   cannot run (their forward_reanalyze raises an AttributeError, shown);
 - each policy type it builds is the port of the JAX registry's policy of
   that name.
@@ -152,12 +155,12 @@ def test_lenient_load_of_a_params_export_keeps_the_fresh_optimizer(tmp_path):
 
 
 @pytest.mark.parametrize("override,match", [
-    (dict(policy=dict(type="stochastic_muzero", model=dict(model_type="conv"))), "slice 16"),
-    (dict(policy=dict(type="efficientzero", model=dict(model_type="conv"))), "slice 16"),
+    (dict(policy=dict(type="unizero")), "slice 18"),
+    (dict(policy=dict(type="muzero_multitask")), "slice 19"),
     (dict(policy=dict(type="gumbel_muzero", env_type="board_games")), "slice 17"),
-    (dict(policy=dict(type="muzero_context", model=dict(model_type="conv"))), "slice 16"),
+    (dict(env=dict(env_id="tictactoe")), "slice 17"),
     (dict(policy=dict(analysis_loss_landscape=True)), "slice 20"),
-    (dict(policy=dict(type="sampled_muzero", model=dict(model_type="conv"))), "slice 16"),
+    (dict(policy=dict(model=dict(MODEL, harmony_balance=True))), "slice 20"),
 ])
 def test_train_muzero_refuses_what_is_not_ported(tmp_path, override, match):
     cfg = tiny_cfg(tmp_path / "exp")
@@ -274,3 +277,53 @@ def test_entry_utils():
     release.set()
     with pytest.raises(ValueError, match="eval failed"):
         safe_eval(Evaluator("fail"))
+
+
+@pytest.mark.parametrize("config", ["muzero_2048_config", "muzero_2048_v2_config"])
+def test_plain_muzero_2048_configs_fail_in_jax_and_are_refused_by_the_port(tmp_path, config):
+    """ROADMAP queue 3: the zoo's plain MuZero 2048 configs set an MLP over
+    256 inputs, and the env gives (4, 4, 16) planes, which MuZero does not
+    flatten. The JAX entry fails at its first eval with flax's
+    ScopeParamShapeError; the port's refuses the config up front."""
+    import copy
+    import importlib
+
+    import flax
+
+    from lightzero_tpu.entry import train_muzero as jax_train_muzero
+
+    main_config = importlib.import_module(f"zoo.game_2048.config.{config}").main_config
+    jax_cfg = copy.deepcopy(main_config)
+    jax_cfg.exp_name = str(tmp_path / "jax")
+    with pytest.raises(flax.errors.ScopeParamShapeError, match="Dense_0"):
+        jax_train_muzero(jax_cfg, seed=0, max_env_step=10)
+    cfg = Config(main_config.to_dict())
+    cfg.exp_name = str(tmp_path / "port")
+    with pytest.raises(ValueError, match=r"shape \(256,\).*\(4, 4, 16\)"):
+        train_muzero(cfg, device="cpu", max_env_step=10)
+
+
+def test_the_jax_stochastic_policy_fails_on_its_conv_model():
+    """ROADMAP queue 3: the JAX Stochastic MuZero policy flattens every
+    observation (policy/stochastic_muzero.py:76-81) before its conv model,
+    which fails with a ScopeParamShapeError; the port's policy refuses a
+    conv model with a ValueError."""
+    import flax
+    import jax
+    import jax.numpy as jnp
+
+    from lightzero_tpu.policy.stochastic_muzero import StochasticMuZeroPolicy as JaxPolicy
+    from lightzero_tpu_torch.policy import StochasticMuZeroPolicy
+
+    model = dict(observation_shape=(6, 6, 4), action_space_size=3, model_type="conv",
+                 num_channels=8, chance_space_size=4, downsample=False)
+    cfg = JaxPolicy.default_config()
+    cfg.model.update(model)
+    cfg.num_simulations = 2
+    jax_policy = JaxPolicy(cfg)
+    params = jax_policy.init_train_state(jax.random.PRNGKey(0)).params
+    with pytest.raises(flax.errors.ScopeParamShapeError, match="_repr/Conv_0"):
+        jax_policy.forward_eval(params, jax.random.PRNGKey(1), jnp.zeros((2, 6, 6, 4)),
+                                jnp.ones((2, 3), bool))
+    with pytest.raises(ValueError, match="flattens observations"):
+        StochasticMuZeroPolicy(dict(model=model, num_simulations=2), device="cpu")
