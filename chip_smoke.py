@@ -124,7 +124,30 @@ Phases, each of a fixed size, in one process:
      eval searches) x 25), one learn step on the card against one on the
      CPU and the median learn-step time. Then one initial and one recurrent
      inference of conv MuZero at the Atari width (96x96x12, 64 channels,
-     the DownSample pyramid) on 4 seeded frames, card against CPU.
+     the DownSample pyramid) on 4 seeded frames, card against CPU;
+ 13. board: the bsuite and memory probes, two-player search, AlphaZero and the
+     board games, at the zoo configs' full width. Catch MuZero (obs 50, A=3,
+     latent 64, 25 simulations) and Memory EfficientZero (obs 8, A=4, latent
+     128, LSTM, 50 simulations, unroll 12), whose searches launch the descent
+     kernel on its small-A route: each Evaluator on 3 envs (launches = env
+     steps x simulations), Catch's eval descent inputs (simulations 1, 13,
+     25) rerun kernel against plain as in phase 3, a short train_muzero run
+     as in phase 7 (launches = (collect + eval searches) x simulations) with
+     its learn step on the card against the CPU. TicTacToe AlphaZero (3x3x3
+     planes, 32 channels, 1 res block, 25 simulations; the env is the
+     search's simulator and its players alternate, so the search takes the
+     generic descent): 4 positions searched on the card and on the CPU with
+     the same Dirichlet noise and tie_break='first', one self-play collect of
+     8 games, AZ_EVAL_EPISODES games against the rule bot, a train_alphazero
+     run of SHORT_TRAIN_ITERS learn steps with its learn step on the card
+     against the CPU; no launch. Connect4 MuZero (the fine-tune config: conv
+     64 channels, A=7, 50 simulations, bot mode, mirror augmentation; seeded
+     weights): the Evaluator against the rule bot on 3 envs with its generic
+     descent timed, 4 positions searched on the card and on the CPU, a short
+     train_muzero run at C4_TRAIN_SIMS simulations with mirror-augmented
+     batches; no launch. (The committed Connect4 params are an orbax
+     checkpoint, zstd-compressed OCDBT, which the card's machine cannot read
+     without JAX: tests/connect4_params_eval.py plays them on the CPU.)
 
 The last lines are the card's name and power limit, one JSON object with a
 record per kernel, and {"ok": true, "device": {...}}; that last line is printed
@@ -165,17 +188,26 @@ from lightzero_tpu_torch.configs.breakout_grid_muzero import main_config as brea
 from lightzero_tpu_torch.configs.space_invaders_grid_efficientzero import (
     main_config as invaders_config,
 )
+from lightzero_tpu_torch.configs.catch_muzero import main_config as catch_config
+from lightzero_tpu_torch.configs.connect4_muzero_ft import main_config as connect4_config
+from lightzero_tpu_torch.configs.memory_efficientzero import main_config as memory_config
+from lightzero_tpu_torch.configs.tictactoe_alphazero_bot_mode import main_config as ttt_az_config
 from lightzero_tpu_torch.buffers import GameBuffer
-from lightzero_tpu_torch.entry import train_muzero
+from lightzero_tpu_torch.entry import train_alphazero, train_muzero
 from lightzero_tpu_torch.envs import (
     BreakoutGridEnv,
     CartPoleEnv,
+    CatchEnv,
+    Connect4Env,
     Game2048Env,
+    MemoryEnv,
     PendulumEnv,
     SpaceInvadersGridEnv,
+    TicTacToeEnv,
 )
 from lightzero_tpu_torch.envs.game_2048 import legal_moves
 from lightzero_tpu_torch.models import (
+    AlphaZeroModel,
     EfficientZeroModel,
     MuZeroModel,
     MuZeroRNNModel,
@@ -184,6 +216,7 @@ from lightzero_tpu_torch.models import (
 from lightzero_tpu_torch.models.common import lecun_normal_
 from lightzero_tpu_torch.models.sampled_muzero import SampledHeads
 from lightzero_tpu_torch.policy import (
+    AlphaZeroPolicy,
     EfficientZeroPolicy,
     GumbelMuZeroPolicy,
     MuZeroContextPolicy,
@@ -193,6 +226,7 @@ from lightzero_tpu_torch.policy import (
     SampledMuZeroPolicy,
     StochasticMuZeroPolicy,
 )
+from lightzero_tpu_torch.policy.alphazero import AZTrainBatch
 from lightzero_tpu_torch.search import gumbel, puct
 from lightzero_tpu_torch.search.fused_traverse import (
     SYNTHETIC_SEED,
@@ -202,7 +236,11 @@ from lightzero_tpu_torch.search.fused_traverse import (
     fused_traverse_reference,
     kernel_route,
 )
-from lightzero_tpu_torch.workers import Evaluator
+from lightzero_tpu_torch.workers import (
+    AlphaZeroBotEvaluator,
+    AlphaZeroSelfPlayCollector,
+    Evaluator,
+)
 
 # phases 9 and 10 took the script to 259 s on one host and to 371 s on a
 # slower one (every phase 1.4-1.9x slower there), 29 s short of the 400 s
@@ -279,6 +317,16 @@ GRID_TRAIN_EPISODE_STEPS = 32
 GRID_CAPTURED_SIMS = (1, 13, 25)
 ATARI_BATCH = 4
 ATARI_TOL = 1e-4
+# phase 13: the simulations of Catch's eval search whose descent inputs are
+# rerun kernel against plain; the games TicTacToe AlphaZero plays against the
+# bot; the simulations of Connect4 MuZero's short training run (its 50-
+# simulation searches take the generic descent, ~1 s a move on the first
+# guess, which would make one collect round of 64 steps run for a minute),
+# and the eval envs and episodes of that run
+PROBE_CAPTURED_SIMS = (1, 13, 25)
+AZ_EVAL_EPISODES = 10
+C4_TRAIN_SIMS = 10
+C4_TRAIN_EVAL_EPISODES = 3
 # card vs CPU learn step from the same params and batch (TF32 off): the
 # logged terms to 1e-4 relative (float32 matmuls of batch 256 summed in
 # another order). Adam's first update is lr * g / (|g| + 1e-8), g the
@@ -378,7 +426,9 @@ def randomize_heads(model, seed: int) -> None:
     """Draw every head's last layer (zero at init, which would make each
     search a tie) from a seeded generator."""
     g = torch.Generator().manual_seed(seed)
-    if isinstance(model, SampledHeads):
+    if isinstance(model, AlphaZeroModel):
+        heads = tuple(model.mlp)  # policy, value
+    elif isinstance(model, SampledHeads):
         # the value head, and whichever of the reward or value-prefix head and
         # the Gaussian or logits heads the model has
         heads = [getattr(model, name) for name in (
@@ -775,6 +825,27 @@ def batch_to(batch, device):
                          else batch_to(x, device) for x in batch))
 
 
+def compare_learn_steps(card: dict, cpu: dict) -> tuple:
+    """Card against CPU after one Adam step from the same params: the logs'
+    relative errors, and the params' largest error where the gradient Adam
+    saw (``g``) is more than GRAD_TO_ROUNDING times the two devices'
+    rounding of it, and where it is not, with the count of the latter:
+    (log errors, tight error, loose error, loose elements, elements)."""
+    log_err = {k: abs(card["logs"][k] - v) / max(abs(v), 1e-6) for k, v in cpu["logs"].items()}
+    tight_err, loose_err, loose, total = 0.0, 0.0, 0, 0
+    for name, exp in cpu["params"].items():
+        err = (card["params"][name] - exp).abs()
+        rounding = (card["g"][name] - cpu["g"][name]).abs()
+        sensitive = cpu["g"][name].abs() <= GRAD_TO_ROUNDING * rounding
+        if (~sensitive).any():
+            tight_err = max(tight_err, float(err[~sensitive].max()))
+        if sensitive.any():
+            loose_err = max(loose_err, float(err[sensitive].max()))
+        loose += int(sensitive.sum())
+        total += sensitive.numel()
+    return log_err, tight_err, loose_err, loose, total
+
+
 def learn_step_card_vs_cpu(policy, batch) -> tuple:
     """One learn step on the card and one on the CPU, each from a fresh
     optimizer over the same params, on the same batch: (record, agree)."""
@@ -791,18 +862,7 @@ def learn_step_card_vs_cpu(policy, batch) -> tuple:
                             g=g)
     card, cpu = results["cuda"], results["cpu"]
     lr = float(policy.cfg.learning_rate)
-    log_err = {k: abs(card["logs"][k] - v) / max(abs(v), 1e-6) for k, v in cpu["logs"].items()}
-    tight_err, loose_err, loose, total = 0.0, 0.0, 0, 0
-    for name, exp in cpu["params"].items():
-        err = (card["params"][name] - exp).abs()
-        rounding = (card["g"][name] - cpu["g"][name]).abs()
-        sensitive = cpu["g"][name].abs() <= GRAD_TO_ROUNDING * rounding
-        if (~sensitive).any():
-            tight_err = max(tight_err, float(err[~sensitive].max()))
-        if sensitive.any():
-            loose_err = max(loose_err, float(err[sensitive].max()))
-        loose += int(sensitive.sum())
-        total += sensitive.numel()
+    log_err, tight_err, loose_err, loose, total = compare_learn_steps(card, cpu)
     # a priority is |root value - target value|: it carries the root value's
     # error, VALUE_TOL relative to the value (at most |target| + priority),
     # not relative to the difference, in which the two values cancel
@@ -1622,6 +1682,260 @@ def phase_grid(card: str, l2_ns: float) -> tuple:
     return records, cases, time.perf_counter() - t0
 
 
+def probe_states(env, n: int, seed: int, steps: int = 3) -> tuple:
+    """``n`` states, observations and legal masks of the env from seeded
+    random legal play, ``steps`` steps into each episode."""
+    g = torch.Generator().manual_seed(seed)
+    state, obs = env.reset(n, g)
+    for _ in range(steps):
+        legal = env.legal_mask(state)
+        step = env.step(state, torch.multinomial(legal.to(torch.float32), 1, generator=g)[:, 0], g)
+        state, obs = step.state, step.obs
+    return state, obs, env.legal_mask(state)
+
+
+def dirichlet_on(legal: torch.Tensor, seed: int) -> torch.Tensor:
+    """(B, A) Dirichlet(0.3) noise over each row's legal actions."""
+    rng = np.random.default_rng(seed)
+    noise = np.zeros(legal.shape, np.float32)
+    for i, row in enumerate(legal.numpy()):
+        noise[i, row] = rng.dirichlet(np.full(int(row.sum()), 0.3))
+    return torch.from_numpy(noise)
+
+
+def phase_probes(card: str, l2_ns: float) -> tuple:
+    """Catch MuZero and Memory EfficientZero at the zoo configs' width: MLP
+    searches through the descent kernel's small-A route."""
+    records, cases, t0 = {}, [], time.perf_counter()
+    for i, (label, policy_cls, config, env) in enumerate((
+            ("catch_muzero", MuZeroPolicy, catch_config, CatchEnv(rows=10, cols=5)),
+            ("memory_efficientzero", EfficientZeroPolicy, memory_config,
+             MemoryEnv(num_cues=4, memory_length=10)))):
+        policy = policy_cls(config.policy, device="cuda", seed=MAIN_SEED)
+        randomize_heads(policy.model, MAIN_SEED + 31 + i)
+        sims = policy.search_cfg.num_simulations
+        A = env.action_space_size
+        ev = eval_episodes(policy, card, label, env=env, returns_range=(-1.0, 1.0))
+        ev.update(config=label, num_simulations=sims, A=A, route=kernel_route(A))
+        emit(ev)
+        if ev["launches"] != ev["env_steps"] * sims:
+            raise AssertionError(f"{label}: traverse launches {ev['launches']} != env steps "
+                                 f"{ev['env_steps']} x {sims}")
+        if label == "catch_muzero":
+            _, obs, legal = probe_states(env, 3, MAIN_SEED + 31)
+            captures = capture_descent_inputs(policy, obs.cuda(), legal.cuda(), PROBE_CAPTURED_SIMS)
+            if sorted(captures) != list(PROBE_CAPTURED_SIMS):
+                raise AssertionError(f"captured simulations {sorted(captures)}, "
+                                     f"expected {PROBE_CAPTURED_SIMS}")
+            cases += phase_captured(captures, l2_ns, search=f"{label} eval search")
+        train, problems, *_ = short_train(config, card, label, sims)
+        emit(train)
+        if problems:
+            raise AssertionError(f"{label} train failed: {problems}")
+        records[label] = dict(eval=ev, train=train)
+    return records, cases, time.perf_counter() - t0
+
+
+def az_search_card_vs_cpu(policy) -> dict:
+    """4 TicTacToe positions (players 1 and 2 to move) searched on the card
+    and on the CPU with the same noise and tie_break='first': visit counts
+    equal, root values within VALUE_TOL."""
+    env = TicTacToeEnv("self_play_mode")
+    # two positions 2 plies in (player 1 to move) and two 3 plies in (player 2)
+    (a, _, legal_a), (b, _, legal_b) = (probe_states(env, 2, MAIN_SEED + 41 + plies, plies)
+                                        for plies in (2, 3))
+    state = type(a)(*(torch.cat([x, y]) for x, y in zip(a, b)))
+    legal = torch.cat([legal_a, legal_b])
+    noise = dirichlet_on(legal, MAIN_SEED + 41)
+    cpu_policy = AlphaZeroPolicy(policy.cfg, policy.env, model=copy.deepcopy(policy.model).cpu(),
+                                 device="cpu")
+    search_cfg = policy.search_cfg
+    outs = []
+    try:
+        for p in (policy, cpu_policy):
+            p.search_cfg = dataclasses.replace(search_cfg, tie_break="first")
+            on = type(state)(*(x.to(p.device) for x in state))
+            outs.append(p._forward_collect(on, 1.0, noise=noise.to(p.device)))
+    finally:
+        policy.search_cfg = search_cfg
+    on_card, on_cpu = ({k: v.cpu() for k, v in o.items()} for o in outs)
+    if not torch.equal(on_card["visit_counts"], on_cpu["visit_counts"]):
+        raise AssertionError(f"alphazero: card and CPU visit counts differ: "
+                             f"{on_card['visit_counts'].tolist()} vs {on_cpu['visit_counts'].tolist()}")
+    err = {}
+    for key in ("searched_value", "predicted_value"):
+        a, b = on_card[key].float(), on_cpu[key].float()
+        err[key] = float((a - b).abs().max())
+        if not (torch.isfinite(a).all() and torch.allclose(a, b, rtol=VALUE_TOL, atol=VALUE_TOL)):
+            raise AssertionError(f"alphazero: card and CPU {key} differ: {a.tolist()} vs {b.tolist()}")
+    rec = dict(phase="tictactoe_alphazero_card_vs_cpu", batch=4, tie_break="first",
+               to_play=state.to_play.tolist(), visit_counts=on_card["visit_counts"].tolist(),
+               searched_value=on_card["searched_value"].tolist(), max_abs_err=err)
+    emit(rec)
+    return rec
+
+
+def az_learn_step_card_vs_cpu(policy, batch) -> tuple:
+    """One AlphaZero learn step (clip, then AdamW) on the card and one on the
+    CPU from the same params and batch, each with a fresh optimizer, held as
+    learn_step_card_vs_cpu holds MuZero's (AdamW's decay stays outside the
+    gradient Adam sees): (record, agree)."""
+    results = {}
+    for dev in ("cuda", "cpu"):
+        p = AlphaZeroPolicy(policy.cfg, policy.env, model=copy.deepcopy(policy.model), device=dev)
+        state = p.init_train_state()
+        _, logs = p.forward_learn(state, batch_to(batch, p.device))
+        results[dev] = dict(logs={k: float(v) for k, v in logs.items()},
+                            params={k: v.detach().cpu() for k, v in p.model.named_parameters()},
+                            g={k: v.grad.cpu() for k, v in p.model.named_parameters()})
+    card, cpu = results["cuda"], results["cpu"]
+    lr = float(policy.cfg.learning_rate)
+    log_err, tight_err, loose_err, loose, total = compare_learn_steps(card, cpu)
+    rec = dict(phase="tictactoe_alphazero_train_card_vs_cpu", batch=int(batch.obs.shape[0]),
+               max_log_rel_err=max(log_err.values()), log_rel_err=log_err,
+               param_max_abs_err=tight_err, param_max_abs_err_rounding_bound=loose_err,
+               rounding_bound_elements=loose, elements=total,
+               total_loss_card=card["logs"]["total_loss"], total_loss_cpu=cpu["logs"]["total_loss"])
+    emit(rec)
+    agree = (rec["max_log_rel_err"] <= LEARN_LOG_RTOL and tight_err <= LEARN_PARAM_ATOL
+             and loose_err <= 2 * lr and loose < total // 4)
+    return rec, agree
+
+
+def az_batch(replay, batch_size: int, seed: int) -> AZTrainBatch:
+    """A batch drawn with replacement from AlphaZero's replay, on the card."""
+    idx = np.random.default_rng(seed).integers(0, len(replay), batch_size)
+    return AZTrainBatch(
+        obs=torch.from_numpy(np.stack([replay[i].obs for i in idx])).cuda(),
+        target_policy=torch.from_numpy(np.stack([replay[i].probs for i in idx])).cuda(),
+        target_value=torch.from_numpy(np.asarray([replay[i].z for i in idx], np.float32)).cuda())
+
+
+def phase_alphazero(card: str) -> tuple:
+    """TicTacToe AlphaZero at the zoo config's width: the env is the search's
+    simulator and the players alternate, so every search takes the generic
+    descent and none launches the kernel."""
+    t0 = time.perf_counter()
+    fused_traverse.launches = 0
+    policy = AlphaZeroPolicy(ttt_az_config.policy, TicTacToeEnv("self_play_mode"), device="cuda",
+                             seed=MAIN_SEED)
+    randomize_heads(policy.model, MAIN_SEED + 41)
+    sims = policy.search_cfg.num_simulations
+    agreement = az_search_card_vs_cpu(policy)
+
+    collector = AlphaZeroSelfPlayCollector(policy.env, policy, 8, seed=MAIN_SEED)
+    samples, cstats = collector.collect(temperature=1.0, num_episodes=8)
+    torch.cuda.synchronize()
+    collect = dict(phase="tictactoe_alphazero_collect", num_envs=8, samples=len(samples),
+                   env_steps=cstats["steps"], episodes=cstats["episodes"],
+                   wall_s=cstats["duration"], steps_per_s=cstats["steps_per_sec"], card=card)
+    emit(collect)
+    if cstats["episodes"] < 8 or not samples or any(s.z not in (-1.0, 0.0, 1.0) for s in samples):
+        raise AssertionError(f"alphazero collect: {cstats['episodes']} games, {len(samples)} samples")
+
+    descent, restore = timed_descents(puct, "_generic_traverse")
+    try:
+        evaluator = AlphaZeroBotEvaluator(TicTacToeEnv("play_with_bot_mode"), policy, 5,
+                                          seed=MAIN_SEED)
+        res = evaluator.eval(AZ_EVAL_EPISODES)
+        torch.cuda.synchronize()
+    finally:
+        restore()
+    ev = descent_record(dict(phase="tictactoe_alphazero_eval", num_envs=5,
+                             episode_returns=res["episode_returns"], win_rate=res["win_rate"],
+                             env_steps=res["env_steps"], wall_s=res["duration"],
+                             wall_per_env_step_s=res["duration"] / res["env_steps"], card=card),
+                        descent)
+    emit(ev)
+    if (len(res["episode_returns"]) != AZ_EVAL_EPISODES
+            or not set(res["episode_returns"]) <= {-1.0, 0.0, 1.0}
+            or descent["calls"] != res["env_steps"] * sims):
+        raise AssertionError(f"alphazero eval: {res['episode_returns']}, {descent['calls']} "
+                             f"descents for {res['env_steps']} steps x {sims}")
+
+    cfg = copy.deepcopy(ttt_az_config)
+    cfg.policy.update_per_collect = SHORT_TRAIN_ITERS
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg.exp_name = os.path.join(tmp, "tictactoe_alphazero")
+        t1 = time.perf_counter()
+        trained, state, stats = train_alphazero(cfg, seed=MAIN_SEED,
+                                                max_train_iter=SHORT_TRAIN_ITERS)
+        torch.cuda.synchronize()
+        train_wall = time.perf_counter() - t1
+        with open(os.path.join(cfg.exp_name, "log", "train.jsonl")) as f:
+            records = [json.loads(line) for line in f]
+    losses = [r["learner/total_loss"] for r in records if "learner/total_loss" in r]
+    batch_size = int(trained.cfg.batch_size)
+    agreement_learn, agree = az_learn_step_card_vs_cpu(
+        trained, az_batch(stats["replay"], batch_size, MAIN_SEED))
+    step_ms, timed_losses = [], []
+    for i in range(TIMED_LEARN_STEPS):
+        batch = az_batch(stats["replay"], batch_size, MAIN_SEED + 1 + i)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        state, logs = trained.forward_learn(state, batch)
+        end.record()
+        torch.cuda.synchronize()
+        step_ms.append(start.elapsed_time(end))
+        timed_losses.append(float(logs["total_loss"]))
+    params_finite = all(bool(torch.isfinite(p).all()) for p in state.model.parameters())
+    launches = fused_traverse.launches
+    train = dict(phase="tictactoe_alphazero_train", train_iter=stats["train_iter"],
+                 env_steps=stats["env_steps"], replay=len(stats["replay"]),
+                 logged_total_losses=losses, wall_s=train_wall,
+                 learn_step_ms_median=float(np.median(step_ms)), learn_step_ms=step_ms,
+                 card_vs_cpu=agreement_learn, launches=launches, card=card)
+    emit(train)
+    problems = [] if agree else [f"card and CPU learn steps disagree: {agreement_learn}"]
+    if stats["train_iter"] != SHORT_TRAIN_ITERS:
+        problems.append(f"train_iter {stats['train_iter']}, expected {SHORT_TRAIN_ITERS}")
+    if (not losses or not all(math.isfinite(x) for x in losses + timed_losses)
+            or not params_finite):
+        problems.append("non-finite loss or params")
+    if launches != 0:
+        problems.append(f"AlphaZero's searches launched the descent kernel {launches} times")
+    if problems:
+        raise AssertionError(f"tictactoe_alphazero failed: {problems}")
+    return dict(card_vs_cpu=agreement, collect=collect, eval=ev, train=train,
+                launches=launches), time.perf_counter() - t0
+
+
+def phase_connect4(card: str) -> tuple:
+    """Connect4 MuZero, the fine-tune config at full width with seeded
+    weights: bot-mode searches (to_play -1 under players 2) take the
+    generic descent, as in the JAX package, so none launches the kernel."""
+    t0 = time.perf_counter()
+    policy = MuZeroPolicy(connect4_config.policy, device="cuda", seed=MAIN_SEED)
+    randomize_heads(policy.model, MAIN_SEED + 51)
+    sims = policy.search_cfg.num_simulations
+    descent, restore = timed_descents(puct, "_generic_traverse")
+    try:
+        ev = eval_episodes(policy, card, "connect4_muzero",
+                           env=Connect4Env(battle_mode="play_with_bot_mode"),
+                           returns_range=(-1.0, 1.0))
+    finally:
+        restore()
+    ev = descent_record(dict(ev, config="connect4_muzero_ft", num_simulations=sims), descent)
+    emit(ev)
+    if ev["launches"] != 0 or descent["calls"] != ev["env_steps"] * sims:
+        raise AssertionError(f"connect4_muzero eval: {ev['launches']} launches, "
+                             f"{descent['calls']} descents for {ev['env_steps']} steps x {sims}")
+    _, obs, legal = probe_states(Connect4Env("play_with_bot_mode"), 4, MAIN_SEED + 51)
+    agreement = seeded_search_card_vs_cpu(policy, "connect4_muzero", obs, legal,
+                                          noise=dirichlet_on(legal, MAIN_SEED + 51))
+    cfg = copy.deepcopy(connect4_config)
+    cfg.policy.num_simulations = C4_TRAIN_SIMS
+    cfg.env.evaluator_env_num = cfg.env.n_evaluator_episode = C4_TRAIN_EVAL_EPISODES
+    train, problems, _, _, buffer = short_train(cfg, card, "connect4_muzero", 0)
+    train.update(num_simulations=C4_TRAIN_SIMS, mirror_augmentation=buffer.mirror_augmentation)
+    emit(train)
+    if not buffer.mirror_augmentation:
+        problems.append("the buffer does not mirror")
+    if problems:
+        raise AssertionError(f"connect4_muzero train failed: {problems}")
+    return dict(eval=ev, card_vs_cpu=agreement, train=train), time.perf_counter() - t0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs on a GPU", file=sys.stderr)
@@ -1652,6 +1966,10 @@ def main() -> int:
     history, history_wall = phase_rezero_history(card)
     grid, grid_cases, grid_wall = phase_grid(card, l2_ns)
     cases += grid_cases
+    probes, probe_cases, probes_wall = phase_probes(card, l2_ns)
+    cases += probe_cases
+    az, az_wall = phase_alphazero(card)
+    c4, c4_wall = phase_connect4(card)
 
     main_case = next(c for c in cases if (c["B"], c["A"], c["N"], c["tie_break"]) == (3, 2, 26, "noise"))
     kernels = [dict(
@@ -1690,6 +2008,16 @@ def main() -> int:
         **{f"launches_{name}{suffix}": grid[name][part]["launches"]
            for name in ("breakout_muzero", "space_invaders_efficientzero")
            for suffix, part in (("", "eval"), ("_train", "train"))},
+        # phase 13: Catch MuZero's and Memory EfficientZero's evals and
+        # training runs (small-A route); TicTacToe AlphaZero (search, collect,
+        # bot eval, training) and Connect4 MuZero's eval and training, whose
+        # searches take the generic descent: 0
+        **{f"launches_{name}{suffix}": probes[name][part]["launches"]
+           for name in ("catch_muzero", "memory_efficientzero")
+           for suffix, part in (("", "eval"), ("_train", "train"))},
+        launches_tictactoe_alphazero=az["launches"],
+        launches_connect4_muzero=c4["eval"]["launches"],
+        launches_connect4_muzero_train=c4["train"]["launches"],
         max_abs_err=max(c["max_abs_err"] for c in cases),
         ms=main_case["ms"],
         # launch to launch through the wrapper, the host's dispatch included:
@@ -1728,7 +2056,23 @@ def main() -> int:
                  for name in ("breakout_muzero", "space_invaders_efficientzero")},
               **{f"{name}_learn_step_ms": grid[name]["train"]["learn_step_ms_median"]
                  for name in ("breakout_muzero", "space_invaders_efficientzero")},
-              atari_width_initial_inference_ms=grid["atari_width"]["initial_inference_ms"]))
+              atari_width_initial_inference_ms=grid["atari_width"]["initial_inference_ms"],
+              probes_wall_s=probes_wall,
+              **{f"{name}_eval_s_per_env_step": probes[name]["eval"]["wall_per_env_step_s"]
+                 for name in ("catch_muzero", "memory_efficientzero")},
+              **{f"{name}_learn_step_ms": probes[name]["train"]["learn_step_ms_median"]
+                 for name in ("catch_muzero", "memory_efficientzero")},
+              **{f"{name}_collect_steps_per_s": probes[name]["train"]["collect_steps_per_s"]
+                 for name in ("catch_muzero", "memory_efficientzero")},
+              alphazero_wall_s=az_wall,
+              tictactoe_alphazero_eval_s_per_env_step=az["eval"]["wall_per_env_step_s"],
+              tictactoe_alphazero_learn_step_ms=az["train"]["learn_step_ms_median"],
+              tictactoe_alphazero_collect_steps_per_s=az["collect"]["steps_per_s"],
+              connect4_wall_s=c4_wall,
+              connect4_muzero_eval_s_per_env_step=c4["eval"]["wall_per_env_step_s"],
+              connect4_muzero_descent_ms_per_call=c4["eval"]["descent_ms_per_call"],
+              connect4_muzero_learn_step_ms=c4["train"]["learn_step_ms_median"],
+              connect4_muzero_collect_steps_per_s=c4["train"]["collect_steps_per_s"]))
     faulthandler.cancel_dump_traceback_later()
     signal.alarm(0)
     print(card, flush=True)

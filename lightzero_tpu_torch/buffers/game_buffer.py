@@ -25,8 +25,18 @@ overwrites their stored policy targets and root values in place; with
 search reuses its successor's fresh root value. Its randomness comes from the
 policy's generator, where the JAX buffer takes a key from its caller.
 
-Not ported yet, and refused with ``NotImplementedError``: board-game value
-targets and mirror augmentation (ROADMAP queue 1, slice 17).
+Board games (``env_type`` "board_games"): in self-play
+(``battle_mode`` "self_play_mode" in the policy's config, as the JAX buffer
+reads it) the value targets are the game's outcome from the side of the
+player to move at each unroll position, instead of the n-step returns
+(game_buffer.py:74-82, 425-450); against the bot the rewards are already
+the agent's and the n-step targets stay. ``mirror_augmentation`` (column
+games such as Connect4, A == board width) mirrors each sampled unroll left
+to right with probability 1/2, after reanalyze: the observations' W axis,
+the actions (a -> A - 1 - a) and the policy targets together
+(game_buffer.py:204-260). Its coin flips are drawn from the buffer's
+``RandomState`` after the batch's own draws, in the JAX buffer's order, or
+taken from ``flips`` where a caller hands them in.
 """
 from __future__ import annotations
 
@@ -63,7 +73,7 @@ class EpisodeRecord(NamedTuple):
 
 
 class GameBuffer:
-    """MuZero replay buffer, single-player."""
+    """MuZero replay buffer (one-player and board-game modes)."""
 
     def __init__(self, cfg, policy):
         self.cfg = cfg
@@ -80,15 +90,12 @@ class GameBuffer:
         self.use_priority = bool(cfg.get("use_priority", True))
         self.reanalyze_ratio = float(cfg.get("reanalyze_ratio", 0.0))
         self.frame_stack = int(cfg.get("frame_stack_num", 1))
-        if cfg.get("env_type", "not_board_games") == "board_games":
-            raise NotImplementedError(
-                "board-game buffers (winner-z value targets) are not ported yet "
-                "(ROADMAP queue 1, slice 17: board games)"
-            )
-        if bool(cfg.get("mirror_augmentation", False)):
-            raise NotImplementedError(
-                "mirror augmentation is not ported yet (ROADMAP queue 1, slice 17: board games)"
-            )
+        self.board_mode = cfg.get("env_type", "not_board_games") == "board_games"
+        # winner-z targets only for self-play trajectories, whose to_play
+        # alternates between 1 and 2 (game_buffer.py:79-82)
+        self.winner_z_targets = (
+            self.board_mode and cfg.get("battle_mode", "self_play_mode") == "self_play_mode")
+        self.mirror_augmentation = bool(cfg.get("mirror_augmentation", False))
         self._rng = np.random.RandomState(cfg.get("seed", 0) + 4096)
         self._re_generator: Optional[torch.Generator] = None
         # the native core assembles batches; the Python loops only when the
@@ -169,10 +176,11 @@ class GameBuffer:
             ])
         self._flat_dirty = False
 
-    def sample(self, batch_size: int, target_model: nn.Module
+    def sample(self, batch_size: int, target_model: nn.Module, flips: Optional[np.ndarray] = None
                ) -> Tuple[Union[TrainBatch, SampledTrainBatch], np.ndarray]:
         """Returns (the batch on the policy's device, flat sample indices
-        for ``update_priority``)."""
+        for ``update_priority``). ``flips`` (B,) bool replaces the mirror
+        augmentation's coin flips (for tests)."""
         self._rebuild_flat()
         n = len(self._flat_priorities)
         if n == 0:
@@ -191,7 +199,43 @@ class GameBuffer:
         else:
             idx = self._rng.randint(0, n, size=batch_size)
             weights = np.ones(batch_size)
-        return self._make_batch(idx, target_model, np.asarray(weights, np.float32)), idx
+        batch = self._make_batch(idx, target_model, np.asarray(weights, np.float32))
+        if self.mirror_augmentation:
+            batch = self._mirror_augment(batch, flips)
+        return batch, idx
+
+    def _mirror_augment(self, batch: TrainBatch, flips: Optional[np.ndarray] = None) -> TrainBatch:
+        """Mirror each sample left to right with probability 1/2 (column-action
+        boards, A == W): the observations' W axis, the actions and the
+        policy targets together; values and rewards are mirror-invariant
+        (game_buffer.py:204-260)."""
+        if not isinstance(batch, TrainBatch):
+            raise TypeError("mirror_augmentation is only supported for TrainBatch (discrete "
+                            f"column-action boards); got {type(batch).__name__}")
+        if batch.chance is not None and bool((batch.chance != 0).any()):
+            raise ValueError("mirror_augmentation cannot be combined with nontrivial chance "
+                             "codes (stochastic envs)")
+        if batch.obs.dim() < 4:
+            raise ValueError("mirror_augmentation requires board-shaped obs (B, K+1, H, W[, C]); "
+                             f"got obs.ndim={batch.obs.dim()}")
+        W = int(batch.obs.shape[-2])
+        A = int(batch.target_policy.shape[-1])
+        if A != W or batch.actions.is_floating_point():
+            raise ValueError("mirror_augmentation requires column-action boards (A == obs W, "
+                             f"discrete actions); got A={A} W={W} dtype={batch.actions.dtype}")
+        B = int(batch.obs.shape[0])
+        if flips is None:
+            flips = self._rng.rand(B) < 0.5
+        flip = torch.from_numpy(np.asarray(flips, bool)).to(batch.obs.device)
+
+        def pick(mirrored, orig):
+            return torch.where(flip.reshape((B,) + (1,) * (orig.dim() - 1)), mirrored, orig)
+
+        return batch._replace(
+            obs=pick(batch.obs.flip(-2), batch.obs),
+            actions=pick((A - 1) - batch.actions, batch.actions),
+            target_policy=pick(batch.target_policy.flip(-1), batch.target_policy),
+        )
 
     def update_priority(self, idx: np.ndarray, new_priorities: np.ndarray):
         """Priorities from |predicted - target| value of the learn step."""
@@ -313,6 +357,34 @@ class GameBuffer:
         obs = torch.from_numpy(np.ascontiguousarray(obs, np.float32)).to(self.policy.device)
         return self.policy._bootstrap_value_fn(target_model, obs).cpu().numpy()
 
+    def _board_game_value_targets(self, idx) -> np.ndarray:
+        """(B, K+1) winner-z value targets of self-play board games: the
+        game's outcome from the side of the player to move at each unroll
+        position, 0 for a draw, an unfinished (truncated) game and past the
+        episode's end (game_buffer.py:425-450)."""
+        K = self.K
+        z = np.zeros((len(idx), K + 1), np.float32)
+        for b, flat_i in enumerate(idx):
+            ep = self._episodes[self._flat_ep[flat_i]]
+            pos = int(self._flat_pos[flat_i])
+            T = len(ep.actions)
+            last_mover = int(ep.to_play[T - 1])
+            final_r = float(ep.rewards[T - 1])
+            # +1: the last mover won; -1: the last mover lost; 0: a draw
+            if final_r > 0:
+                winner = last_mover
+            elif final_r < 0:
+                winner = 3 - last_mover if last_mover in (1, 2) else 0
+            else:
+                winner = 0
+            if ep.truncated:
+                winner = 0
+            for k in range(K + 1):
+                t = pos + k
+                if t < T and winner != 0:
+                    z[b, k] = 1.0 if int(ep.to_play[t]) == winner else -1.0
+        return z
+
     def _apply_reanalyze(self, idx, target_policy, target_model):
         """Reanalyze the first ceil(B * ratio) samples: fresh search policy
         targets from the target net (reference reanalyze_ratio mixing,
@@ -408,11 +480,14 @@ class GameBuffer:
         target_reward = np.where(pad, 0.0, self._flat_rewards[out["action_idx"]]).astype(
             np.float32
         )
-        boot_obs = self._flat_obs[out["boot_idx"]].astype(np.float32)
-        boot_v = self._bootstrap_values(
-            target_model, boot_obs.reshape((B * (K + 1),) + obs_shape)
-        ).reshape(B, K + 1)
-        target_value = out["reward_sum"] + out["boot_disc"] * boot_v * out["boot_valid"]
+        if self.winner_z_targets:
+            target_value = self._board_game_value_targets(idx)
+        else:
+            boot_obs = self._flat_obs[out["boot_idx"]].astype(np.float32)
+            boot_v = self._bootstrap_values(
+                target_model, boot_obs.reshape((B * (K + 1),) + obs_shape)
+            ).reshape(B, K + 1)
+            target_value = out["reward_sum"] + out["boot_disc"] * boot_v * out["boot_valid"]
         target_policy = self._apply_reanalyze(idx, target_policy, target_model)
         chance = np.where(pad, 0, self._flat_chance[out["action_idx"]])
         return self._to_device(obs, actions, out["mask"], target_reward, target_value,
@@ -488,10 +563,13 @@ class GameBuffer:
                 else:
                     actions[b, k] = self._rng.randint(0, A)
 
-        boot_v = self._bootstrap_values(
-            target_model, boot_obs.reshape((B * (K + 1),) + obs_shape)
-        ).reshape(B, K + 1)
-        target_value = reward_sum + boot_discount * boot_v * boot_valid
+        if self.winner_z_targets:
+            target_value = self._board_game_value_targets(idx)
+        else:
+            boot_v = self._bootstrap_values(
+                target_model, boot_obs.reshape((B * (K + 1),) + obs_shape)
+            ).reshape(B, K + 1)
+            target_value = reward_sum + boot_discount * boot_v * boot_valid
         target_policy = self._apply_reanalyze(idx, target_policy, target_model)
         return self._to_device(obs, actions, mask, target_reward, target_value, target_policy,
                                weights, chance, sampled_actions)

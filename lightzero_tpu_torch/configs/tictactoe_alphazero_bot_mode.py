@@ -1,0 +1,35 @@
+"""TicTacToe AlphaZero, evaluated against the rule bot: the values of
+``zoo/board_games/tictactoe/config/tictactoe_alphazero_bot_mode_config.py``,
+copied so that the port never loads the zoo file (it imports
+``lightzero_tpu.config``). ``train_alphazero`` collects by self-play and
+evaluates against the bot whatever ``battle_mode`` says."""
+from lightzero_tpu_torch.config import Config
+
+main_config = Config(dict(
+    exp_name="data_az/tictactoe_alphazero_ns25_upc50_seed0",
+    env=dict(
+        type="tictactoe",
+        battle_mode="play_with_bot_mode",
+        stop_value=0.99,
+        collector_env_num=8,
+        evaluator_env_num=5,
+        n_evaluator_episode=5,
+    ),
+    policy=dict(
+        model=dict(
+            observation_shape=(3, 3, 3),
+            action_space_size=9,
+            num_channels=32,
+            num_res_blocks=1,
+        ),
+        num_simulations=25,
+        batch_size=256,
+        update_per_collect=50,
+        n_episode=8,
+        eval_freq=100,
+        optim_type="Adam",
+        learning_rate=0.003,
+        manual_temperature_decay=True,
+        threshold_training_steps_for_final_temperature=int(5e3),
+    ),
+))

@@ -1,3 +1,4 @@
+from lightzero_tpu_torch.entry.train_alphazero import eval_alphazero, train_alphazero
 from lightzero_tpu_torch.entry.train_muzero import eval_muzero, train_muzero
 
 # ReZero is the shared loop with buffer_reanalyze_freq > 0, and the segment

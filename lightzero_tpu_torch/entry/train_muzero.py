@@ -2,9 +2,11 @@
 policies: MuZero, EfficientZero, Gumbel MuZero, Stochastic MuZero, Sampled
 MuZero, Sampled EfficientZero, MuZero-Context and MuZero-RNN-full-obs,
 chosen by ``cfg.policy.type`` from ``POLICIES`` as the JAX entry does from
-its registry, on the ported envs (CartPole, 2048, Pendulum, and the five
-MinAtar-class grids: breakout, asterix, freeway, space invaders, seaquest),
-chosen by ``cfg.env.env_id`` (or ``cfg.env.type``).
+its registry, on the ported envs (CartPole, 2048, Pendulum, the five
+MinAtar-class grids: breakout, asterix, freeway, space invaders, seaquest,
+the bsuite probes deep_sea and catch, the memory env, and the board games
+tictactoe and connect4, whose ``battle_mode`` the env config sets), chosen
+by ``cfg.env.env_id`` (or ``cfg.env.type``).
 
 Loop: [eval every ``eval_freq`` train iterations, stopping after
 ``stop_consecutive_evals`` evals at ``stop_value``] -> collect (episode mode,
@@ -28,8 +30,8 @@ Usage (on the card, or with ``device="cpu"``)::
 deterministic eval.
 
 Not ported yet, and refused with ``NotImplementedError``: the other policies,
-the other envs and the loss-landscape analysis (their ROADMAP slices are
-named in the errors).
+the other envs, the RND reward model (``cfg.reward_model``) and the
+loss-landscape analysis (their ROADMAP slices are named in the errors).
 """
 from __future__ import annotations
 
@@ -44,16 +46,22 @@ import torch
 from lightzero_tpu_torch.buffers import GameBuffer
 from lightzero_tpu_torch.config import Config, compile_config, deep_merge
 from lightzero_tpu_torch.entry.utils import calculate_update_per_collect, random_collect, safe_eval
+from lightzero_tpu_torch.models.common import conv_latent_shape
 from lightzero_tpu_torch.envs import (
     AsterixGridEnv,
     BreakoutGridEnv,
     CartPoleEnv,
+    CatchEnv,
+    Connect4Env,
+    DeepSeaEnv,
     FreewayGridEnv,
     Game2048Env,
+    MemoryEnv,
     PendulumEnv,
     SeaquestGridEnv,
     SpaceInvadersGridEnv,
     TensorEnv,
+    TicTacToeEnv,
 )
 from lightzero_tpu_torch.ops import visit_count_temperature
 from lightzero_tpu_torch.policy import (
@@ -89,7 +97,14 @@ ENVS = {
     "freeway_grid": (FreewayGridEnv, {}),
     "space_invaders_grid": (SpaceInvadersGridEnv, {}),
     "seaquest_grid": (SeaquestGridEnv, {}),
+    "deep_sea": (DeepSeaEnv, {}),
+    "catch": (CatchEnv, {}),
+    "memory": (MemoryEnv, {}),
+    "tictactoe": (TicTacToeEnv, {}),
+    "connect4": (Connect4Env, {}),
 }
+# the envs of the JAX registry that are not ported yet, and where they are
+OTHER_ENVS = {"gomoku": "slice 17, PR 13", "go": "slice 17, PR 13", "chess": "slice 17, PR 13"}
 # cfg.policy.type -> the policy that train_muzero builds
 POLICIES = {
     "muzero": MuZeroPolicy, "efficientzero": EfficientZeroPolicy,
@@ -97,6 +112,8 @@ POLICIES = {
     "sampled_muzero": SampledMuZeroPolicy, "sampled_efficientzero": SampledEfficientZeroPolicy,
     "muzero_context": MuZeroContextPolicy, "muzero_rnn_full_obs": MuZeroRNNFullObsPolicy,
 }
+# the policies that train_muzero runs on board games (env_type "board_games")
+BOARD_POLICIES = ("muzero", "efficientzero")
 # the policy types of the JAX entry that are not ported yet, and the ROADMAP
 # slice that ports each
 OTHER_POLICIES = {
@@ -111,10 +128,10 @@ def create_env(env_cfg: Config) -> TensorEnv:
     forwarded, as the JAX entry does (train_muzero.py:61-82)."""
     env_id = env_cfg.get("env_id", env_cfg.get("type"))
     if env_id not in ENVS:
+        where = OTHER_ENVS.get(env_id, "host envs in slice 20")
         raise NotImplementedError(
-            f"env {env_id!r} is not ported yet: the port has CartPole, 2048, Pendulum and the "
-            "grid envs of ENVS (ROADMAP queue 1: bsuite and memory envs in slice 16, board "
-            "games in slice 17, host envs in slice 20)"
+            f"env {env_id!r} is not ported yet: the port has the envs of ENVS "
+            f"(ROADMAP queue 1: {where})"
         )
     env_cls, kwargs = ENVS[env_id]
     kwargs = dict(kwargs)
@@ -130,7 +147,10 @@ def check_observation_shape(env: TensorEnv, pcfg: Config, policy_cls) -> None:
     model as a flat vector, flattened first only by a policy with
     ``flattens_observations`` (Stochastic MuZero). The zoo's plain MuZero
     2048 configs set an MLP over 256 inputs on (4, 4, 16) planes, which the
-    JAX package takes as they are and fails on (ROADMAP queue 3)."""
+    JAX package takes as they are and fails on (ROADMAP queue 3). A conv
+    model whose downsampling leaves no cell (a 3x3 board with the default
+    ``downsample``, as two zoo TicTacToe configs set it) is refused too: the
+    JAX package fails on it while it builds the model."""
     model = pcfg.model
     env_shape = tuple(np.atleast_1d(env.observation_shape).tolist())
     model_shape = tuple(np.atleast_1d(model.get("observation_shape", 4)).tolist())
@@ -138,6 +158,15 @@ def check_observation_shape(env: TensorEnv, pcfg: Config, policy_cls) -> None:
         fits = int(np.prod(env_shape)) == int(np.prod(model_shape))
     else:
         fits = env_shape == model_shape
+    if fits and model.get("model_type", "mlp") == "conv":
+        h, w, _ = conv_latent_shape(model_shape, 1, bool(model.get("downsample", True)))
+        if h * w == 0:
+            raise ValueError(
+                f"the conv model of cfg.policy.model downsamples observations of shape "
+                f"{model_shape} to nothing: set downsample=False (the JAX package fails on such "
+                "configs too, e.g. zoo/board_games/tictactoe/config/"
+                "tictactoe_muzero_sp_mode_config.py: ROADMAP queue 3)"
+            )
     if not fits:
         kind = model.get("model_type", "mlp")
         raise ValueError(
@@ -155,6 +184,10 @@ def _check_scope(pcfg: Config) -> None:
         slice_ = OTHER_POLICIES.get(policy_type)
         where = f"ROADMAP queue 1, slice {slice_}" if slice_ else "ROADMAP queue 1"
         raise NotImplementedError(f"policy type {policy_type!r} is not ported yet ({where})")
+    if pcfg.get("env_type") == "board_games" and policy_type not in BOARD_POLICIES:
+        raise NotImplementedError(
+            f"the {policy_type} policy on board games is not ported yet (ROADMAP queue 1, "
+            "slice 17, PR 13)")
     if pcfg.get("analysis_loss_landscape", False):
         raise NotImplementedError(
             "the loss-landscape analysis is not ported yet (ROADMAP queue 1, slice 20)"
@@ -182,6 +215,10 @@ def train_muzero(
     dev = resolve_device(device)
     pcfg = Config(Config(cfg).get("policy", {}))
     _check_scope(pcfg)
+    if Config(cfg).get("reward_model", None):
+        raise NotImplementedError(
+            "the RND reward model (cfg.reward_model) is not ported yet (ROADMAP queue 1, "
+            "slice 20)")
     policy_cls = POLICIES[pcfg.get("type", "muzero")]
     cfg = compile_config(cfg, policy_cls.default_config(), seed)
     pcfg = cfg.policy

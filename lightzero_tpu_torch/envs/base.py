@@ -47,3 +47,10 @@ class TensorEnv:
 
     def legal_mask(self, state: Any) -> torch.Tensor:
         raise NotImplementedError
+
+    def initial_to_play(self, state: Any) -> torch.Tensor:
+        """(B,) int32: the player at fresh states, for the search's backup
+        (``base.py:53``): -1 for one-player envs and for board games played
+        against the bot; the player to move only in self-play."""
+        legal = self.legal_mask(state)
+        return torch.full((legal.shape[0],), -1, dtype=torch.int32, device=legal.device)

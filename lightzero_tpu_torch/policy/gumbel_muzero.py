@@ -33,7 +33,7 @@ class GumbelMuZeroPolicy(MuZeroPolicy):
 
     def __init__(self, cfg=None, model=None, device=None, seed: int = 0):
         super().__init__(cfg, model=model, device=device, seed=seed)
-        # refuses players == 2 (slice 17)
+        # refuses players == 2 (slice 17, PR 13)
         self.gumbel_cfg = GumbelSearchConfig(
             num_simulations=int(self.cfg.num_simulations),
             max_num_considered_actions=int(self.cfg.get("max_num_considered_actions", 4)),

@@ -19,7 +19,7 @@ sets (qtransform_completed_by_mix_value, cnode.cpp:988): ``maxvisit_init``
 Gumbel draws are unscaled (``gumbel_scale`` 1).
 
 Not ported yet, and refused with ``NotImplementedError``: ``players == 2``
-(ROADMAP queue 1, slice 17, board games).
+(ROADMAP queue 1, slice 17, PR 13).
 """
 from __future__ import annotations
 
@@ -60,7 +60,7 @@ class GumbelSearchConfig:
         if self.players != 1:
             raise NotImplementedError(
                 "players == 2 Gumbel search is not ported yet "
-                "(ROADMAP queue 1, slice 17: board games)"
+                "(ROADMAP queue 1, slice 17, PR 13)"
             )
 
     def as_puct(self) -> SearchConfig:

@@ -1,20 +1,34 @@
-"""Batched pUCT MCTS (``lightzero_tpu/search/puct.py``), for single-player
-searches, with and without ReZero's reuse.
+"""Batched pUCT MCTS (``lightzero_tpu/search/puct.py``), for one and two
+players, with and without ReZero's reuse.
 
 One call runs ``num_simulations`` iterations of
 [pack tables -> descent -> recurrent_fn -> expand + backup] for a whole
 batch of trees in lockstep. The JAX search compiles the loop into one XLA
 program; here it runs eagerly, and the tree tensors are updated in place.
 
-Two descents read the same packed table. Non-stochastic searches take
-``fused_traverse``: the CUDA kernel on the card, its plain version on the
-CPU. Stochastic searches (Stochastic MuZero's chance nodes) and ReZero's
-reuse searches (``true_action``, ``reuse_value``) take the generic descent
+Two descents read the same packed table. One-player, non-stochastic
+searches without reuse take ``fused_traverse``: the CUDA kernel on the card,
+its plain version on the CPU. Stochastic searches (Stochastic MuZero's
+chance nodes), ReZero's reuse searches (``true_action``, ``reuse_value``)
+and every search with ``players == 2`` take the generic descent
 ``_generic_traverse``, the torch form of the JAX package's XLA
 ``_traverse``, which is plain jnp there and plain PyTorch here: one level of
 every tree per step, with the done flags read back to the host once per
 level where the JAX loop is a ``while_loop`` on the device. The JAX package
 routes them the same way (puct.py:372-378).
+
+Two players (board games, ``players == 2``): the reference decides one- or
+two-player semantics at run time from the root's ``to_play``
+(cnode.cpp cbatch_traverse; ptree_mz.py:525): -1, a board game played
+against the bot, searches as one player, even under ``players == 2``.
+Otherwise a child's value is seen from the mover's side (negated in the
+pUCT score, and in the reuse arm), and the backup flips the sign of the
+value and of the rewards at every node whose player is not the leaf's
+(puct.py:167-175, 453-456, 642-707). The two-player branch is a branch of
+the generic descent and of the backup, plain jnp in the JAX package and
+plain PyTorch here: in neither package is it a kernel. Bot-mode searches
+(``to_play`` -1 under ``players == 2``) take the generic descent too, as in
+the JAX package, although their scores are one-player scores.
 
 The reuse search (cnode.cpp:827 in the reference): at the root, once the
 true action's child has visits, that arm scores only the normalised
@@ -24,9 +38,8 @@ as the leaf's value, whether the child was expanded in this simulation or
 already existed (then it is re-used without expansion, like a terminal).
 
 Not ported yet, and refused with ``NotImplementedError`` rather than
-answered wrongly: ``players == 2``, with or without reuse (ROADMAP queue 1,
-slice 17, board games); it is a branch of the generic descent and the
-backup.
+answered wrongly: stochastic searches with ``players == 2`` (ROADMAP queue
+1, slice 17, PR 13).
 """
 from __future__ import annotations
 
@@ -74,14 +87,16 @@ class _TraverseState(NamedTuple):
     # (B,) bool, reuse searches only: the root picked the true action, so
     # the backup takes the reused value
     reuse_hit: Optional[torch.Tensor] = None
+    # (B, D) int32, generic descent only: the player of each path node
+    path_to_play: Optional[torch.Tensor] = None
 
 
 def _check_scope(cfg: SearchConfig, true_action: Optional[torch.Tensor],
                  reuse_value: Optional[torch.Tensor]) -> None:
-    if cfg.players != 1:
-        what = "reuse search (true_action) with" if true_action is not None else "search with"
+    if cfg.players != 1 and cfg.stochastic:
         raise NotImplementedError(
-            f"{what} players == 2 is not ported yet (ROADMAP queue 1, slice 17: board games)"
+            "a stochastic search with players == 2 is not ported yet (ROADMAP queue 1, "
+            "slice 17, PR 13)"
         )
     if (true_action is None) != (reuse_value is None):
         raise ValueError("a reuse search takes both true_action and reuse_value")
@@ -196,14 +211,19 @@ def _ucb_scores(
     legal: torch.Tensor,
     mean_q: torch.Tensor,
 ) -> torch.Tensor:
-    """compute_ucb_score (puct.py:148), players == 1, over (B, A); illegal
-    children score -inf. Unvisited children take the parent's mean-Q as
-    their value score."""
+    """compute_ucb_score (puct.py:148) over (B, A); illegal children score
+    -inf. Unvisited children take the parent's mean-Q as their value score.
+    Under ``players == 2`` a tree whose root has a player sees its
+    children's values from the mover's side, negated (puct.py:167-175)."""
     pv = parent_visit[:, None]
     pb_c = torch.log((pv + cfg.pb_c_base + 1.0) / cfg.pb_c_base) + cfg.pb_c_init
     pb_c = pb_c * torch.sqrt(pv) / (child_visit + 1.0)
     prior_score = pb_c * prior
-    q = child_reward + cfg.discount * child_value
+    if cfg.players == 1:
+        q = child_reward + cfg.discount * child_value
+    else:
+        one_p = tree.to_play[:, :1] == -1
+        q = child_reward + cfg.discount * torch.where(one_p, child_value, -child_value)
     value_score = minmax_normalize(tree.vmin, tree.vmax, cfg.value_delta_max, q)
     value_score = torch.clamp(value_score, 0.0, 1.0)
     pq = minmax_normalize(tree.vmin, tree.vmax, cfg.value_delta_max, mean_q[:, None])
@@ -270,6 +290,8 @@ def _generic_traverse(
     path_reward[:, 0] = tree.reward[:, 0]
     path_vsum[:, 0] = tree.value_sum[:, 0]
     path_visit[:, 0] = tree.visit_count[:, 0].to(dtype)
+    path_to_play = torch.zeros((B, max_depth), dtype=torch.int32, device=dev)
+    path_to_play[:, 0] = tree.to_play[:, 0]
     reuse = true_action is not None
     if reuse:
         true_action = true_action.to(dev, torch.long)
@@ -288,7 +310,10 @@ def _generic_traverse(
             # carm_score (cnode.cpp:702): the visited true-action arm at the
             # root scores normalised(r + discount * reuse_value) alone
             ta = true_action[:, None]
-            q_arm = torch.gather(ch.reward, 1, ta)[:, 0] + cfg.discount * reuse_value
+            arm_value = reuse_value
+            if cfg.players == 2:
+                arm_value = torch.where(to_play == -1, reuse_value, -reuse_value)
+            q_arm = torch.gather(ch.reward, 1, ta)[:, 0] + cfg.discount * arm_value
             v_arm = torch.clamp(
                 minmax_normalize(tree.vmin, tree.vmax, cfg.value_delta_max, q_arm), 0.0, 1.0)
             visited_true = torch.gather(ch.visit, 1, ta)[:, 0] > 0
@@ -323,6 +348,7 @@ def _generic_traverse(
         path_reward[:, t + 1] = torch.gather(ch.reward, 1, a1)[:, 0]
         path_vsum[:, t + 1] = torch.gather(ch.value_sum, 1, a1)[:, 0]
         path_visit[:, t + 1] = torch.gather(ch.visit, 1, a1)[:, 0]
+        path_to_play[:, t + 1] = vtp
         parent = torch.where(now_done & (next_child < 0), node, parent)
         parent_q = torch.where(done, parent_q, mean_q)
         is_root = is_root & done
@@ -347,6 +373,7 @@ def _generic_traverse(
         path_vsum=path_vsum,
         path_visit=path_visit,
         reuse_hit=reuse_hit if reuse else None,
+        path_to_play=path_to_play,
     )
 
 
@@ -360,11 +387,11 @@ def _traverse(
     reuse_value: Optional[torch.Tensor] = None,
 ) -> _TraverseState:
     """Lockstep selection from the roots to unexpanded leaves (puct.py:335):
-    the generic descent for stochastic and reuse searches, ``fused_traverse``
-    otherwise (puct.py:372-378). The randomness is drawn up front as
-    (max_depth, B, A) tables, one row per depth: the 'noise' tie-break's
-    uniforms and, for stochastic searches, the chance nodes' Gumbel draws,
-    which ``chance_noise`` replaces (for tests)."""
+    the generic descent for stochastic, reuse and two-player searches,
+    ``fused_traverse`` otherwise (puct.py:372-378). The randomness is drawn
+    up front as (max_depth, B, A) tables, one row per depth: the 'noise'
+    tie-break's uniforms and, for stochastic searches, the chance nodes'
+    Gumbel draws, which ``chance_noise`` replaces (for tests)."""
     B, N, A = tree.num_trees, tree.num_nodes, tree.num_actions
     max_depth = N + 1
     dev = tree.value_sum.device
@@ -373,7 +400,7 @@ def _traverse(
     noise_u = None
     if cfg.tie_break != "first":
         noise_u = torch.rand((max_depth, B, A), generator=generator, device=dev, dtype=dtype)
-    if not cfg.stochastic and true_action is None:
+    if cfg.players == 1 and not cfg.stochastic and true_action is None:
         return _fused_descent(cfg, tree, to_play, packed, noise_u)
     if cfg.stochastic and chance_noise is None:
         u = torch.rand((max_depth, B, A), generator=generator, device=dev, dtype=dtype)
@@ -458,7 +485,7 @@ def _expand_and_backup(
     value_override: Optional[torch.Tensor] = None,
 ) -> Tree:
     """Expand the leaves (node sim + 1) and back the values up the paths
-    (puct.py:544-708, players == 1). Updates the tree tensors in place; a
+    (puct.py:544-708). Updates the tree tensors in place; a
     recurrent output with ``is_chance`` marks the new row's node kind.
     ``prior_is_logits``: the new row keeps the raw logits, illegal actions
     at -1e9, instead of their softmax (Gumbel trees, puct.py:572-574).
@@ -523,12 +550,24 @@ def _expand_and_backup(
     value = out.value.to(dtype)
     if value_override is not None:
         value = torch.where(st.reuse_hit, value_override.to(dtype), value)
+    two_p = cfg.players == 2
+    if two_p:
+        # one-player semantics where the leaf has no player (bot mode,
+        # puct.py:642-648); else the rewards and values of the nodes of the
+        # leaf's player change sign on their way up
+        leaf_to_play = st.virtual_to_play
+        one_p = (leaf_to_play == -1)[:, None]  # (B, 1)
+        same = torch.where(exp_mask, leaf_to_play[:, None], st.path_to_play) == leaf_to_play[:, None]
+        node_r_signed = torch.where(same & ~one_p, -node_r, node_r)
+    else:
+        node_r_signed = node_r
 
     # bootstrap recurrence (right to left): contrib at the leaf is its value,
     # contrib_i = r_{i+1} + g * contrib_{i+1}. A suffix composition of affine
     # maps g_i(x) = a_i x + b_i (identity past the leaf), composed by
     # doubling in log2(P) steps (puct.py:650-677 uses an associative scan).
-    r_next = torch.cat([node_r[:, 1:], torch.zeros((B, 1), dtype=dtype, device=dev)], dim=1)
+    r_next = torch.cat([node_r_signed[:, 1:], torch.zeros((B, 1), dtype=dtype, device=dev)],
+                       dim=1)
     valid_next = torch.cat(
         [valid[:, 1:], torch.zeros((B, 1), dtype=torch.bool, device=dev)], dim=1
     )
@@ -542,6 +581,8 @@ def _expand_and_backup(
         a_sfx, b_sfx = a_sfx * a_far, a_sfx * b_far + b_sfx
         k *= 2
     contrib = a_sfx * value[:, None] + b_sfx
+    if two_p:
+        contrib = torch.where(same | one_p, contrib, -contrib)
     contrib = torch.where(valid, contrib, 0.0)
 
     # each path node appears once per path, so the scatter-add has a single
@@ -552,6 +593,8 @@ def _expand_and_backup(
 
     # post-backup node values from the recorded pre-backup stats
     node_value = (pre_vsum + contrib) / (pre_visit + 1.0)
+    if two_p:
+        node_value = torch.where(one_p, node_value, -node_value)
     q = node_r + cfg.discount * node_value
     vmin = torch.minimum(tree.vmin, torch.min(torch.where(valid, q, torch.inf), dim=1).values)
     vmax = torch.maximum(tree.vmax, torch.max(torch.where(valid, q, -torch.inf), dim=1).values)

@@ -15,10 +15,14 @@ UNVISITED = -1
 
 
 def map_embedding(fn: Callable, emb: Any, *rest: Any) -> Any:
-    """Apply ``fn`` leaf-wise over an embedding that is a tensor or a dict of
-    tensors (the port's stand-in for a JAX pytree)."""
+    """Apply ``fn`` leaf-wise over an embedding that is a tensor, a dict of
+    tensors or a NamedTuple of tensors (an env state, AlphaZero's embedding):
+    the port's stand-in for a JAX pytree."""
     if isinstance(emb, dict):
         return {k: map_embedding(fn, v, *(r[k] for r in rest)) for k, v in emb.items()}
+    if isinstance(emb, tuple):
+        return type(emb)(*(map_embedding(fn, v, *(r[i] for r in rest))
+                           for i, v in enumerate(emb)))
     return fn(emb, *rest)
 
 

@@ -3,7 +3,9 @@
 A checkpoint is one file, ``<path>.pt``, written with ``torch.save``: the
 state dicts of the online model, the target model, the optimizer and its
 learning-rate schedule, and ``train_iter``. A params export holds the two
-models only. Loading restores into a ``TrainState`` in place.
+models only. Loading restores into a ``TrainState`` in place. A state
+without a target model or a schedule (AlphaZero's ``AZTrainState``) saves
+and restores the fields it has.
 """
 from __future__ import annotations
 
@@ -31,27 +33,24 @@ def _save(obj: Dict[str, Any], path: str) -> str:
     return out
 
 
+_MODELS = ("model", "target_model")
+_FIELDS = _MODELS + ("optimizer", "lr_scheduler")
+
+
+def _state_dicts(state, fields) -> Dict[str, Any]:
+    return {f: getattr(state, f).state_dict() for f in fields if hasattr(state, f)}
+
+
 def save_checkpoint(state, path: str) -> str:
     """Save a ``TrainState``; returns the file written."""
-    return _save(
-        dict(
-            model=state.model.state_dict(),
-            target_model=state.target_model.state_dict(),
-            optimizer=state.optimizer.state_dict(),
-            lr_scheduler=state.lr_scheduler.state_dict(),
-            train_iter=int(state.train_iter),
-        ),
-        path,
-    )
+    return _save(dict(_state_dicts(state, _FIELDS), train_iter=int(state.train_iter)), path)
 
 
 def save_params_export(state, path: str) -> str:
-    """The two models only: several times smaller than a checkpoint, and
+    """The models only: several times smaller than a checkpoint, and
     what evaluation and warm starts need. ``load_checkpoint_lenient``
     restores it into any ``TrainState``, keeping the fresh optimizer."""
-    return _save(
-        dict(model=state.model.state_dict(), target_model=state.target_model.state_dict()), path
-    )
+    return _save(_state_dicts(state, _MODELS), path)
 
 
 def _load_optimizer(optimizer: torch.optim.Optimizer, saved: Dict[str, Any]) -> None:
@@ -76,11 +75,16 @@ def load_checkpoint(path: str, target: Optional[Any] = None) -> Any:
     raw = torch.load(_file(path), map_location="cpu", weights_only=True)
     if target is None:
         return raw
-    target.model.load_state_dict(raw["model"])
-    target.target_model.load_state_dict(raw["target_model"])
-    _load_optimizer(target.optimizer, raw["optimizer"])
-    target.lr_scheduler.load_state_dict(raw["lr_scheduler"])
+    for field, load in _loaders(target).items():
+        load(raw[field])
     return target._replace(train_iter=int(raw["train_iter"]))
+
+
+def _loaders(target: Any) -> Dict[str, Any]:
+    """The fields of ``target`` -> the function that restores each."""
+    loaders = {f: getattr(target, f).load_state_dict for f in _FIELDS if hasattr(target, f)}
+    loaders["optimizer"] = lambda sd: _load_optimizer(target.optimizer, sd)
+    return loaders
 
 
 def load_checkpoint_lenient(path: str, target: Any) -> Any:
@@ -92,14 +96,8 @@ def load_checkpoint_lenient(path: str, target: Any) -> Any:
         return load_checkpoint(path, target=target)
     except _MISFIT as e:
         raw = load_checkpoint(path)
-        loaders = dict(
-            model=target.model.load_state_dict,
-            target_model=target.target_model.load_state_dict,
-            optimizer=lambda sd: _load_optimizer(target.optimizer, sd),
-            lr_scheduler=target.lr_scheduler.load_state_dict,
-        )
         ok, failed = [], []
-        for field, load in loaders.items():
+        for field, load in _loaders(target).items():
             try:
                 load(raw[field])
                 ok.append(field)

@@ -1,7 +1,7 @@
 """Carry flax parameters of the JAX ``MuZeroModel`` (with the SSL projector),
 ``EfficientZeroModel``, ``StochasticMuZeroModel``, ``SampledMuZeroModel``,
-``SampledEfficientZeroModel`` (MLP and conv branches) and ``MuZeroRNNModel``
-(MLP) into the port's models, and back.
+``SampledEfficientZeroModel`` (MLP and conv branches), ``MuZeroRNNModel``
+(MLP) and ``AlphaZeroModel`` into the port's models, and back.
 
 ``flax_to_state_dict`` takes the flax params as nested dicts of numpy arrays
 (``{"params": {...}}`` or the inner dict), e.g.
@@ -39,7 +39,9 @@ order in lists, so a flax path maps segment by segment. The top module by
 -> ``conv.i``, ``LayerNorm_i`` -> ``norm.i``, ``ResBlock_i`` -> ``res.i``,
 ``DownSample_0`` -> ``downsample``, ``MLPTorso_i`` -> ``mlp.i``, ``Dense_i``
 -> ``dense.i``, and the projector's ``proj_i``, ``proj_norms_i``, ``pred_i``
--> ``proj.i``, ``proj_norms.i``, ``pred.i``. A conv ``kernel`` (kh, kw, in,
+-> ``proj.i``, ``proj_norms.i``, ``pred.i``. AlphaZero's modules sit at the
+top (``Conv_0``, ``LayerNorm_0``, ``ResBlock_i``, ``MLPTorso_i``), so its
+top segments map as lists too (``Conv_0`` -> ``conv.0``). A conv ``kernel`` (kh, kw, in,
 out) becomes a ``weight`` (out, in, kh, kw); the way back tells a
 LayerNorm ``weight`` (1-D, flax ``scale``) from a Dense (2-D) or conv (4-D)
 ``kernel`` by its rank.
@@ -167,6 +169,8 @@ def _conv_port_name(key: str) -> str:
         parts = [_CONV_TOPS[top]]
     elif m is not None and m.group(1) in _CONV_TOPS and m.group(1).endswith("_blocks"):
         parts = [_CONV_TOPS[m.group(1)], m.group(2)]
+    elif m is not None and m.group(1) in _CONV_LISTS:
+        parts = [_CONV_LISTS[m.group(1)], m.group(2)]  # AlphaZero
     else:
         raise KeyError(f"no counterpart in the port for flax parameter {key!r}")
     for mod in mods:
@@ -190,9 +194,11 @@ def _conv_flax_path(name: str, ndim: int) -> str:
     if not mods or leaf not in ("weight", "bias"):
         raise KeyError(f"no counterpart in flax for port parameter {name!r}")
     top = _CONV_TOPS_BACK.get(mods[0])
-    if top is None:
-        raise KeyError(f"no counterpart in flax for port parameter {name!r}")
     rest = mods[1:]
+    if top is None and mods[0] in _CONV_LISTS_BACK and rest and rest[0].isdigit():
+        top, rest = f"{_CONV_LISTS_BACK[mods[0]]}_{rest[0]}", rest[1:]  # AlphaZero
+    elif top is None:
+        raise KeyError(f"no counterpart in flax for port parameter {name!r}")
     if top.endswith("_blocks"):
         if not rest or not rest[0].isdigit():
             raise KeyError(f"no counterpart in flax for port parameter {name!r}")

@@ -133,7 +133,9 @@ class RolloutCollector:
     def _reset_all(self):
         state, obs = self.env.reset(self.num_envs, self.generator)
         legal = self.env.legal_mask(state)
-        to_play = torch.full((self.num_envs,), -1, dtype=torch.int32, device=self.device)
+        # the first roots' player comes from the env (collector.py:124-127):
+        # the player to move in board self-play, -1 otherwise
+        to_play = self.env.initial_to_play(state).to(self.device, torch.int32)
         return state, obs, legal, to_play
 
     @torch.no_grad()

@@ -166,11 +166,17 @@ def test_replay_core_is_the_jax_packages_code():
 
 
 def test_refuses_unported_modes(policies):
-    _, _, port = policies
-    with pytest.raises(NotImplementedError, match="slice 17"):
-        GameBuffer(jax_deep_merge(port.cfg, dict(env_type="board_games")), port)
-    with pytest.raises(NotImplementedError, match="slice 17"):
-        GameBuffer(jax_deep_merge(port.cfg, dict(mirror_augmentation=True)), port)
+    jax_policy, _, port = policies
+    # board-game targets and mirror augmentation are ported
+    # (tests/test_torch_board_buffer.py holds them against JAX): the modes
+    # are read from the config as the JAX buffer reads them
+    for override in (dict(env_type="board_games"), dict(mirror_augmentation=True),
+                     dict(env_type="board_games", battle_mode="self_play_mode")):
+        jax_buf = JaxGameBuffer(jax_deep_merge(jax_policy.cfg, override), jax_policy)
+        buf = GameBuffer(jax_deep_merge(port.cfg, override), port)
+        assert ((buf.board_mode, buf.winner_z_targets, buf.mirror_augmentation)
+                == (jax_buf.board_mode, jax_buf.winner_z_targets, jax_buf.mirror_augmentation))
+    assert buf.winner_z_targets
     buf = GameBuffer(port.cfg, port)
     # whole-buffer reanalyze is ported (tests/test_torch_rezero.py holds it
     # against JAX): it runs and rewrites the stored targets

@@ -160,10 +160,10 @@ def test_players_two_is_refused():
     root = RootOutput(prior_logits=torch.from_numpy(d["prior_logits"]),
                       value=torch.from_numpy(d["value"]),
                       embedding={"latent": torch.from_numpy(d["latent"])})
-    with pytest.raises(NotImplementedError, match="slice 17"):
+    with pytest.raises(NotImplementedError, match="slice 17, PR 13"):
         batch_gumbel_search(root, _torch_dummy_recurrent, GumbelSearchConfig(players=2),
                             torch.from_numpy(d["legal"]), device="cpu")
-    with pytest.raises(NotImplementedError, match="slice 17"):
+    with pytest.raises(NotImplementedError, match="slice 17, PR 13"):
         GumbelMuZeroPolicy(dict(env_type="board_games", model=MODEL), device="cpu")
 
 

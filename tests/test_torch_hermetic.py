@@ -87,6 +87,40 @@ def test_grid_envs_and_conv_stack_import_without_jax():
     assert proc.returncode == 0, proc.stderr
 
 
+# the bsuite and memory envs, the wrappers, the board games, the two-player
+# search and AlphaZero, named as the grid modules are above
+BOARD_AND_PROBE_MODULES = (
+    "lightzero_tpu_torch.envs.bsuite_like", "lightzero_tpu_torch.envs.memory_env",
+    "lightzero_tpu_torch.envs.wrappers", "lightzero_tpu_torch.envs.board.board_utils",
+    "lightzero_tpu_torch.envs.board.tictactoe", "lightzero_tpu_torch.envs.board.connect4",
+    "lightzero_tpu_torch.search.puct", "lightzero_tpu_torch.buffers.game_buffer",
+    "lightzero_tpu_torch.models.alphazero", "lightzero_tpu_torch.policy.alphazero",
+    "lightzero_tpu_torch.ops.board_augment", "lightzero_tpu_torch.workers.alphazero_workers",
+    "lightzero_tpu_torch.entry.train_alphazero", "lightzero_tpu_torch.utils.params_import",
+    "lightzero_tpu_torch.configs.catch_muzero", "lightzero_tpu_torch.configs.deep_sea_muzero",
+    "lightzero_tpu_torch.configs.bsuite_efficientzero", "lightzero_tpu_torch.configs.memory_muzero",
+    "lightzero_tpu_torch.configs.memory_efficientzero",
+    "lightzero_tpu_torch.configs.tictactoe_muzero_bot_mode",
+    "lightzero_tpu_torch.configs.tictactoe_muzero_sp_mode",
+    "lightzero_tpu_torch.configs.tictactoe_efficientzero_bot_mode",
+    "lightzero_tpu_torch.configs.connect4_muzero_bot_mode",
+    "lightzero_tpu_torch.configs.connect4_muzero_ft",
+    "lightzero_tpu_torch.configs.tictactoe_alphazero_bot_mode",
+    "lightzero_tpu_torch.configs.tictactoe_alphazero_sp_mode",
+    "lightzero_tpu_torch.configs.connect4_alphazero_bot_mode",
+)
+
+
+def test_board_games_probes_and_alphazero_import_without_jax():
+    proc = subprocess.run(
+        [sys.executable, "-c", _IMPORT_NAMED.format(forbidden=FORBIDDEN,
+                                                    modules=BOARD_AND_PROBE_MODULES)],
+        cwd=REPO, capture_output=True, text=True, timeout=120,
+        env=dict(os.environ, PYTHONPATH=str(REPO)),
+    )
+    assert proc.returncode == 0, proc.stderr
+
+
 def _imported_roots(path: pathlib.Path):
     tree = ast.parse(path.read_text(), filename=str(path))
     for node in ast.walk(tree):
@@ -134,6 +168,14 @@ def test_search_without_device_raises_with_no_cuda(no_cuda):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         batch_puct_search(root, None, SearchConfig(num_simulations=2),
                           torch.ones(2, 3, dtype=torch.bool))
+
+
+def test_alphazero_policy_without_device_raises_with_no_cuda(no_cuda):
+    from lightzero_tpu_torch.envs import TicTacToeEnv
+    from lightzero_tpu_torch.policy import AlphaZeroPolicy
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        AlphaZeroPolicy(None, TicTacToeEnv())
 
 
 def test_division_check_exits_nonzero_with_no_cuda(no_cuda, capsys):

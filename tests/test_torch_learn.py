@@ -25,6 +25,7 @@
   and the same tolerances on the params after each step.
 """
 import copy
+import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -284,13 +285,31 @@ def test_learn_step_refuses_harmony_and_reuse():
         MuZeroPolicy(dict(model=dict(harmony_balance=True)), device="cpu")
     with pytest.raises(NotImplementedError, match="slice 19"):
         MuZeroPolicy(dict(model=dict(num_tasks=2)), device="cpu")
-    # the reuse search is ported for one player; two players wait for slice 17
-    port = MuZeroPolicy(dict(model=dict(latent_state_dim=8), env_type="board_games"),
-                        device="cpu")
-    with pytest.raises(NotImplementedError, match="slice 17"):
-        port.forward_reanalyze(port.model, torch.zeros(2, 4), torch.ones(2, 2, dtype=torch.bool),
-                               true_action=torch.zeros(2, dtype=torch.long),
-                               reuse_value=torch.zeros(2))
+    # the reuse search is ported for two players too: a board-game policy's
+    # reuse reanalyze runs, and agrees with JAX's on the same params
+    # (tests/test_torch_two_player_search.py holds the search itself)
+    small = dict(model=dict(latent_state_dim=8, support_scale=10), env_type="board_games",
+                 num_simulations=6, reanalyze_noise=False)
+    jax_policy = JaxMuZeroPolicy(jax_deep_merge(JaxMuZeroPolicy.default_config(), small))
+    jax_policy.search_cfg = dataclasses.replace(jax_policy.search_cfg, tie_break="first")
+    params = jax.tree_util.tree_map(jnp.asarray, perturbed_params(jax_policy.model, 2))
+    port = MuZeroPolicy(small, device="cpu")
+    port.model.load_state_dict(flax_to_state_dict(jax.tree_util.tree_map(np.asarray, params)))
+    port.search_cfg = dataclasses.replace(port.search_cfg, tie_break="first")
+    rng = np.random.default_rng(2)
+    obs = rng.standard_normal((4, 4)).astype(np.float32)
+    to_play = np.array([1, 2, -1, 1], np.int32)
+    true_action, reuse_value = np.array([0, 1, 1, 0]), np.array([0.3, -0.2, 0.5, 0.1], np.float32)
+    got_policy, got_value = port.forward_reanalyze(
+        port.model, torch.from_numpy(obs), torch.ones(4, 2, dtype=torch.bool),
+        to_play=torch.from_numpy(to_play), true_action=torch.from_numpy(true_action),
+        reuse_value=torch.from_numpy(reuse_value))
+    exp_policy, exp_value = jax_policy.forward_reanalyze(
+        params, jax.random.PRNGKey(0), jnp.asarray(obs), jnp.ones((4, 2), bool),
+        jnp.asarray(to_play), true_action=jnp.asarray(true_action, jnp.int32),
+        reuse_value=jnp.asarray(reuse_value))
+    np.testing.assert_allclose(got_policy.numpy(), np.asarray(exp_policy), rtol=0, atol=1e-6)
+    np.testing.assert_allclose(got_value.numpy(), np.asarray(exp_value), rtol=1e-5, atol=1e-5)
 
 
 def test_buffer_learn_priority_sample_chain_matches_jax(jax_policy):

@@ -146,10 +146,7 @@ def test_noise_tie_break_search_runs_and_counts_every_simulation():
 @pytest.mark.parametrize(
     "change,kwargs,match",
     [
-        (dict(players=2), {}, "players == 2"),
-        (dict(stochastic=True, players=2), {}, "players == 2"),
-        (dict(players=2), dict(true_action=torch.zeros(B, dtype=torch.long),
-                               reuse_value=torch.zeros(B)), "true_action.*slice 17"),
+        (dict(stochastic=True, players=2), {}, "players == 2.*slice 17, PR 13"),
     ],
 )
 def test_out_of_scope_searches_raise(change, kwargs, match):
@@ -162,3 +159,34 @@ def test_out_of_scope_searches_raise(change, kwargs, match):
     with pytest.raises(NotImplementedError, match=match):
         batch_puct_search(root, _torch_dummy_recurrent, cfg, torch.from_numpy(d["legal"]),
                           device="cpu", **kwargs)
+
+
+# the two players-2 searches that test_out_of_scope_searches_raise refused
+# until two-player search was ported, now held against JAX (the golden cases
+# are in tests/test_torch_two_player_search.py)
+@pytest.mark.parametrize("reuse", [False, True], ids=["plain", "reuse"])
+def test_two_player_searches_match_jax(reuse):
+    d = _inputs(4)
+    to_play = np.array([1, 2, 1, -1, 2, 1, 2, -1], np.int32)
+    kw = {}
+    if reuse:
+        kw = dict(true_action=np.array([0, 1, 1, 2, 4, 0, 3, 1]),
+                  reuse_value=np.linspace(-0.6, 0.6, B).astype(np.float32))
+    cfg = JaxSearchConfig(num_simulations=10, tie_break="first", players=2)
+    root = JaxRootOutput(prior_logits=jnp.asarray(d["prior_logits"]), value=jnp.asarray(d["value"]),
+                         embedding={"latent": jnp.asarray(d["latent"])})
+    exp = jax_search(None, jax.random.PRNGKey(0), root, _jax_dummy_recurrent, cfg,
+                     jnp.asarray(d["legal"]), to_play=jnp.asarray(to_play),
+                     noise=jnp.asarray(d["noise"]), **{k: jnp.asarray(v) for k, v in kw.items()})
+    root = RootOutput(prior_logits=torch.from_numpy(d["prior_logits"]),
+                      value=torch.from_numpy(d["value"]),
+                      embedding={"latent": torch.from_numpy(d["latent"])})
+    got = batch_puct_search(root, _torch_dummy_recurrent,
+                            SearchConfig(num_simulations=10, tie_break="first", players=2),
+                            torch.from_numpy(d["legal"]), to_play=torch.from_numpy(to_play),
+                            noise=torch.from_numpy(d["noise"]), device="cpu",
+                            **{k: torch.from_numpy(v) for k, v in kw.items()})
+    np.testing.assert_array_equal(got.visit_counts.numpy(), np.asarray(exp.visit_counts))
+    np.testing.assert_allclose(got.root_value.numpy(), np.asarray(exp.root_value),
+                               rtol=1e-5, atol=1e-5)
+    np.testing.assert_array_equal(got.tree.to_play.numpy(), np.asarray(exp.tree.to_play))

@@ -157,8 +157,8 @@ def test_lenient_load_of_a_params_export_keeps_the_fresh_optimizer(tmp_path):
 @pytest.mark.parametrize("override,match", [
     (dict(policy=dict(type="unizero")), "slice 18"),
     (dict(policy=dict(type="muzero_multitask")), "slice 19"),
-    (dict(policy=dict(type="gumbel_muzero", env_type="board_games")), "slice 17"),
-    (dict(env=dict(env_id="tictactoe")), "slice 17"),
+    (dict(policy=dict(type="gumbel_muzero", env_type="board_games")), "slice 17, PR 13"),
+    (dict(env=dict(env_id="gomoku")), "slice 17, PR 13"),
     (dict(policy=dict(analysis_loss_landscape=True)), "slice 20"),
     (dict(policy=dict(model=dict(MODEL, harmony_balance=True))), "slice 20"),
 ])
