@@ -67,7 +67,8 @@ Phases, each of a fixed size, in one process:
      between two device syncs; a batch of 4 numpy-seeded boards searched on
      the card and on the CPU with the same Dirichlet noise, the same chance
      draws and tie_break='first'; a short train_muzero run as in phase 7
-     with episodes truncated at STOCH_TRAIN_EPISODE_STEPS (its eval runs
+     at STOCH_TRAIN_SIMS simulations with episodes truncated at
+     STOCH_TRAIN_EPISODE_STEPS (its eval runs
      that many steps, its collect round the collector's 64, 512
      transitions); one learn step on the card against one on the CPU; the
      median learn-step time;
@@ -148,6 +149,29 @@ Phases, each of a fixed size, in one process:
      batches; no launch. (The committed Connect4 params are an orbax
      checkpoint, zstd-compressed OCDBT, which the card's machine cannot read
      without JAX: tests/connect4_params_eval.py plays them on the CPU.)
+ 14. big_boards: Go, Gomoku and Chess at the zoo configs' full width, every
+     search two-player (or bot-mode) on the generic or the Gumbel descent,
+     no launch. Go 6x6 AlphaZero (64 channels, 2 res blocks, 37 actions, 60
+     simulations; games cut at GO_MAX_MOVES plies), Gomoku Gumbel AlphaZero
+     (32 simulations, 8 considered actions) and Gomoku Sampled AlphaZero
+     (K=18 of 36, 50 simulations): each 4 positions searched on the card
+     and on the CPU with the same draws (Dirichlet noise; the Gumbel table;
+     the root's and every simulation's Gumbel-top-K draws) and
+     tie_break='first', then a train_alphazero run whose iter-0 eval plays
+     BIG_EVAL_EPISODES games against the rule bot on 5 envs with its
+     descents timed, one self-play collect of 8 games (more until the
+     replay holds a batch) and SHORT_TRAIN_ITERS learn steps, one learn step
+     on the card against the CPU and the median learn-step time. Chess
+     AlphaZero (96 channels, 6 res blocks, 4672 actions, 50 simulations):
+     the bot eval on 5 envs, games cut at CHESS_MAX_MOVES plies, and perft
+     to depth 2 from the start position and Kiwipete with the card's
+     legal_mask_full (400 and 2,039). Gomoku MuZero (conv 32 channels, 50
+     simulations; downsample=False, since the zoo file's default
+     downsampling leaves no cell, on which the JAX package fails too): the
+     Evaluator against the bot with its descent timed and a short
+     train_muzero run at BIG_MZ_TRAIN_SIMS simulations. A summary line per
+     config gives eval s per env step, the descent's ms, levels and share
+     of the eval wall, the learn step, the collect rate and the launches.
 
 The last lines are the card's name and power limit, one JSON object with a
 record per kernel, and {"ok": true, "device": {...}}; that last line is printed
@@ -192,8 +216,17 @@ from lightzero_tpu_torch.configs.catch_muzero import main_config as catch_config
 from lightzero_tpu_torch.configs.connect4_muzero_ft import main_config as connect4_config
 from lightzero_tpu_torch.configs.memory_efficientzero import main_config as memory_config
 from lightzero_tpu_torch.configs.tictactoe_alphazero_bot_mode import main_config as ttt_az_config
+from lightzero_tpu_torch.configs.chess_alphazero_bot_mode import main_config as chess_az_config
+from lightzero_tpu_torch.configs.go6_alphazero_bot_mode import main_config as go6_az_config
+from lightzero_tpu_torch.configs.gomoku_gumbel_alphazero import main_config as gomoku_gaz_config
+from lightzero_tpu_torch.configs.gomoku_muzero_bot_mode import main_config as gomoku_mz_config
+from lightzero_tpu_torch.configs.gomoku_sampled_alphazero_bot_mode import (
+    main_config as gomoku_saz_config,
+)
 from lightzero_tpu_torch.buffers import GameBuffer
 from lightzero_tpu_torch.entry import train_alphazero, train_muzero
+from lightzero_tpu_torch.entry.train_alphazero import build_env
+from lightzero_tpu_torch.entry.train_muzero import create_env
 from lightzero_tpu_torch.envs import (
     BreakoutGridEnv,
     CartPoleEnv,
@@ -205,6 +238,7 @@ from lightzero_tpu_torch.envs import (
     SpaceInvadersGridEnv,
     TicTacToeEnv,
 )
+from lightzero_tpu_torch.envs.board import chess
 from lightzero_tpu_torch.envs.game_2048 import legal_moves
 from lightzero_tpu_torch.models import (
     AlphaZeroModel,
@@ -218,10 +252,12 @@ from lightzero_tpu_torch.models.sampled_muzero import SampledHeads
 from lightzero_tpu_torch.policy import (
     AlphaZeroPolicy,
     EfficientZeroPolicy,
+    GumbelAlphaZeroPolicy,
     GumbelMuZeroPolicy,
     MuZeroContextPolicy,
     MuZeroPolicy,
     MuZeroRNNFullObsPolicy,
+    SampledAlphaZeroPolicy,
     SampledEfficientZeroPolicy,
     SampledMuZeroPolicy,
     StochasticMuZeroPolicy,
@@ -284,9 +320,15 @@ PROFILED_LEARN_STEPS = 5
 # rerun kernel against plain
 SHORT_TRAIN_ITERS = 20
 EZ_CAPTURED_SIMS = (1, 13, 25)
+# phase 9's short training run searches with STOCH_TRAIN_SIMS simulations,
+# its evals with the config's 50: its collect round took 45 s at 50, and
+# phase 14 would have taken the script past the watchdog on slower hosts
+STOCH_TRAIN_SIMS = 10
 # phase 9: a 2048 episode runs for hundreds of moves, so the evals and the
-# short training run truncate episodes at these env steps
-STOCH_EVAL_STEPS = 12
+# short training run truncate episodes at these env steps (the first eval
+# at 12 until phase 14 came; phase 10's at 12, phase 12's at 16 and phase
+# 13's AlphaZero eval at 10 games were cut for it too)
+STOCH_EVAL_STEPS = 8
 STOCH_TIMED_EVAL_STEPS = 6
 STOCH_TRAIN_EPISODE_STEPS = 16
 # phase 10: a Pendulum episode runs 200 steps, so the evals truncate episodes
@@ -295,7 +337,7 @@ STOCH_TRAIN_EPISODE_STEPS = 16
 # round of the collector's 64 steps x 8 envs, 16 episodes, fills the batch);
 # the simulations of the Sampled MuZero eval search whose descent inputs are
 # rerun kernel against plain
-SAMPLED_EVAL_STEPS = 12
+SAMPLED_EVAL_STEPS = 8
 SAMPLED_TRAIN_EPISODE_STEPS = 32
 SAMPLED_CAPTURED_SIMS = (1, 25, 50)
 # phase 11: ReZero's reuse reanalyze searches each group of episodes once per
@@ -303,8 +345,9 @@ SAMPLED_CAPTURED_SIMS = (1, 25, 50)
 # REZERO_TRAIN_EPISODE_STEPS to bound that count; MuZero-Context's card-vs-CPU
 # check steps CONTEXT_STEPS times with its context reset every
 # context_length_init = 5 steps; the CartPole MuZero config becomes
-# MuZero-RNN-full-obs with the JAX default GRU width
-REZERO_TRAIN_EPISODE_STEPS = 50
+# MuZero-RNN-full-obs with the JAX default GRU width. (The truncation was 50
+# until phase 14 came; 30 keeps the script within the watchdog.)
+REZERO_TRAIN_EPISODE_STEPS = 30
 CONTEXT_STEPS = 7
 RNN_HIDDEN_SIZE = 128
 # phase 12: a grid episode runs up to 400-500 steps, so the evals truncate
@@ -312,7 +355,7 @@ RNN_HIDDEN_SIZE = 128
 # GRID_TRAIN_EPISODE_STEPS (one collect round of 64 steps x 8 envs fills the
 # batch of 256 either way); the Atari-width check's frames and tolerance
 # (float32 convolutions of up to 576 terms by other algorithms on the card)
-GRID_EVAL_STEPS = 16
+GRID_EVAL_STEPS = 10
 GRID_TRAIN_EPISODE_STEPS = 32
 GRID_CAPTURED_SIMS = (1, 13, 25)
 ATARI_BATCH = 4
@@ -324,9 +367,26 @@ ATARI_TOL = 1e-4
 # guess, which would make one collect round of 64 steps run for a minute),
 # and the eval envs and episodes of that run
 PROBE_CAPTURED_SIMS = (1, 13, 25)
-AZ_EVAL_EPISODES = 10
+AZ_EVAL_EPISODES = 5
 C4_TRAIN_SIMS = 10
 C4_TRAIN_EVAL_EPISODES = 3
+# phase 14: Go games are cut at GO_MAX_MOVES plies and chess games at
+# CHESS_MAX_MOVES (the envs' move cap: a cut Go game is scored, a cut chess
+# game drawn), Gomoku games end by themselves within 36 plies; the
+# AlphaZero variants' evals play BIG_EVAL_EPISODES games on 5 envs; Gomoku
+# MuZero's short training run searches with BIG_MZ_TRAIN_SIMS simulations
+# (its eval with the config's 50); perft cases on the card. With an eval of
+# its own beside each training run, phase 14 took 115 s on an H100 80GB HBM3
+# at 700 W; the AlphaZero variants now time the training run's own eval
+GO_MAX_MOVES = 12
+CHESS_MAX_MOVES = 4
+BIG_EVAL_EPISODES = 5
+BIG_MZ_TRAIN_SIMS = 10
+PERFT_CASES = (
+    ("start", "rnbqkbnr/pppppppp/8/8/8/8/PPPPPPPP/RNBQKBNR w KQkq - 0 1", 2, 400),
+    ("kiwipete", "r3k2r/p1ppqpb1/bn2pnp1/3PN3/1p2P3/2N2Q1p/PPPBBPPP/R3K2R w KQkq - 0 1", 2,
+     2039),
+)
 # card vs CPU learn step from the same params and batch (TF32 off): the
 # logged terms to 1e-4 relative (float32 matmuls of batch 256 summed in
 # another order). Adam's first update is lr * g / (|g| + 1e-8), g the
@@ -1306,8 +1366,9 @@ def phase_stochastic(card: str) -> dict:
 
     cfg = copy.deepcopy(stoch_config)
     cfg.env.max_episode_steps = STOCH_TRAIN_EPISODE_STEPS
+    cfg.policy.num_simulations = STOCH_TRAIN_SIMS
     train, problems, *_ = short_train(cfg, card, "stochastic_muzero", 0)
-    train["episodes_truncated_at"] = STOCH_TRAIN_EPISODE_STEPS
+    train.update(episodes_truncated_at=STOCH_TRAIN_EPISODE_STEPS, num_simulations=STOCH_TRAIN_SIMS)
     emit(train)
     if problems:
         raise AssertionError(f"stochastic_muzero train failed: {problems}")
@@ -1736,53 +1797,58 @@ def phase_probes(card: str, l2_ns: float) -> tuple:
     return records, cases, time.perf_counter() - t0
 
 
-def az_search_card_vs_cpu(policy) -> dict:
-    """4 TicTacToe positions (players 1 and 2 to move) searched on the card
-    and on the CPU with the same noise and tie_break='first': visit counts
-    equal, root values within VALUE_TOL."""
-    env = TicTacToeEnv("self_play_mode")
-    # two positions 2 plies in (player 1 to move) and two 3 plies in (player 2)
-    (a, _, legal_a), (b, _, legal_b) = (probe_states(env, 2, MAIN_SEED + 41 + plies, plies)
+def az_positions(env, seed: int) -> tuple:
+    """4 self-play positions of ``env``: two 2 plies in (player 1 to move)
+    and two 3 plies in (player 2): (state, legal)."""
+    (a, _, legal_a), (b, _, legal_b) = (probe_states(env, 2, seed + plies, plies)
                                         for plies in (2, 3))
-    state = type(a)(*(torch.cat([x, y]) for x, y in zip(a, b)))
-    legal = torch.cat([legal_a, legal_b])
-    noise = dirichlet_on(legal, MAIN_SEED + 41)
-    cpu_policy = AlphaZeroPolicy(policy.cfg, policy.env, model=copy.deepcopy(policy.model).cpu(),
-                                 device="cpu")
+    return type(a)(*(torch.cat([x, y]) for x, y in zip(a, b))), torch.cat([legal_a, legal_b])
+
+
+def az_search_card_vs_cpu(policy, label: str, state, close=(), tol=VALUE_TOL, **draws) -> dict:
+    """Positions searched on the card and on the CPU from the same weights,
+    with the same ``draws`` (passed to ``_forward_collect``) and
+    tie_break='first': visit counts equal (the raw ones, where the stored
+    target is Gumbel AlphaZero's improved policy), root values within
+    VALUE_TOL and the outputs named in ``close`` within ``tol``."""
+    cpu_policy = type(policy)(policy.cfg, policy.env, model=copy.deepcopy(policy.model).cpu(),
+                              device="cpu")
     search_cfg = policy.search_cfg
     outs = []
     try:
         for p in (policy, cpu_policy):
             p.search_cfg = dataclasses.replace(search_cfg, tie_break="first")
             on = type(state)(*(x.to(p.device) for x in state))
-            outs.append(p._forward_collect(on, 1.0, noise=noise.to(p.device)))
+            outs.append(p._forward_collect(on, 1.0, **{k: v.to(p.device) for k, v in draws.items()}))
     finally:
         policy.search_cfg = search_cfg
     on_card, on_cpu = ({k: v.cpu() for k, v in o.items()} for o in outs)
-    if not torch.equal(on_card["visit_counts"], on_cpu["visit_counts"]):
-        raise AssertionError(f"alphazero: card and CPU visit counts differ: "
-                             f"{on_card['visit_counts'].tolist()} vs {on_cpu['visit_counts'].tolist()}")
+    visits = "raw_visit_counts" if "raw_visit_counts" in on_card else "visit_counts"
+    if not torch.equal(on_card[visits], on_cpu[visits]):
+        raise AssertionError(f"{label}: card and CPU visit counts differ: "
+                             f"{on_card[visits].tolist()} vs {on_cpu[visits].tolist()}")
     err = {}
-    for key in ("searched_value", "predicted_value"):
+    for key, t in [(k, VALUE_TOL) for k in ("searched_value", "predicted_value")] + [
+            (k, tol) for k in close]:
         a, b = on_card[key].float(), on_cpu[key].float()
         err[key] = float((a - b).abs().max())
-        if not (torch.isfinite(a).all() and torch.allclose(a, b, rtol=VALUE_TOL, atol=VALUE_TOL)):
-            raise AssertionError(f"alphazero: card and CPU {key} differ: {a.tolist()} vs {b.tolist()}")
-    rec = dict(phase="tictactoe_alphazero_card_vs_cpu", batch=4, tie_break="first",
-               to_play=state.to_play.tolist(), visit_counts=on_card["visit_counts"].tolist(),
+        if not (torch.isfinite(a).all() and torch.allclose(a, b, rtol=t, atol=t)):
+            raise AssertionError(f"{label}: card and CPU {key} differ: {a.tolist()} vs {b.tolist()}")
+    rec = dict(phase=f"{label}_card_vs_cpu", batch=int(state.to_play.shape[0]), tie_break="first",
+               to_play=state.to_play.tolist(), visit_counts=on_card[visits].tolist(),
                searched_value=on_card["searched_value"].tolist(), max_abs_err=err)
     emit(rec)
     return rec
 
 
-def az_learn_step_card_vs_cpu(policy, batch) -> tuple:
+def az_learn_step_card_vs_cpu(policy, batch, label: str) -> tuple:
     """One AlphaZero learn step (clip, then AdamW) on the card and one on the
     CPU from the same params and batch, each with a fresh optimizer, held as
     learn_step_card_vs_cpu holds MuZero's (AdamW's decay stays outside the
     gradient Adam sees): (record, agree)."""
     results = {}
     for dev in ("cuda", "cpu"):
-        p = AlphaZeroPolicy(policy.cfg, policy.env, model=copy.deepcopy(policy.model), device=dev)
+        p = type(policy)(policy.cfg, policy.env, model=copy.deepcopy(policy.model), device=dev)
         state = p.init_train_state()
         _, logs = p.forward_learn(state, batch_to(batch, p.device))
         results[dev] = dict(logs={k: float(v) for k, v in logs.items()},
@@ -1791,7 +1857,7 @@ def az_learn_step_card_vs_cpu(policy, batch) -> tuple:
     card, cpu = results["cuda"], results["cpu"]
     lr = float(policy.cfg.learning_rate)
     log_err, tight_err, loose_err, loose, total = compare_learn_steps(card, cpu)
-    rec = dict(phase="tictactoe_alphazero_train_card_vs_cpu", batch=int(batch.obs.shape[0]),
+    rec = dict(phase=f"{label}_train_card_vs_cpu", batch=int(batch.obs.shape[0]),
                max_log_rel_err=max(log_err.values()), log_rel_err=log_err,
                param_max_abs_err=tight_err, param_max_abs_err_rounding_bound=loose_err,
                rounding_bound_elements=loose, elements=total,
@@ -1821,7 +1887,9 @@ def phase_alphazero(card: str) -> tuple:
                              seed=MAIN_SEED)
     randomize_heads(policy.model, MAIN_SEED + 41)
     sims = policy.search_cfg.num_simulations
-    agreement = az_search_card_vs_cpu(policy)
+    state, legal = az_positions(policy.env, MAIN_SEED + 41)
+    agreement = az_search_card_vs_cpu(policy, "tictactoe_alphazero", state,
+                                      noise=dirichlet_on(legal, MAIN_SEED + 41))
 
     collector = AlphaZeroSelfPlayCollector(policy.env, policy, 8, seed=MAIN_SEED)
     samples, cstats = collector.collect(temperature=1.0, num_episodes=8)
@@ -1867,7 +1935,7 @@ def phase_alphazero(card: str) -> tuple:
     losses = [r["learner/total_loss"] for r in records if "learner/total_loss" in r]
     batch_size = int(trained.cfg.batch_size)
     agreement_learn, agree = az_learn_step_card_vs_cpu(
-        trained, az_batch(stats["replay"], batch_size, MAIN_SEED))
+        trained, az_batch(stats["replay"], batch_size, MAIN_SEED), "tictactoe_alphazero")
     step_ms, timed_losses = [], []
     for i in range(TIMED_LEARN_STEPS):
         batch = az_batch(stats["replay"], batch_size, MAIN_SEED + 1 + i)
@@ -1936,6 +2004,243 @@ def phase_connect4(card: str) -> tuple:
     return dict(eval=ev, card_vs_cpu=agreement, train=train), time.perf_counter() - t0
 
 
+def gumbel_draws(shape, seed: int) -> torch.Tensor:
+    """(..., A) standard Gumbel draws from a numpy seed."""
+    u = np.random.default_rng(seed).random(shape)
+    return torch.from_numpy(-np.log(-np.log(np.maximum(u, 1e-20)))).to(torch.float32)
+
+
+def az_board_config(config, max_moves=None):
+    """A deep copy of an AlphaZero config, its games cut at ``max_moves``
+    plies where given (the env's move cap)."""
+    cfg = copy.deepcopy(config)
+    if max_moves:
+        cfg.env.max_moves = max_moves
+    return cfg
+
+
+def az_board_run(card: str, label: str, config, policy_cls, descent_name: str,
+                 draws_for, close=(), tol=VALUE_TOL) -> dict:
+    """One AlphaZero-family config on a board at its zoo width: 4 self-play
+    positions searched card vs CPU with the draws ``draws_for(legal)``
+    (seeded heads); a train_alphazero run (device unset: the card) whose
+    eval at iter 0 plays BIG_EVAL_EPISODES games against the rule bot on 5
+    envs with its descents timed, then one self-play collect of 8 games
+    (more where the replay holds less than a batch) and SHORT_TRAIN_ITERS
+    learn steps; one learn step card vs CPU; the median of
+    TIMED_LEARN_STEPS learn steps. No search launches the kernel."""
+    fused_traverse.launches = 0
+    sp_env = build_env(config.env, "self_play_mode")
+    policy = policy_cls(config.policy, sp_env, device="cuda", seed=MAIN_SEED)
+    randomize_heads(policy.model, MAIN_SEED + 61)
+    sims = int(policy.cfg.num_simulations)
+    state, legal = az_positions(sp_env, MAIN_SEED + 61)
+    agreement = az_search_card_vs_cpu(policy, label, state, close=close, tol=tol,
+                                      **draws_for(legal))
+
+    # the run's own eval, its descents timed
+    module = gumbel if descent_name == "_gumbel_traverse" else puct
+    evals, plain_eval = [], AlphaZeroBotEvaluator.eval
+
+    def timed_eval(evaluator, n_episodes=None):
+        descent, restore = timed_descents(module, descent_name)
+        try:
+            res = plain_eval(evaluator, n_episodes)
+            torch.cuda.synchronize()
+        finally:
+            restore()
+        evals.append((res, descent))
+        return res
+
+    cfg = copy.deepcopy(config)
+    cfg.policy.update_per_collect = SHORT_TRAIN_ITERS
+    cfg.env.evaluator_env_num, cfg.env.n_evaluator_episode = 5, BIG_EVAL_EPISODES
+    AlphaZeroBotEvaluator.eval = timed_eval
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            cfg.exp_name = os.path.join(tmp, label)
+            t1 = time.perf_counter()
+            trained, tstate, stats = train_alphazero(cfg, seed=MAIN_SEED,
+                                                     max_train_iter=SHORT_TRAIN_ITERS)
+            torch.cuda.synchronize()
+            train_wall = time.perf_counter() - t1
+            with open(os.path.join(cfg.exp_name, "log", "train.jsonl")) as f:
+                records = [json.loads(line) for line in f]
+    finally:
+        AlphaZeroBotEvaluator.eval = plain_eval
+    (res, descent), = evals
+    ev = descent_record(dict(phase=f"{label}_eval", num_envs=5,
+                             episode_returns=res["episode_returns"], win_rate=res["win_rate"],
+                             env_steps=res["env_steps"], wall_s=res["duration"],
+                             wall_per_env_step_s=res["duration"] / res["env_steps"], card=card),
+                        descent)
+    emit(ev)
+    if (len(res["episode_returns"]) != BIG_EVAL_EPISODES
+            or not set(res["episode_returns"]) <= {-1.0, 0.0, 1.0}
+            or descent["calls"] != res["env_steps"] * sims):
+        raise AssertionError(f"{label} eval: {res['episode_returns']}, {descent['calls']} "
+                             f"descents for {res['env_steps']} steps x {sims}")
+    losses = [r["learner/total_loss"] for r in records if "learner/total_loss" in r]
+    collect_sps = [r["collector/steps_per_sec"] for r in records if "collector/steps_per_sec" in r]
+    batch_size = int(trained.cfg.batch_size)
+    agreement_learn, agree = az_learn_step_card_vs_cpu(
+        trained, az_batch(stats["replay"], batch_size, MAIN_SEED), label)
+    step_ms, timed_losses = [], []
+    for i in range(TIMED_LEARN_STEPS):
+        batch = az_batch(stats["replay"], batch_size, MAIN_SEED + 1 + i)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        tstate, logs = trained.forward_learn(tstate, batch)
+        end.record()
+        torch.cuda.synchronize()
+        step_ms.append(start.elapsed_time(end))
+        timed_losses.append(float(logs["total_loss"]))
+    launches = fused_traverse.launches
+    train = dict(phase=f"{label}_train", train_iter=stats["train_iter"],
+                 env_steps=stats["env_steps"], replay=len(stats["replay"]),
+                 logged_total_losses=losses, collect_steps_per_s=collect_sps, wall_s=train_wall,
+                 learn_step_ms_median=float(np.median(step_ms)), learn_step_ms=step_ms,
+                 card_vs_cpu=agreement_learn, launches=launches, card=card)
+    emit(train)
+    problems = [] if agree else [f"card and CPU learn steps disagree: {agreement_learn}"]
+    if stats["train_iter"] != SHORT_TRAIN_ITERS:
+        problems.append(f"train_iter {stats['train_iter']}, expected {SHORT_TRAIN_ITERS}")
+    if not isinstance(trained, policy_cls) or not collect_sps:
+        problems.append(f"train_alphazero built {type(trained).__name__}, collect {collect_sps}")
+    if (not losses or not all(math.isfinite(x) for x in losses + timed_losses)
+            or not all(bool(torch.isfinite(p).all()) for p in tstate.model.parameters())):
+        problems.append("non-finite loss or params")
+    if launches != 0:
+        problems.append(f"{label}'s searches launched the descent kernel {launches} times")
+    if problems:
+        raise AssertionError(f"{label} failed: {problems}")
+    return dict(card_vs_cpu=agreement, eval=ev, train=train, launches=launches,
+                collect_steps_per_s=float(np.median(collect_sps)))
+
+
+def chess_on_card(card: str) -> dict:
+    """Chess AlphaZero at the zoo width (96 channels, 6 res blocks, 4672
+    actions, 50 simulations): the eval against the rule bot on 5 envs, games
+    cut at CHESS_MAX_MOVES plies, its descents timed; perft to depth 2 from
+    the start position and Kiwipete with the card's legal_mask_full."""
+    fused_traverse.launches = 0
+    cfg = az_board_config(chess_az_config, CHESS_MAX_MOVES)
+    bot_env = build_env(cfg.env, "play_with_bot_mode")
+    policy = AlphaZeroPolicy(cfg.policy, build_env(cfg.env, "self_play_mode"), device="cuda",
+                             seed=MAIN_SEED)
+    randomize_heads(policy.model, MAIN_SEED + 71)
+    sims = int(policy.cfg.num_simulations)
+    descent, restore = timed_descents(puct, "_generic_traverse")
+    try:
+        # chunks of CHESS_MAX_MOVES batched steps: each game ends within one
+        res = AlphaZeroBotEvaluator(bot_env, policy, 5, rollout_length=CHESS_MAX_MOVES,
+                                    seed=MAIN_SEED).eval(5)
+        torch.cuda.synchronize()
+    finally:
+        restore()
+    ev = descent_record(dict(phase="chess_alphazero_eval", num_envs=5,
+                             episode_returns=res["episode_returns"], env_steps=res["env_steps"],
+                             max_moves=CHESS_MAX_MOVES, wall_s=res["duration"],
+                             wall_per_env_step_s=res["duration"] / res["env_steps"],
+                             launches=fused_traverse.launches, card=card), descent)
+    emit(ev)
+    if (len(res["episode_returns"]) != 5 or descent["calls"] != res["env_steps"] * sims
+            or ev["launches"] != 0):
+        raise AssertionError(f"chess eval: {res['episode_returns']}, {descent['calls']} descents "
+                             f"for {res['env_steps']} steps x {sims}, {ev['launches']} launches")
+    perfts = []
+    for name, fen, depth, expected in PERFT_CASES:
+        s = chess.state_from_fen(fen, device="cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        nodes = chess.perft(s.board, s.castling, s.ep_sq, s.to_play == 1, depth)
+        perfts.append(dict(position=name, depth=depth, nodes=nodes, expected=expected,
+                           wall_s=time.perf_counter() - t0))
+        if nodes != expected:
+            raise AssertionError(f"chess perft {name} depth {depth}: {nodes} != {expected}")
+    rec = dict(phase="chess_perft", cases=perfts, device=str(s.board.device), card=card)
+    emit(rec)
+    return dict(eval=ev, perft=rec, launches=ev["launches"])
+
+
+def gomoku_muzero_on_card(card: str) -> dict:
+    """Gomoku MuZero (conv 32 channels, 36 actions, 50 simulations, bot
+    mode) with downsample=False (the zoo config's default downsampling
+    leaves no cell of the 6x6 board, and the JAX package fails on it:
+    ROADMAP queue 3), seeded weights: the Evaluator against the rule bot on
+    3 envs with its generic descent timed, a short train_muzero run at
+    BIG_MZ_TRAIN_SIMS simulations; no launch."""
+    cfg = copy.deepcopy(gomoku_mz_config)
+    cfg.policy.model.downsample = False
+    policy = MuZeroPolicy(cfg.policy, device="cuda", seed=MAIN_SEED)
+    randomize_heads(policy.model, MAIN_SEED + 81)
+    sims = policy.search_cfg.num_simulations
+    env = create_env(cfg.env)
+    descent, restore = timed_descents(puct, "_generic_traverse")
+    try:
+        ev = eval_episodes(policy, card, "gomoku_muzero", env=env, returns_range=(-1.0, 1.0))
+    finally:
+        restore()
+    ev = descent_record(dict(ev, config="gomoku_muzero_bot_mode", num_simulations=sims), descent)
+    emit(ev)
+    if ev["launches"] != 0 or descent["calls"] != ev["env_steps"] * sims:
+        raise AssertionError(f"gomoku_muzero eval: {ev['launches']} launches, "
+                             f"{descent['calls']} descents for {ev['env_steps']} steps x {sims}")
+    cfg.policy.num_simulations = BIG_MZ_TRAIN_SIMS
+    cfg.env.evaluator_env_num = cfg.env.n_evaluator_episode = 3
+    train, problems, *_ = short_train(cfg, card, "gomoku_muzero", 0)
+    train.update(num_simulations=BIG_MZ_TRAIN_SIMS,
+                 collect_steps_per_s=float(np.median(train["collect_steps_per_s"])))
+    emit(train)
+    if problems:
+        raise AssertionError(f"gomoku_muzero train failed: {problems}")
+    return dict(eval=ev, train=train, launches=ev["launches"] + train["launches"])
+
+
+def phase_big_boards(card: str) -> tuple:
+    """Go 6x6 AlphaZero, Gomoku Gumbel and Sampled AlphaZero, Chess
+    AlphaZero and Gomoku MuZero at the zoo configs' full width: every search
+    has two players (or bot-mode roots), so each takes the generic or the
+    Gumbel descent and none launches the kernel."""
+    t0 = time.perf_counter()
+    records = {}
+    records["go6_alphazero"] = az_board_run(
+        card, "go6_alphazero", az_board_config(go6_az_config, GO_MAX_MOVES), AlphaZeroPolicy,
+        "_generic_traverse", lambda legal: dict(noise=dirichlet_on(legal, MAIN_SEED + 61)))
+    gumbel_sims = int(gomoku_gaz_config.policy.num_simulations)
+    records["gomoku_gumbel_alphazero"] = az_board_run(
+        card, "gomoku_gumbel_alphazero", az_board_config(gomoku_gaz_config),
+        GumbelAlphaZeroPolicy, "_gumbel_traverse",
+        lambda legal: dict(gumbel=gumbel_draws(tuple(legal.shape), MAIN_SEED + 62)),
+        # the improved policy: the root values' bound times the completed-Q
+        # scale (maxvisit_init 50 + visits) * value_scale 0.1
+        close=("visit_counts",), tol=VALUE_TOL * (50 + gumbel_sims) * 0.1)
+    sampled_sims = int(gomoku_saz_config.policy.num_simulations)
+    records["gomoku_sampled_alphazero"] = az_board_run(
+        card, "gomoku_sampled_alphazero", az_board_config(gomoku_saz_config),
+        SampledAlphaZeroPolicy, "_generic_traverse",
+        lambda legal: dict(noise=dirichlet_on(legal, MAIN_SEED + 63),
+                           root_gumbel=gumbel_draws(tuple(legal.shape), MAIN_SEED + 64),
+                           sim_gumbel=gumbel_draws((sampled_sims,) + tuple(legal.shape),
+                                                   MAIN_SEED + 65)))
+    records["chess_alphazero"] = chess_on_card(card)
+    records["gomoku_muzero"] = gomoku_muzero_on_card(card)
+    for name, rec in records.items():
+        ev = rec["eval"]
+        emit(dict(phase=f"{name}_summary", card=card,
+                  eval_s_per_env_step=ev["wall_per_env_step_s"],
+                  descent_ms_per_call=ev["descent_ms_per_call"],
+                  descent_levels_per_call=ev["descent_levels_per_call"],
+                  descent_share_of_eval_wall=ev["descent_share_of_wall"],
+                  learn_step_ms_median=rec.get("train", {}).get("learn_step_ms_median"),
+                  collect_steps_per_s=rec.get("collect_steps_per_s",
+                                              rec.get("train", {}).get("collect_steps_per_s")),
+                  launches=rec["launches"]))
+        if rec["launches"] != 0:
+            raise AssertionError(f"{name}: the descent kernel was launched {rec['launches']} times")
+    return records, time.perf_counter() - t0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs on a GPU", file=sys.stderr)
@@ -1970,6 +2275,7 @@ def main() -> int:
     cases += probe_cases
     az, az_wall = phase_alphazero(card)
     c4, c4_wall = phase_connect4(card)
+    big, big_wall = phase_big_boards(card)
 
     main_case = next(c for c in cases if (c["B"], c["A"], c["N"], c["tie_break"]) == (3, 2, 26, "noise"))
     kernels = [dict(
@@ -2018,6 +2324,10 @@ def main() -> int:
         launches_tictactoe_alphazero=az["launches"],
         launches_connect4_muzero=c4["eval"]["launches"],
         launches_connect4_muzero_train=c4["train"]["launches"],
+        # phase 14: Go 6x6, Gomoku (Gumbel and Sampled AlphaZero, MuZero) and
+        # Chess AlphaZero, whose searches take the generic or the Gumbel
+        # descent: 0
+        **{f"launches_{name}": rec["launches"] for name, rec in big.items()},
         max_abs_err=max(c["max_abs_err"] for c in cases),
         ms=main_case["ms"],
         # launch to launch through the wrapper, the host's dispatch included:
@@ -2072,7 +2382,12 @@ def main() -> int:
               connect4_muzero_eval_s_per_env_step=c4["eval"]["wall_per_env_step_s"],
               connect4_muzero_descent_ms_per_call=c4["eval"]["descent_ms_per_call"],
               connect4_muzero_learn_step_ms=c4["train"]["learn_step_ms_median"],
-              connect4_muzero_collect_steps_per_s=c4["train"]["collect_steps_per_s"]))
+              connect4_muzero_collect_steps_per_s=c4["train"]["collect_steps_per_s"],
+              big_boards_wall_s=big_wall,
+              **{f"{name}_eval_s_per_env_step": rec["eval"]["wall_per_env_step_s"]
+                 for name, rec in big.items()},
+              **{f"{name}_learn_step_ms": rec["train"]["learn_step_ms_median"]
+                 for name, rec in big.items() if "train" in rec}))
     faulthandler.cancel_dump_traceback_later()
     signal.alarm(0)
     print(card, flush=True)

@@ -6,11 +6,16 @@ learn steps on batches drawn with replacement -> an eval against the rule
 bot every ``eval_freq`` learn steps, until ``max_env_step``,
 ``max_train_iter`` or the eval's mean outcome reaches ``stop_value``.
 
-The env is ``cfg.env.type`` (tictactoe or connect4), built twice: in
+The env is ``cfg.env.type`` (tictactoe, connect4, gomoku, go or chess),
+built twice with the env-config keys that its constructor takes
+(``board_size``, ``n_in_row``, ``komi``, ... and ``env_kwargs``): in
 self-play for collection and against the bot for evaluation, whatever
 ``battle_mode`` the config sets, as the JAX entry does. ``cfg.policy.type``
-picks the policy: "alphazero" (the default). Checkpoints: ``ckpt_best`` and
-``params_best`` on a new best eval, ``ckpt_final`` at the end.
+picks the policy: "alphazero" (the default), "gumbel_alphazero" or
+"sampled_alphazero"; the collector stores whatever the policy returns as
+``visit_counts`` (the improved policy for Gumbel AlphaZero) as the policy
+target. Checkpoints: ``ckpt_best`` and ``params_best`` on a new best eval,
+``ckpt_final`` at the end.
 
 Usage (on the card, or with ``device="cpu"``)::
 
@@ -20,10 +25,6 @@ Usage (on the card, or with ``device="cpu"``)::
 
 ``eval_alphazero`` loads a checkpoint (or params export) and plays it
 against the bot.
-
-Not ported yet, and refused with ``NotImplementedError``: the policy types
-``gumbel_alphazero`` and ``sampled_alphazero`` and the board envs gomoku, go
-and chess (ROADMAP queue 1, slice 17, PR 13).
 """
 from __future__ import annotations
 
@@ -36,10 +37,12 @@ import numpy as np
 import torch
 
 from lightzero_tpu_torch.config import Config, compile_config, deep_merge
-from lightzero_tpu_torch.envs import Connect4Env, TicTacToeEnv
+from lightzero_tpu_torch.envs import ChessEnv, Connect4Env, GoEnv, GomokuEnv, TicTacToeEnv
 from lightzero_tpu_torch.ops import visit_count_temperature
 from lightzero_tpu_torch.ops.board_augment import get_augmented_data
 from lightzero_tpu_torch.policy.alphazero import AlphaZeroPolicy, AZTrainBatch
+from lightzero_tpu_torch.policy.gumbel_alphazero import GumbelAlphaZeroPolicy
+from lightzero_tpu_torch.policy.sampled_alphazero import SampledAlphaZeroPolicy
 from lightzero_tpu_torch.utils.checkpoint import (
     load_checkpoint_lenient,
     save_checkpoint,
@@ -52,27 +55,26 @@ from lightzero_tpu_torch.workers.alphazero_workers import (
     AlphaZeroSelfPlayCollector,
 )
 
-BOARD_ENVS = {"tictactoe": TicTacToeEnv, "connect4": Connect4Env}
-POLICIES = {"alphazero": AlphaZeroPolicy}
-NOT_PORTED = ("gumbel_alphazero", "sampled_alphazero", "gomoku", "go", "chess")
+BOARD_ENVS = {"tictactoe": TicTacToeEnv, "connect4": Connect4Env, "gomoku": GomokuEnv,
+              "go": GoEnv, "chess": ChessEnv}
+POLICIES = {"alphazero": AlphaZeroPolicy, "gumbel_alphazero": GumbelAlphaZeroPolicy,
+            "sampled_alphazero": SampledAlphaZeroPolicy}
 
 
 def _policy_cls(cfg: Config):
     policy_type = Config(cfg).get("policy", {}).get("type", "alphazero")
     if policy_type not in POLICIES:
-        where = ("ROADMAP queue 1, slice 17, PR 13" if policy_type in NOT_PORTED
-                 else "not an AlphaZero policy")
-        raise NotImplementedError(f"policy type {policy_type!r} is not ported yet ({where})")
+        raise NotImplementedError(
+            f"policy type {policy_type!r} is not an AlphaZero policy (POLICIES: {list(POLICIES)})")
     return POLICIES[policy_type]
 
 
-def _build_env(env_cfg: Config, battle_mode: str):
+def build_env(env_cfg: Config, battle_mode: str):
     """The board env of ``env_cfg.type`` in ``battle_mode``, with the env-config
     keys that match its constructor's arguments and ``env_kwargs``."""
     key = env_cfg.get("type", "tictactoe")
     if key not in BOARD_ENVS:
-        where = "ROADMAP queue 1, slice 17, PR 13" if key in NOT_PORTED else "not a board env"
-        raise NotImplementedError(f"board env {key!r} is not ported yet ({where})")
+        raise NotImplementedError(f"{key!r} is not a board env (BOARD_ENVS: {list(BOARD_ENVS)})")
     env_cls = BOARD_ENVS[key]
     params = inspect.signature(env_cls.__init__).parameters
     kwargs = {k: v for k, v in dict(env_cfg).items()
@@ -100,8 +102,8 @@ def train_alphazero(
     policy_cls = _policy_cls(cfg)
     cfg = compile_config(cfg, policy_cls.default_config(), seed)
     pcfg = cfg.policy
-    selfplay_env = _build_env(cfg.env, "self_play_mode")
-    eval_env = _build_env(cfg.env, "play_with_bot_mode")
+    selfplay_env = build_env(cfg.env, "self_play_mode")
+    eval_env = build_env(cfg.env, "play_with_bot_mode")
 
     policy = policy_cls(pcfg, selfplay_env, device=dev, seed=seed)
     state = policy.init_train_state()
@@ -197,7 +199,7 @@ def eval_alphazero(cfg, seed: int = 0, model_path: Optional[str] = None, n_episo
     cfg = Config(cfg)
     policy_cls = _policy_cls(cfg)
     pcfg = deep_merge(policy_cls.default_config(), Config(cfg.get("policy", {})))
-    eval_env = _build_env(cfg.env, "play_with_bot_mode")
+    eval_env = build_env(cfg.env, "play_with_bot_mode")
     policy = policy_cls(pcfg, eval_env, device=dev, seed=seed)
     state = policy.init_train_state()
     if model_path:

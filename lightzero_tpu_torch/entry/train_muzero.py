@@ -5,8 +5,11 @@ chosen by ``cfg.policy.type`` from ``POLICIES`` as the JAX entry does from
 its registry, on the ported envs (CartPole, 2048, Pendulum, the five
 MinAtar-class grids: breakout, asterix, freeway, space invaders, seaquest,
 the bsuite probes deep_sea and catch, the memory env, and the board games
-tictactoe and connect4, whose ``battle_mode`` the env config sets), chosen
-by ``cfg.env.env_id`` (or ``cfg.env.type``).
+tictactoe, connect4, gomoku, go and chess, whose ``battle_mode`` the env
+config sets), chosen by ``cfg.env.env_id`` (or ``cfg.env.type``). On board
+games (``env_type`` "board_games") it runs the policy types that the JAX
+entry runs there, ``BOARD_POLICIES``; the others fail in the JAX package and
+are refused with a ``ValueError`` that names the failure (ROADMAP queue 3).
 
 Loop: [eval every ``eval_freq`` train iterations, stopping after
 ``stop_consecutive_evals`` evals at ``stop_value``] -> collect (episode mode,
@@ -52,10 +55,13 @@ from lightzero_tpu_torch.envs import (
     BreakoutGridEnv,
     CartPoleEnv,
     CatchEnv,
+    ChessEnv,
     Connect4Env,
     DeepSeaEnv,
     FreewayGridEnv,
     Game2048Env,
+    GoEnv,
+    GomokuEnv,
     MemoryEnv,
     PendulumEnv,
     SeaquestGridEnv,
@@ -102,9 +108,10 @@ ENVS = {
     "memory": (MemoryEnv, {}),
     "tictactoe": (TicTacToeEnv, {}),
     "connect4": (Connect4Env, {}),
+    "gomoku": (GomokuEnv, {}),
+    "go": (GoEnv, {}),
+    "chess": (ChessEnv, {}),
 }
-# the envs of the JAX registry that are not ported yet, and where they are
-OTHER_ENVS = {"gomoku": "slice 17, PR 13", "go": "slice 17, PR 13", "chess": "slice 17, PR 13"}
 # cfg.policy.type -> the policy that train_muzero builds
 POLICIES = {
     "muzero": MuZeroPolicy, "efficientzero": EfficientZeroPolicy,
@@ -112,8 +119,21 @@ POLICIES = {
     "sampled_muzero": SampledMuZeroPolicy, "sampled_efficientzero": SampledEfficientZeroPolicy,
     "muzero_context": MuZeroContextPolicy, "muzero_rnn_full_obs": MuZeroRNNFullObsPolicy,
 }
-# the policies that train_muzero runs on board games (env_type "board_games")
-BOARD_POLICIES = ("muzero", "efficientzero")
+# the policies that train_muzero runs on board games (env_type "board_games"):
+# those that the JAX entry runs there
+BOARD_POLICIES = ("muzero", "efficientzero", "gumbel_muzero", "muzero_context")
+# the other policy types, each with the way the JAX entry fails on a board
+# game (a TicTacToe bot-mode config through lightzero_tpu's train_muzero)
+JAX_BOARD_FAULTS = {
+    "stochastic_muzero": "the JAX policy flattens the board planes before its conv "
+                         "representation network and raises flax's ScopeParamShapeError",
+    "sampled_muzero": "the JAX policy's actions are float arrays, with which the board env's "
+                      "step_single cannot index its board: JAX raises TypeError",
+    "sampled_efficientzero": "the JAX policy's actions are float arrays, with which the board "
+                             "env's step_single cannot index its board: JAX raises TypeError",
+    "muzero_rnn_full_obs": "the JAX MuZero-RNN model calls int() on the board's observation "
+                           "shape and raises TypeError",
+}
 # the policy types of the JAX entry that are not ported yet, and the ROADMAP
 # slice that ports each
 OTHER_POLICIES = {
@@ -128,10 +148,9 @@ def create_env(env_cfg: Config) -> TensorEnv:
     forwarded, as the JAX entry does (train_muzero.py:61-82)."""
     env_id = env_cfg.get("env_id", env_cfg.get("type"))
     if env_id not in ENVS:
-        where = OTHER_ENVS.get(env_id, "host envs in slice 20")
         raise NotImplementedError(
             f"env {env_id!r} is not ported yet: the port has the envs of ENVS "
-            f"(ROADMAP queue 1: {where})"
+            "(ROADMAP queue 1: host envs in slice 20)"
         )
     env_cls, kwargs = ENVS[env_id]
     kwargs = dict(kwargs)
@@ -185,9 +204,9 @@ def _check_scope(pcfg: Config) -> None:
         where = f"ROADMAP queue 1, slice {slice_}" if slice_ else "ROADMAP queue 1"
         raise NotImplementedError(f"policy type {policy_type!r} is not ported yet ({where})")
     if pcfg.get("env_type") == "board_games" and policy_type not in BOARD_POLICIES:
-        raise NotImplementedError(
-            f"the {policy_type} policy on board games is not ported yet (ROADMAP queue 1, "
-            "slice 17, PR 13)")
+        raise ValueError(
+            f"the {policy_type} policy does not run on board games: "
+            f"{JAX_BOARD_FAULTS[policy_type]} (ROADMAP queue 3)")
     if pcfg.get("analysis_loss_landscape", False):
         raise NotImplementedError(
             "the loss-landscape analysis is not ported yet (ROADMAP queue 1, slice 20)"

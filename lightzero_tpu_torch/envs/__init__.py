@@ -9,7 +9,7 @@ from lightzero_tpu_torch.envs.minatar_like import (
     SeaquestGridEnv,
     SpaceInvadersGridEnv,
 )
-from lightzero_tpu_torch.envs.board import Connect4Env, TicTacToeEnv
+from lightzero_tpu_torch.envs.board import ChessEnv, Connect4Env, GoEnv, GomokuEnv, TicTacToeEnv
 from lightzero_tpu_torch.envs.bsuite_like import CatchEnv, DeepSeaEnv
 from lightzero_tpu_torch.envs.memory_env import MemoryEnv
 from lightzero_tpu_torch.envs.wrappers import DiscretizeAction, PadVectorObs

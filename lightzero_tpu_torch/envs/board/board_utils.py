@@ -7,8 +7,9 @@ Every winning line of a board is precomputed as flat cell indices (numpy,
 gather, a count and a scatter back to the cells.
 
 ``BoardEnv`` holds the battle modes of the JAX envs (tictactoe.py,
-connect4.py): in ``self_play_mode`` each step places one stone for the
-player to move, reward +1 to the mover on a win; in ``play_with_bot_mode``
+connect4.py, gomoku.py, go.py, chess.py): in ``self_play_mode`` each step
+places one stone for the player to move, reward +1 to the mover on a win
+(and -1 on a loss in Go and Chess, ``self_play_reward``); in ``play_with_bot_mode``
 and ``eval_mode`` the agent's stone is answered by the rule bot's, reward
 +1 / -1 / 0 from the agent's side when the game ends. A game that ends
 resets itself. The bot's one random draw, its tie-breaking uniforms
@@ -68,15 +69,19 @@ class BoardState(NamedTuple):
     t: torch.Tensor  # (B,) int32 stones placed
 
 
-def _where_state(cond: torch.Tensor, a: BoardState, b: BoardState) -> BoardState:
+def where_state(cond: torch.Tensor, a, b):
+    """Per env, state ``a`` where ``cond`` (B,) holds, else ``b`` (states of
+    one NamedTuple type, every field batched on dim 0)."""
     B = cond.shape[0]
-    return BoardState(*(torch.where(cond.reshape((B,) + (1,) * (x.dim() - 1)), x, y)
-                        for x, y in zip(a, b)))
+    return type(a)(*(torch.where(cond.reshape((B,) + (1,) * (x.dim() - 1)), x, y)
+                     for x, y in zip(a, b)))
 
 
 class BoardEnv(TensorEnv):
     """A two-player game on an H x W board; subclasses give the lines, where
-    a stone lands (``place``), the legal moves and the rule bot's scores."""
+    a stone lands (``place``), the legal moves and the rule bot's scores.
+    Go and Chess keep states of their own and override ``step_single`` and
+    ``bot_action``; the battle modes (``transition``) are shared."""
 
     num_players = 2
     H: int
@@ -165,16 +170,16 @@ class BoardEnv(TensorEnv):
         if self.battle_mode == "self_play_mode":
             mover = s.to_play
             ns = self.step_single(s, action)
-            reward = (ns.done & (ns.winner == mover)).to(torch.float32)
+            reward = self.self_play_reward(ns, mover)
         else:
             agent = s.to_play
             ns = self.step_single(s, action)
             after_bot = self.step_single(ns, self.bot_action(ns, bot_noise))
-            ns = _where_state(ns.done, ns, after_bot)
+            ns = where_state(ns.done, ns, after_bot)
             reward = torch.where(ns.done & (ns.winner == agent), 1.0,
                                  torch.where(ns.done & (ns.winner != 0), -1.0, 0.0))
         B = action.shape[0]
-        out = _where_state(ns.done, self.init_state(B, s.board.device), ns)
+        out = where_state(ns.done, self.init_state(B, s.board.device), ns)
         return EnvStep(
             state=out,
             obs=self.observation(out),
@@ -184,6 +189,11 @@ class BoardEnv(TensorEnv):
             to_play=self.initial_to_play(out),
             truncated=torch.zeros_like(ns.done),
         )
+
+    def self_play_reward(self, ns, mover: torch.Tensor) -> torch.Tensor:
+        """(B,) the self-play reward of the mover: +1 where the move ended
+        the game with the mover's win, else 0."""
+        return (ns.done & (ns.winner == mover)).to(torch.float32)
 
     def step(self, state: BoardState, action: torch.Tensor, generator: torch.Generator) -> EnvStep:
         return self.transition(state, action, self.draw_step(action.shape[0], generator))

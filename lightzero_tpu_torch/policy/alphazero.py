@@ -145,6 +145,14 @@ class AlphaZeroPolicy:
             terminal=ns.done,
         )
 
+    def _root(self, env_state):
+        """(observation, legal mask, root output) of the env states, the
+        network evaluated at them."""
+        obs = self.env.observation(env_state)
+        policy_logits, value = self.model(obs)
+        root = RootOutput(prior_logits=policy_logits, value=value, embedding=env_state)
+        return obs, self.env.legal_mask(env_state), root
+
     @torch.no_grad()
     def _forward_collect(self, env_state, temperature: float, deterministic: bool = False,
                          noise: Optional[torch.Tensor] = None) -> Dict[str, Any]:
@@ -152,16 +160,19 @@ class AlphaZeroPolicy:
         sampled from the visit counts at ``temperature``, or their argmax
         without root noise when ``deterministic``. ``noise`` (B, A)
         replaces the Dirichlet draw (for tests)."""
-        obs = self.env.observation(env_state)
-        legal = self.env.legal_mask(env_state)
-        policy_logits, value = self.model(obs)
-        root = RootOutput(prior_logits=policy_logits, value=value, embedding=env_state)
+        obs, legal, root = self._root(env_state)
+        return self._search_and_act(obs, root, legal, env_state.to_play, temperature,
+                                    deterministic, noise)
+
+    def _search_and_act(self, obs, root: RootOutput, legal: torch.Tensor, to_play: torch.Tensor,
+                        temperature: float, deterministic: bool,
+                        noise: Optional[torch.Tensor]) -> Dict[str, Any]:
         out = batch_puct_search(
             root,
             self._recurrent_fn,
             self.search_cfg,
             legal,
-            to_play=env_state.to_play,
+            to_play=to_play,
             with_noise=not deterministic,
             noise=noise,
             generator=self.generator,
@@ -171,7 +182,7 @@ class AlphaZeroPolicy:
                                               deterministic=deterministic,
                                               generator=self.generator)
         return dict(action=actions, visit_counts=out.visit_counts, searched_value=out.root_value,
-                    predicted_value=value, obs=obs)
+                    predicted_value=root.value, obs=obs)
 
     def forward_collect(self, env_state, temperature: float = 1.0) -> Dict[str, Any]:
         return self._forward_collect(env_state, float(temperature), deterministic=False)

@@ -7,7 +7,9 @@ JAX policy. The stored policy target is the improved policy
 softmax(logits + sigma(completed Q)), a float distribution where MuZero
 stores visit counts: the collector normalizes it and the buffer and the
 learn step treat it as they treat visit distributions. Reanalyze is
-MuZero's, through the pUCT search and its descent kernel.
+MuZero's, through the pUCT search and its descent kernel. On board games
+(``env_type`` "board_games") the search has ``players == 2``, as the JAX
+policy sets it (muzero.py:179).
 """
 from __future__ import annotations
 
@@ -33,7 +35,6 @@ class GumbelMuZeroPolicy(MuZeroPolicy):
 
     def __init__(self, cfg=None, model=None, device=None, seed: int = 0):
         super().__init__(cfg, model=model, device=device, seed=seed)
-        # refuses players == 2 (slice 17, PR 13)
         self.gumbel_cfg = GumbelSearchConfig(
             num_simulations=int(self.cfg.num_simulations),
             max_num_considered_actions=int(self.cfg.get("max_num_considered_actions", 4)),

@@ -1,5 +1,5 @@
 """Batched Gumbel MuZero search (``lightzero_tpu/search/gumbel.py``), for
-single-player searches: Sequential Halving over Gumbel-perturbed scores at
+one and two players: Sequential Halving over Gumbel-perturbed scores at
 the root, the argmax of pi' - N / (1 + sum N) below it, with
 pi' = softmax(logits + sigma(completed Q)), and the improved policy
 softmax(logits + sigma(completed Q)) at the root as the training target.
@@ -18,8 +18,13 @@ sets (qtransform_completed_by_mix_value, cnode.cpp:988): ``maxvisit_init``
 50, ``value_scale`` 0.1, always min-max rescaled with epsilon 1e-6; the
 Gumbel draws are unscaled (``gumbel_scale`` 1).
 
-Not ported yet, and refused with ``NotImplementedError``: ``players == 2``
-(ROADMAP queue 1, slice 17, PR 13).
+Two players (``players == 2``, board games): as in the pUCT search, the
+root's ``to_play`` decides at run time. -1 (a game against the bot) keeps
+one-player semantics; otherwise the completed Q of a child is
+r - discount * V, the child's value seen from the mover's side
+(gumbel.py:108-117), every level of the descent flips the player
+(``puct.next_to_play``, the generic descent's bookkeeping) and the backup
+flips the signs by the path's players (``puct._expand_and_backup``).
 """
 from __future__ import annotations
 
@@ -30,7 +35,12 @@ from typing import Optional
 import numpy as np
 import torch
 
-from lightzero_tpu_torch.search.puct import RecurrentFn, _expand_and_backup, _TraverseState
+from lightzero_tpu_torch.search.puct import (
+    RecurrentFn,
+    _expand_and_backup,
+    _TraverseState,
+    next_to_play,
+)
 from lightzero_tpu_torch.search.tree import (
     Tree,
     init_tree,
@@ -55,13 +65,6 @@ class GumbelSearchConfig:
     discount: float = 0.997
     players: int = 1
     value_delta_max: float = 0.01  # the backup's min-max floor
-
-    def __post_init__(self):
-        if self.players != 1:
-            raise NotImplementedError(
-                "players == 2 Gumbel search is not ported yet "
-                "(ROADMAP queue 1, slice 17, PR 13)"
-            )
 
     def as_puct(self) -> SearchConfig:
         return SearchConfig(
@@ -98,7 +101,8 @@ def _completed_q(cfg: GumbelSearchConfig, tree: Tree, node: torch.Tensor):
     (qtransform_completed_by_mix_value, cnode.cpp:988). An unvisited child
     takes the mixed value v_mix of the node's raw value and the
     prior-weighted Q of its visited children; the completed values are
-    min-max rescaled over the legal actions."""
+    min-max rescaled over the legal actions. Under ``players == 2`` a tree
+    whose root has a player sees its children's values negated."""
     B = tree.num_trees
     bidx = torch.arange(B, device=node.device)
     row_children = tree.children[bidx, node]
@@ -113,7 +117,11 @@ def _completed_q(cfg: GumbelSearchConfig, tree: Tree, node: torch.Tensor):
     logits = tree.prior[bidx, node]  # raw logits, illegal = _LOW_LOGIT
     legal = tree.legal[bidx, node]
 
-    q = creward + cfg.discount * cvalue
+    if cfg.players == 1:
+        q = creward + cfg.discount * cvalue
+    else:
+        one_p = tree.to_play[:, :1] == -1
+        q = creward + cfg.discount * torch.where(one_p, cvalue, -cvalue)
     visited = (cvisit > 0) & legal
     probs = torch.softmax(torch.where(legal, logits, -torch.inf), dim=-1)
     sum_n = torch.sum(torch.where(legal, cvisit, 0), dim=-1).to(q.dtype)
@@ -199,6 +207,9 @@ def _gumbel_traverse(
     path_reward[:, 0] = tree.reward[:, 0]
     path_vsum[:, 0] = tree.value_sum[:, 0]
     path_visit[:, 0] = tree.visit_count[:, 0].to(dtype)
+    vtp = to_play.to(torch.int32)
+    path_to_play = torch.zeros((B, max_depth), dtype=torch.int32, device=dev)
+    path_to_play[:, 0] = tree.to_play[:, 0]
 
     # the tree does not change during a descent, so the root's choice is
     # made once; every tree is at its root on the first step only
@@ -223,6 +234,8 @@ def _gumbel_traverse(
         depth = torch.where(move, depth + 1, depth)
         last_action = torch.where(done, last_action, action)
         leaf_term = torch.where(now_done, child_is_terminal, leaf_term)
+        vtp = next_to_play(vtp, done)
+        path_to_play[:, t + 1] = vtp
         path[:, t + 1] = node
         path_reward[:, t + 1] = torch.where(
             has_child, torch.gather(tree.reward, 1, chosen)[:, 0], 0.0)
@@ -243,12 +256,12 @@ def _gumbel_traverse(
         path=path,
         parent=parent,
         last_action=last_action,
-        # players == 1: every node's to-play stays the root's
-        virtual_to_play=to_play.to(torch.int32),
+        virtual_to_play=vtp,
         leaf_is_terminal_node=leaf_term,
         path_reward=path_reward,
         path_vsum=path_vsum,
         path_visit=path_visit,
+        path_to_play=path_to_play,
     )
 
 

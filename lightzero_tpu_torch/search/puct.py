@@ -28,7 +28,11 @@ value and of the rewards at every node whose player is not the leaf's
 the generic descent and of the backup, plain jnp in the JAX package and
 plain PyTorch here: in neither package is it a kernel. Bot-mode searches
 (``to_play`` -1 under ``players == 2``) take the generic descent too, as in
-the JAX package, although their scores are one-player scores.
+the JAX package, although their scores are one-player scores. A stochastic
+two-player search needs nothing more: a chance node flips the player like
+any other level, as in the JAX loop, and its outcome is drawn the same way.
+The player bookkeeping of a descent (``next_to_play`` and the path's
+``path_to_play``) is shared with the Gumbel descent (``search/gumbel.py``).
 
 The reuse search (cnode.cpp:827 in the reference): at the root, once the
 true action's child has visits, that arm scores only the normalised
@@ -36,10 +40,6 @@ r + discount * reuse_value, with no prior term; whenever the root picks the
 true action the descent stops there, and the backup takes ``reuse_value``
 as the leaf's value, whether the child was expanded in this simulation or
 already existed (then it is re-used without expansion, like a terminal).
-
-Not ported yet, and refused with ``NotImplementedError`` rather than
-answered wrongly: stochastic searches with ``players == 2`` (ROADMAP queue
-1, slice 17, PR 13).
 """
 from __future__ import annotations
 
@@ -64,6 +64,10 @@ from lightzero_tpu_torch.search.types import (
     SearchOutput,
 )
 from lightzero_tpu_torch.utils.device import resolve_device
+
+# the widest action space whose child Q values the generic descent adds in
+# order, one action after another
+IN_ORDER_MAX_A = 64
 
 # recurrent_fn(action (B,) int64, parent embedding) -> RecurrentOutput
 RecurrentFn = Callable[[torch.Tensor, Any], RecurrentOutput]
@@ -91,13 +95,15 @@ class _TraverseState(NamedTuple):
     path_to_play: Optional[torch.Tensor] = None
 
 
-def _check_scope(cfg: SearchConfig, true_action: Optional[torch.Tensor],
+def next_to_play(vtp: torch.Tensor, done: torch.Tensor) -> torch.Tensor:
+    """(B,) int32 the player one level further down for every tree still
+    descending: 1 and 2 swap, -1 (one-player semantics) stays."""
+    flipped = torch.where(vtp == 1, 2, torch.where(vtp == 2, 1, -1)).to(torch.int32)
+    return torch.where(done, vtp, flipped)
+
+
+def _check_scope(true_action: Optional[torch.Tensor],
                  reuse_value: Optional[torch.Tensor]) -> None:
-    if cfg.players != 1 and cfg.stochastic:
-        raise NotImplementedError(
-            "a stochastic search with players == 2 is not ported yet (ROADMAP queue 1, "
-            "slice 17, PR 13)"
-        )
     if (true_action is None) != (reuse_value is None):
         raise ValueError("a reuse search takes both true_action and reuse_value")
 
@@ -177,11 +183,16 @@ def _child_q_totals(cfg: SearchConfig, packed: torch.Tensor, A: int) -> torch.Te
     legal children and their count, the two sums of compute_mean_q
     (puct.py:139-142). They depend on the node's row alone, which does not
     change during a descent, so they are taken once per simulation for all
-    nodes rather than once per level; the values are summed from the first
-    action to the last, as XLA sums them."""
+    nodes rather than once per level; up to ``IN_ORDER_MAX_A`` actions the
+    values are summed from the first action to the last, as XLA sums a few
+    terms, above it by the library sum (XLA's order over many terms is not
+    sequential either)."""
     ch = _children(packed, A)
     visited = (ch.visit > 0) & ch.legal
-    total_q = _sum_in_order(torch.where(visited, ch.reward + cfg.discount * ch.value, 0.0))
+    q = torch.where(visited, ch.reward + cfg.discount * ch.value, 0.0)
+    # XLA's sum runs in order only over a few terms; over wide action
+    # spaces (Go 9x9, Chess) in-order adds would cost a launch an action
+    total_q = _sum_in_order(q) if A <= IN_ORDER_MAX_A else q.sum(dim=-1)
     total_n = visited.sum(dim=-1).to(total_q.dtype)
     return torch.stack([total_q, total_n], dim=-1)
 
@@ -338,8 +349,7 @@ def _generic_traverse(
             reuse_hit = reuse_hit | reuse_stop
         now_done = ~done & ((next_child < 0) | child_is_terminal)
         move = ~done & (next_child >= 0)
-        flipped = torch.where(vtp == 1, 2, torch.where(vtp == 2, 1, -1)).to(torch.int32)
-        vtp = torch.where(done, vtp, flipped)
+        vtp = next_to_play(vtp, done)
         depth = torch.where(move, depth + 1, depth)
         new_node = torch.where(move, next_child, node)
         # stalled and done lanes write into columns past their own depth,
@@ -668,7 +678,7 @@ def batch_puct_search(
     table per simulation, puct.py:379-385). ``true_action`` (B,) with
     ``reuse_value`` (B,) selects ReZero's reuse search
     (search_with_reuse, mcts_ctree.py:368-465)."""
-    _check_scope(cfg, true_action, reuse_value)
+    _check_scope(true_action, reuse_value)
     dev = resolve_device(device)
     root = RootOutput(
         prior_logits=root.prior_logits.to(dev),

@@ -2,14 +2,16 @@
 learning yardstick, with each run's own ``total_config.json`` (not a test: a
 script, run by hand, on the card by default).
 
-    python tests/learning_yardsticks.py [--runs catch deep_sea tictactoe_az] [--device cpu]
+    python tests/learning_yardsticks.py [--runs catch deep_sea tictactoe_az gomoku6_az]
+        [--device cpu]
         [--env-steps N] [--seeds 0 1] [--package jax]
 
 Each run trains until the env steps at which the JAX run's ``log/train.txt``
 first reached its mark, that eval included (or until its ``stop_value``),
 evaluating as its config says: Catch MuZero (eval mean 1.0 at 10,240 env steps), DeepSea MuZero
 (1.0 at 7,168), TicTacToe AlphaZero with augmentation (win rate 1.00
-against the bot at 3,840). Prints one JSON line per run with its evals
+against the bot at 3,840), Gomoku 6x6 AlphaZero with augmentation (100
+simulations, 64 channels; win rate 1.00 against the bot at 3,200). Prints one JSON line per run with its evals
 (env steps, mean return, and for AlphaZero the win rate), the JAX mark, the
 wall time and the card. ``--env-steps`` sets every run's budget instead
 (a quick look on the CPU, or a longer run). ``--package jax`` trains the
@@ -31,6 +33,7 @@ RUNS = {
     "catch": ("data_bsuite/catch_muzero_seed0", "muzero", 10_240, 1.0),
     "deep_sea": ("data_bsuite/deep_sea10_muzero_seed0", "muzero", 7_168, 1.0),
     "tictactoe_az": ("data_az/tictactoe_az_aug_cpu_seed0", "alphazero", 3_840, 1.0),
+    "gomoku6_az": ("data_az/gomoku6_alphazero_seed0", "alphazero", 3_200, 1.0),
 }
 
 

@@ -19,7 +19,8 @@ against their lightzero_tpu counterparts), at small widths on the CPU.
 - ``get_augmented_data`` against the JAX function on square, pass and
   column layouts: equal arrays.
 - A two-iteration ``train_alphazero`` on the CPU (with augmentation), its
-  checkpoints, ``eval_alphazero`` and the entry's refusals.
+  checkpoints, ``eval_alphazero``, one collect of each policy type and of
+  Gomoku, and the entry's refusals.
 """
 import dataclasses
 import os
@@ -273,17 +274,33 @@ def test_train_alphazero_runs_two_iterations_on_the_cpu(tmp_path):
     assert len(res["episode_returns"]) == 3 and set(res["episode_returns"]) <= {-1.0, 0.0, 1.0}
 
 
+GOMOKU_MODEL = dict(observation_shape=(6, 6, 3), action_space_size=36, num_channels=8,
+                    num_res_blocks=1)
+
+
+# the first three cases were refused until slice 17's second half was
+# ported; each now builds its policy and takes one collect
 @pytest.mark.parametrize("override,match", [
-    (dict(policy=dict(type="gumbel_alphazero")), "slice 17, PR 13"),
-    (dict(policy=dict(type="sampled_alphazero")), "slice 17, PR 13"),
-    (dict(env=dict(type="gomoku")), "slice 17, PR 13"),
-])
+    (dict(policy=dict(type="gumbel_alphazero")), None),
+    (dict(policy=dict(type="sampled_alphazero", num_of_sampled_actions=4)), None),
+    (dict(env=dict(type="gomoku", env_kwargs=dict(board_size=6, n_in_row=4)),
+          policy=dict(model=GOMOKU_MODEL)), None),
+    (dict(policy=dict(type="muzero")), "not an AlphaZero policy"),
+    (dict(env=dict(type="cartpole")), "not a board env"),
+], ids=["gumbel_alphazero", "sampled_alphazero", "gomoku", "muzero", "cartpole"])
 def test_train_alphazero_refuses_what_is_not_ported(tmp_path, override, match):
     cfg = tiny_cfg(tmp_path / "exp")
     for key, value in override.items():
         cfg[key] = Config(dict(cfg[key], **value))
-    with pytest.raises(NotImplementedError, match=match):
-        train_alphazero(cfg, device="cpu")
+    if match is not None:
+        with pytest.raises(NotImplementedError, match=match):
+            train_alphazero(cfg, device="cpu")
+        return
+    policy, state, stats = train_alphazero(cfg, max_env_step=1, device="cpu")
+    assert type(policy).__name__.lower().startswith(cfg.policy.get("type", "alphazero")
+                                                    .replace("_", ""))
+    assert stats["env_steps"] > 0 and len(stats["replay"]) > 0
+    assert policy.env.action_space_size == cfg.policy.model.action_space_size
 
 
 def test_train_alphazero_without_device_raises_with_no_cuda(tmp_path, monkeypatch):

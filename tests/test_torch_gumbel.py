@@ -20,7 +20,7 @@ the Gumbel table the JAX search draws, rebuilt here from the same key
   (1e-4 for the values: the inverse transform's cancellation,
   tests/test_torch_ops.py);
 - train_muzero on a tiny Gumbel config on the CPU; with no GPU and no
-  device it, the policy and the search raise; players == 2 is refused.
+  device it, the policy and the search raise; players == 2 runs.
 """
 import copy
 import json
@@ -155,16 +155,30 @@ def test_search_draws_its_own_gumbel_noise():
         assert not out.visit_counts[~legal].any()
 
 
-def test_players_two_is_refused():
+# players == 2 was refused until two-player Gumbel search was ported; each
+# case now runs (held against JAX in tests/test_torch_board_gumbel.py)
+@pytest.mark.parametrize("path", ["search", "policy"])
+def test_players_two_is_refused(path):
     d = _inputs(5)
-    root = RootOutput(prior_logits=torch.from_numpy(d["prior_logits"]),
-                      value=torch.from_numpy(d["value"]),
-                      embedding={"latent": torch.from_numpy(d["latent"])})
-    with pytest.raises(NotImplementedError, match="slice 17, PR 13"):
-        batch_gumbel_search(root, _torch_dummy_recurrent, GumbelSearchConfig(players=2),
-                            torch.from_numpy(d["legal"]), device="cpu")
-    with pytest.raises(NotImplementedError, match="slice 17, PR 13"):
-        GumbelMuZeroPolicy(dict(env_type="board_games", model=MODEL), device="cpu")
+    to_play = torch.tensor([1, 2, -1, 1, 2, -1, 1, 2], dtype=torch.int32)
+    if path == "search":
+        root = RootOutput(prior_logits=torch.from_numpy(d["prior_logits"]),
+                          value=torch.from_numpy(d["value"]),
+                          embedding={"latent": torch.from_numpy(d["latent"])})
+        out = batch_gumbel_search(root, _torch_dummy_recurrent,
+                                  GumbelSearchConfig(num_simulations=6, players=2),
+                                  torch.from_numpy(d["legal"]), to_play=to_play,
+                                  generator=torch.Generator().manual_seed(0), device="cpu")
+        assert out.visit_counts.sum(1).tolist() == [6] * B
+        assert set(out.tree.to_play[:, 1:7].flatten().tolist()) == {-1, 1, 2}
+        return
+    policy = GumbelMuZeroPolicy(dict(env_type="board_games", model=MODEL, num_simulations=4),
+                                device="cpu")
+    assert policy.gumbel_cfg.players == 2
+    obs = torch.from_numpy(np.random.default_rng(5).standard_normal((B, 4)).astype(np.float32))
+    legal = torch.ones((B, 3), dtype=torch.bool)
+    out = policy._forward_collect(obs, legal, to_play, 1.0, 0.0)
+    assert out["raw_visit_counts"].sum(1).tolist() == [4] * B
 
 
 def test_search_without_device_raises_with_no_cuda(monkeypatch):

@@ -121,6 +121,32 @@ def test_board_games_probes_and_alphazero_import_without_jax():
     assert proc.returncode == 0, proc.stderr
 
 
+# Gomoku, Go and Chess, two-player Gumbel search, Gumbel and Sampled
+# AlphaZero, and the board configs copied with them, named as above
+BOARD_GAMES_AND_AZ_VARIANT_MODULES = (
+    "lightzero_tpu_torch.envs.board.gomoku", "lightzero_tpu_torch.envs.board.go",
+    "lightzero_tpu_torch.envs.board.chess", "lightzero_tpu_torch.search.gumbel",
+    "lightzero_tpu_torch.policy.gumbel_alphazero", "lightzero_tpu_torch.policy.sampled_alphazero",
+    "lightzero_tpu_torch.policy.gumbel_muzero", "lightzero_tpu_torch.entry.train_muzero",
+    *(f"lightzero_tpu_torch.configs.{name}" for name in (
+        "gomoku_alphazero_bot_mode", "gomoku_gumbel_alphazero", "gomoku_muzero_bot_mode",
+        "gomoku_sampled_alphazero_bot_mode", "go6_alphazero_bot_mode", "go_alphazero_bot_mode",
+        "go_alphazero_sp_mode", "go_muzero_bot_mode", "chess_alphazero_bot_mode",
+        "chess_muzero_bot_mode", "tictactoe_gumbel_alphazero", "tictactoe_muzero_v2",
+        "connect4_muzero_aug", "connect4_muzero_resume", "connect4_rezero_mz_bot_mode")),
+)
+
+
+def test_gomoku_go_chess_and_the_alphazero_variants_import_without_jax():
+    proc = subprocess.run(
+        [sys.executable, "-c", _IMPORT_NAMED.format(forbidden=FORBIDDEN,
+                                                    modules=BOARD_GAMES_AND_AZ_VARIANT_MODULES)],
+        cwd=REPO, capture_output=True, text=True, timeout=120,
+        env=dict(os.environ, PYTHONPATH=str(REPO)),
+    )
+    assert proc.returncode == 0, proc.stderr
+
+
 def _imported_roots(path: pathlib.Path):
     tree = ast.parse(path.read_text(), filename=str(path))
     for node in ast.walk(tree):
@@ -176,6 +202,15 @@ def test_alphazero_policy_without_device_raises_with_no_cuda(no_cuda):
 
     with pytest.raises(RuntimeError, match="no CUDA device"):
         AlphaZeroPolicy(None, TicTacToeEnv())
+
+
+@pytest.mark.parametrize("name", ["GumbelAlphaZeroPolicy", "SampledAlphaZeroPolicy"])
+def test_alphazero_variants_without_device_raise_with_no_cuda(no_cuda, name):
+    import lightzero_tpu_torch.policy as policies
+    from lightzero_tpu_torch.envs import GomokuEnv
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        getattr(policies, name)(None, GomokuEnv())
 
 
 def test_division_check_exits_nonzero_with_no_cuda(no_cuda, capsys):

@@ -143,22 +143,33 @@ def test_noise_tie_break_search_runs_and_counts_every_simulation():
     assert not out.visit_counts[~torch.from_numpy(d["legal"])].any()
 
 
+# a stochastic search with players == 2 was refused until slice 17's second
+# half; it now runs (held against JAX in tests/test_torch_board_gumbel.py)
 @pytest.mark.parametrize(
-    "change,kwargs,match",
+    "change,kwargs,error",
     [
-        (dict(stochastic=True, players=2), {}, "players == 2.*slice 17, PR 13"),
+        (dict(stochastic=True, players=2), {}, None),
+        ({}, dict(true_action=np.zeros(B, np.int64)), ValueError),
     ],
+    ids=["stochastic_players_2", "reuse_without_value"],
 )
-def test_out_of_scope_searches_raise(change, kwargs, match):
+def test_out_of_scope_searches_raise(change, kwargs, error):
     d = _inputs(4)
     cfg = dataclasses.replace(SearchConfig(num_simulations=4, tie_break="first"), **change)
     root = RootOutput(
         prior_logits=torch.from_numpy(d["prior_logits"]), value=torch.from_numpy(d["value"]),
         embedding={"latent": torch.from_numpy(d["latent"])},
     )
-    with pytest.raises(NotImplementedError, match=match):
-        batch_puct_search(root, _torch_dummy_recurrent, cfg, torch.from_numpy(d["legal"]),
-                          device="cpu", **kwargs)
+    kwargs = {k: torch.from_numpy(v) for k, v in kwargs.items()}
+    if error is not None:
+        with pytest.raises(error, match="reuse search takes both"):
+            batch_puct_search(root, _torch_dummy_recurrent, cfg, torch.from_numpy(d["legal"]),
+                              device="cpu", **kwargs)
+        return
+    out = batch_puct_search(root, _torch_dummy_recurrent, cfg, torch.from_numpy(d["legal"]),
+                            to_play=torch.tensor([1, 2] * (B // 2), dtype=torch.int32),
+                            generator=torch.Generator().manual_seed(0), device="cpu", **kwargs)
+    assert out.visit_counts.sum(dim=1).tolist() == [4] * B
 
 
 # the two players-2 searches that test_out_of_scope_searches_raise refused

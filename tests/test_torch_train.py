@@ -154,20 +154,37 @@ def test_lenient_load_of_a_params_export_keeps_the_fresh_optimizer(tmp_path):
         load_checkpoint_lenient(str(tmp_path / "params_best"), target=other)
 
 
-@pytest.mark.parametrize("override,match", [
-    (dict(policy=dict(type="unizero")), "slice 18"),
-    (dict(policy=dict(type="muzero_multitask")), "slice 19"),
-    (dict(policy=dict(type="gumbel_muzero", env_type="board_games")), "slice 17, PR 13"),
-    (dict(env=dict(env_id="gomoku")), "slice 17, PR 13"),
-    (dict(policy=dict(analysis_loss_landscape=True)), "slice 20"),
-    (dict(policy=dict(model=dict(MODEL, harmony_balance=True))), "slice 20"),
-])
-def test_train_muzero_refuses_what_is_not_ported(tmp_path, override, match):
+GOMOKU_MODEL = dict(observation_shape=(6, 6, 3), action_space_size=36, model_type="conv",
+                    num_channels=4, num_res_blocks=1, downsample=False, support_scale=10,
+                    proj_hid=32, proj_out=32, pred_hid=16, pred_out=32)
+
+
+# the gumbel_muzero-on-a-board and gomoku cases were refused until slice
+# 17's second half was ported; each now builds its policy and takes one
+# collect
+@pytest.mark.parametrize("override,error,match", [
+    (dict(policy=dict(type="unizero")), NotImplementedError, "slice 18"),
+    (dict(policy=dict(type="muzero_multitask")), NotImplementedError, "slice 19"),
+    (dict(policy=dict(type="gumbel_muzero", env_type="board_games")), None, None),
+    (dict(env=dict(env_id="gomoku", env_kwargs=dict(board_size=6, n_in_row=4)),
+          policy=dict(env_type="board_games", model=GOMOKU_MODEL)), None, None),
+    (dict(policy=dict(type="sampled_muzero", env_type="board_games")), ValueError,
+     "float arrays"),
+    (dict(policy=dict(analysis_loss_landscape=True)), NotImplementedError, "slice 20"),
+    (dict(policy=dict(model=dict(MODEL, harmony_balance=True))), NotImplementedError, "slice 20"),
+], ids=["unizero", "multitask", "gumbel_board", "gomoku", "sampled_board", "landscape",
+        "harmony"])
+def test_train_muzero_refuses_what_is_not_ported(tmp_path, override, error, match):
     cfg = tiny_cfg(tmp_path / "exp")
     for key, value in override.items():
         cfg[key] = dict(cfg[key], **value)
-    with pytest.raises(NotImplementedError, match=match):
-        train_muzero(cfg, device="cpu")
+    if error is not None:
+        with pytest.raises(error, match=match):
+            train_muzero(cfg, device="cpu")
+        return
+    policy, _, stats = train_muzero(cfg, max_env_step=1, device="cpu")
+    assert policy.players == 2 and stats["env_steps"] > 0
+    assert stats["buffer"].num_transitions > 0
 
 
 SAMPLED = ["sampled_muzero", "sampled_efficientzero"]
