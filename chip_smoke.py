@@ -36,7 +36,7 @@ Phases, each of a fixed size, in one process:
      online net after the copy at iter 100, descent launches = (collect + eval
      searches) x 25; one learn step on the card against one on the CPU from
      the same params and batch; one sample at reanalyze_ratio=0.25 adds 25
-     launches; the median learn-step time over 20 steps (CUDA events), the
+     launches; the median learn-step time over 10 steps (CUDA events), the
      collect rate, and a torch.profiler pass over 5 learn steps;
   7. efficientzero: the CartPole EfficientZero config at full width (latent
      128, LSTM 128, supports of 601 atoms, 25 simulations), whose search is
@@ -44,10 +44,11 @@ Phases, each of a fixed size, in one process:
      until each ends an episode (launches = env steps x 25); a batch of 4
      searched on the card against the same search on the CPU; the descent
      inputs of one eval search (simulations 1, 13 and 25) rerun kernel
-     against plain as in phase 3; train_muzero with the device left unset:
-     an eval at iter 0, one collect round and 20 learn steps, launches =
-     (collect + eval searches) x 25; one learn step on the card against one
-     on the CPU; the median learn-step time;
+     against plain as in phase 3; train_muzero with the device left unset
+     and its searches cut to SHORT_TRAIN_SIMS = 10 simulations: an eval at
+     iter 0, one collect round and 20 learn steps, launches = (collect +
+     eval searches) x 10; one learn step on the card against one on the
+     CPU; the median learn-step time;
   8. gumbel_muzero: the CartPole Gumbel MuZero config (10 simulations, 2
      considered actions), whose collect and eval search is the Gumbel
      search in plain PyTorch: the Evaluator on 3 envs adds no descent
@@ -93,15 +94,15 @@ Phases, each of a fixed size, in one process:
      ReZero (supports of 51 atoms): a short train_muzero run as in phase 7,
      its episodes truncated at REZERO_TRAIN_EPISODE_STEPS, whose collect
      round triggers the whole-buffer reuse reanalyze (groups of 160
-     episodes, backward in time): launches = (collect + eval searches) x 25
-     + 25 x groups, since only each group's first search takes the kernel
-     and the reuse searches the generic descent (25 x (longest episode - 1)
+     episodes, backward in time): launches = (collect + eval searches) x 10
+     + 10 x groups, since only each group's first search takes the kernel
+     and the reuse searches the generic descent (10 x (longest episode - 1)
      descents a group), and the logged count of reanalyzed transitions is
      that of the newest episodes covering 75 % of the buffer; a reuse search
      of 4 numpy-seeded CartPole states on the card and on the CPU with the
      same Dirichlet noise, true actions and reused values and
      tie_break='first' (no launch); one plain reanalyze_buffer
-     (reuse_search=False) of the trained buffer, 25 launches a batch of 160.
+     (reuse_search=False) of the trained buffer, 10 launches a batch of 160.
      MuZero-Context: the Evaluator on 3 envs (launches = env steps x 25)
      through the stateful path; the root latents of 7 stateful steps on the
      card against the CPU, across an episode reset after step 2 and the
@@ -122,7 +123,7 @@ Phases, each of a fixed size, in one process:
      inputs of one eval search (simulations 1, 13, 25) rerun kernel against
      plain as in phase 3; a short train_muzero run as in phase 7 with
      episodes truncated at GRID_TRAIN_EPISODE_STEPS (launches = (collect +
-     eval searches) x 25), one learn step on the card against one on the
+     eval searches) x 10), one learn step on the card against one on the
      CPU and the median learn-step time. Then one initial and one recurrent
      inference of conv MuZero at the Atari width (96x96x12, 64 channels,
      the DownSample pyramid) on 4 seeded frames, card against CPU;
@@ -133,17 +134,17 @@ Phases, each of a fixed size, in one process:
      kernel on its small-A route: each Evaluator on 3 envs (launches = env
      steps x simulations), Catch's eval descent inputs (simulations 1, 13,
      25) rerun kernel against plain as in phase 3, a short train_muzero run
-     as in phase 7 (launches = (collect + eval searches) x simulations) with
-     its learn step on the card against the CPU. TicTacToe AlphaZero (3x3x3
-     planes, 32 channels, 1 res block, 25 simulations; the env is the
+     as in phase 7, its stop_value out of reach (launches = (collect + eval
+     searches) x 10) with its learn step on the card against the CPU.
+     TicTacToe AlphaZero (3x3x3 planes, 32 channels, 1 res block, 25 simulations; the env is the
      search's simulator and its players alternate, so the search takes the
      generic descent): 4 positions searched on the card and on the CPU with
      the same Dirichlet noise and tie_break='first', one self-play collect of
      8 games, AZ_EVAL_EPISODES games against the rule bot, a train_alphazero
-     run of SHORT_TRAIN_ITERS learn steps with its learn step on the card
-     against the CPU; no launch. Connect4 MuZero (the fine-tune config: conv
-     64 channels, A=7, 50 simulations, bot mode, mirror augmentation; seeded
-     weights): the Evaluator against the rule bot on 3 envs with its generic
+     run at AZ_TRAIN_SIMS = 16 simulations and SHORT_TRAIN_ITERS learn steps
+     with its learn step on the card against the CPU; no launch. Connect4
+     MuZero (the fine-tune config: conv 64 channels, A=7, 50 simulations, bot
+     mode, mirror augmentation; seeded weights): the Evaluator against the rule bot on 3 envs with its generic
      descent timed, 4 positions searched on the card and on the CPU, a short
      train_muzero run at C4_TRAIN_SIMS simulations with mirror-augmented
      batches; no launch. (The committed Connect4 params are an orbax
@@ -157,11 +158,12 @@ Phases, each of a fixed size, in one process:
      (K=18 of 36, 50 simulations): each 4 positions searched on the card
      and on the CPU with the same draws (Dirichlet noise; the Gumbel table;
      the root's and every simulation's Gumbel-top-K draws) and
-     tie_break='first', then a train_alphazero run whose iter-0 eval plays
-     BIG_EVAL_EPISODES games against the rule bot on 5 envs with its
-     descents timed, one self-play collect of 8 games (more until the
-     replay holds a batch) and SHORT_TRAIN_ITERS learn steps, one learn step
-     on the card against the CPU and the median learn-step time. Chess
+     tie_break='first', then a train_alphazero run at AZ_TRAIN_SIMS = 16
+     simulations whose iter-0 eval plays BIG_EVAL_EPISODES games against the
+     rule bot on 5 envs with its descents timed, one self-play collect of 8
+     games (more until the replay holds a batch) and SHORT_TRAIN_ITERS learn
+     steps, one learn step on the card against the CPU and the median
+     learn-step time. Chess
      AlphaZero (96 channels, 6 res blocks, 4672 actions, 50 simulations):
      the bot eval on 5 envs, games cut at CHESS_MAX_MOVES plies, and perft
      to depth 2 from the start position and Kiwipete with the card's
@@ -171,7 +173,29 @@ Phases, each of a fixed size, in one process:
      Evaluator against the bot with its descent timed and a short
      train_muzero run at BIG_MZ_TRAIN_SIMS simulations. A summary line per
      config gives eval s per env step, the descent's ms, levels and share
-     of the eval wall, the learn step, the collect rate and the launches.
+     of the eval wall, the learn step, the collect rate and the launches;
+ 15. unizero: the transformer world model, its search carrying a KV cache
+     per tree node, at full width with random weights from seed 0. UniZero
+     with the Grid Breakout ws config (conv 64 channels over 10x10x4, embed
+     256, 2 layers, 8 heads, 24 tokens, supports of 101 atoms, 25
+     simulations, batch 256, unroll 10, drift correction of depth 2,
+     group_kl), whose searches launch the descent kernel on its small-A
+     route (A=3): the Evaluator on 3 envs with episodes cut at
+     UZ_EVAL_STEPS (launches = env steps x 25); UZ_CONTEXT_STEPS stateful
+     steps of 4 grid envs from an empty context on the card and on the CPU
+     (eval steps, then a collect step with the same Dirichlet noise;
+     tie_break='first'): visit counts equal, values within VALUE_TOL; the
+     eval search's descent inputs (simulations 1, 13, 25) rerun kernel
+     against plain; a short train_muzero run as in phase 7 with episodes
+     cut at UZ_TRAIN_EPISODE_STEPS and training from the first collect
+     round (launches = (collect + eval searches) x 25), one learn step on
+     the card against the CPU and the
+     median of UZ_TIMED_LEARN_STEPS learn steps. Sampled UniZero with the
+     Pendulum config (K=16, 50 simulations; the row-read route): the same,
+     cut like phase 10 (its card-vs-CPU search with injected candidate
+     draws and noise from a fresh context, its short run at SUZ_TRAIN_SIMS
+     simulations). A summary gives eval s per env step, learn-step ms, the
+     collect rate, the bytes of one node's KV cache and the phase's wall.
 
 The last lines are the card's name and power limit, one JSON object with a
 record per kernel, and {"ok": true, "device": {...}}; that last line is printed
@@ -223,6 +247,8 @@ from lightzero_tpu_torch.configs.gomoku_muzero_bot_mode import main_config as go
 from lightzero_tpu_torch.configs.gomoku_sampled_alphazero_bot_mode import (
     main_config as gomoku_saz_config,
 )
+from lightzero_tpu_torch.configs.breakout_grid_unizero_ws import main_config as uz_ws_config
+from lightzero_tpu_torch.configs.pendulum_sampled_unizero import main_config as suz_config
 from lightzero_tpu_torch.buffers import GameBuffer
 from lightzero_tpu_torch.entry import train_alphazero, train_muzero
 from lightzero_tpu_torch.entry.train_alphazero import build_env
@@ -246,6 +272,7 @@ from lightzero_tpu_torch.models import (
     MuZeroModel,
     MuZeroRNNModel,
     StochasticMuZeroModel,
+    UniZeroModel,
 )
 from lightzero_tpu_torch.models.common import lecun_normal_
 from lightzero_tpu_torch.models.sampled_muzero import SampledHeads
@@ -260,7 +287,9 @@ from lightzero_tpu_torch.policy import (
     SampledAlphaZeroPolicy,
     SampledEfficientZeroPolicy,
     SampledMuZeroPolicy,
+    SampledUniZeroPolicy,
     StochasticMuZeroPolicy,
+    UniZeroPolicy,
 )
 from lightzero_tpu_torch.policy.alphazero import AZTrainBatch
 from lightzero_tpu_torch.search import gumbel, puct
@@ -282,7 +311,9 @@ from lightzero_tpu_torch.workers import (
 # slower one (every phase 1.4-1.9x slower there), 29 s short of the 400 s
 # this watchdog had through phase 9; 600 s is half the 1200 s a run may take.
 # Phase 11 took the script to 317 s on the first host (with 200 learn steps
-# in phase 6, now 100)
+# in phase 6, now 100). With phase 15 the script took 533-767 s on H100
+# hosts whose speed differed by up to 1.5x, so the short training runs of
+# phases 7 and 11-13 search with SHORT_TRAIN_SIMS simulations
 WATCHDOG_S = 600
 # H100 SXM peaks (NVIDIA data sheet): HBM bandwidth and float32 outside the
 # tensor cores; the bound of a kernel is the larger of bytes/rate, ops/rate
@@ -298,6 +329,9 @@ OPS_PER_ACTION = {True: 30, False: 52}
 STATS_RTOL = STATS_ATOL = 1e-6
 # card vs CPU search on the same weights: float32 matmuls in another order
 VALUE_TOL = 1e-4
+# h^-1's epsilon (ops/scaling.py): a value read off a categorical support is
+# h^-1 of the atoms' expectation, computed in float32
+H_EPS = 1e-3
 # card vs CPU root latents of MuZero-Context: float32 matmuls and LayerNorm
 # statistics in another order
 LATENT_TOL = 1e-5
@@ -311,14 +345,22 @@ EDGE_SHAPES = [(256, 4, 26), (256, 18, 26)]
 # train phase: learn steps of the CartPole run (100, where the target net is
 # copied: the run's depth was halved from 200 when phase 11 came, to keep the
 # script within half the run limit on slower hosts), learn steps timed after
-# it, learn steps under the profiler
+# it and after each short run (20 until phase 15 came; phase 15 times 20),
+# learn steps under the profiler
 TRAIN_ITERS = 100
-TIMED_LEARN_STEPS = 20
+TIMED_LEARN_STEPS = 10
 PROFILED_LEARN_STEPS = 5
 # phases 7 and 8: learn steps of the short train_muzero run, the
 # simulations of the EfficientZero eval search whose descent inputs are
 # rerun kernel against plain
 SHORT_TRAIN_ITERS = 20
+# the simulations of the short training runs of phases 7 and 11-13 (their
+# evals search with the configs' 25 or 50): each simulation costs a few ms of
+# host dispatch, 64 times in a collect round; with phase 15 the script went
+# past its watchdog on slower hosts. Phase 10's runs keep their 50: at 10,
+# Sampled MuZero's learn-step check failed on its mean predicted value near
+# 0 (1.8e-4 relative, against LEARN_LOG_RTOL), as at 16-step episodes
+SHORT_TRAIN_SIMS = 10
 EZ_CAPTURED_SIMS = (1, 13, 25)
 # phase 9's short training run searches with STOCH_TRAIN_SIMS simulations,
 # its evals with the config's 50: its collect round took 45 s at 50, and
@@ -328,7 +370,7 @@ STOCH_TRAIN_SIMS = 10
 # short training run truncate episodes at these env steps (the first eval
 # at 12 until phase 14 came; phase 10's at 12, phase 12's at 16 and phase
 # 13's AlphaZero eval at 10 games were cut for it too)
-STOCH_EVAL_STEPS = 8
+STOCH_EVAL_STEPS = 4  # 8 until phase 15 came
 STOCH_TIMED_EVAL_STEPS = 6
 STOCH_TRAIN_EPISODE_STEPS = 16
 # phase 10: a Pendulum episode runs 200 steps, so the evals truncate episodes
@@ -379,7 +421,12 @@ C4_TRAIN_EVAL_EPISODES = 3
 # its own beside each training run, phase 14 took 115 s on an H100 80GB HBM3
 # at 700 W; the AlphaZero variants now time the training run's own eval
 GO_MAX_MOVES = 12
-CHESS_MAX_MOVES = 4
+# the simulations of the AlphaZero training runs of phases 13 and 14 (self-
+# play and, in phase 14, the run's timed iter-0 eval; the configs' 25-60
+# until phase 15 came and the script passed its watchdog on slower hosts);
+# the card-vs-CPU searches and TicTacToe's own collect and eval keep them
+AZ_TRAIN_SIMS = 16
+CHESS_MAX_MOVES = 2  # 4 until phase 15 came
 BIG_EVAL_EPISODES = 5
 BIG_MZ_TRAIN_SIMS = 10
 PERFT_CASES = (
@@ -387,6 +434,19 @@ PERFT_CASES = (
     ("kiwipete", "r3k2r/p1ppqpb1/bn2pnp1/3PN3/1p2P3/2N2Q1p/PPPBBPPP/R3K2R w KQkq - 0 1", 2,
      2039),
 )
+# phase 15: UniZero on Grid Breakout at the ws config's width, its eval
+# and training episodes cut; Sampled UniZero on Pendulum cut as phase 10
+UZ_EVAL_STEPS = 10
+UZ_TRAIN_EPISODE_STEPS = 32
+UZ_CAPTURED_SIMS = (1, 13, 25)
+UZ_CONTEXT_STEPS = 3
+UZ_TIMED_LEARN_STEPS = 20
+SUZ_EVAL_STEPS = 4  # 8 until phase 15 took 60.7 s of its 60 s budget
+SUZ_TRAIN_EPISODE_STEPS = 16
+# the simulations of Sampled UniZero's short run (its evals search with the
+# config's 50): its collect round took 29.5 s at 50 on the card
+SUZ_TRAIN_SIMS = 25
+SUZ_CAPTURED_SIMS = (1, 25, 50)
 # card vs CPU learn step from the same params and batch (TF32 off): the
 # logged terms to 1e-4 relative (float32 matmuls of batch 256 summed in
 # another order). Adam's first update is lr * g / (|g| + 1e-8), g the
@@ -401,9 +461,14 @@ LEARN_PARAM_ATOL = 1e-5
 GRAD_TO_ROUNDING = 100.0
 
 MAIN_SEED = 0
+T_START = time.perf_counter()
 
 
 def emit(obj) -> None:
+    """Print one JSON line; a phase's record gets ``t_s``, the seconds since
+    the script started."""
+    if "phase" in obj:
+        obj = dict(obj, t_s=time.perf_counter() - T_START)
     print(json.dumps(obj), flush=True)
 
 
@@ -488,6 +553,10 @@ def randomize_heads(model, seed: int) -> None:
     g = torch.Generator().manual_seed(seed)
     if isinstance(model, AlphaZeroModel):
         heads = tuple(model.mlp)  # policy, value
+    elif isinstance(model, UniZeroModel):
+        heads = [getattr(model, name) for name in (
+            "value_head", "policy_head", "reward_head", "mu_head", "sigma_head")
+            if hasattr(model, name)]
     elif isinstance(model, SampledHeads):
         # the value head, and whichever of the reward or value-prefix head and
         # the Gaussian or logits heads the model has
@@ -906,39 +975,60 @@ def compare_learn_steps(card: dict, cpu: dict) -> tuple:
     return log_err, tight_err, loose_err, loose, total
 
 
+def h_inverse_step(value: torch.Tensor) -> torch.Tensor:
+    """The float32 resolution of h^-1 at |value|. h^-1(v) = u^2 - 1 with
+    u = (s - 1) / (2 eps) = sqrt(|v| + 1), s = sqrt(1 + 4 eps (|x| + 1 +
+    eps)) = 1 + 2 eps u; one float32 step of s moves u by spacing(s) / (2
+    eps), so h^-1 by u spacing(s) / eps: 1.19e-4 near 0, more than
+    VALUE_TOL x (1 + |v|) for |v| < 0.42."""
+    u = torch.sqrt(value.abs().double() + 1.0)
+    spacing = torch.exp2(torch.floor(torch.log2(1.0 + 2.0 * H_EPS * u)) - 23.0)
+    return (u * spacing / H_EPS).float()
+
+
+def priority_err_over_bound(card_priority, cpu_priority, batch) -> float:
+    """The largest card-vs-CPU priority error over its bound. A priority is
+    |root value - target value|: it carries the root value's error, VALUE_TOL
+    relative to the value (at most |target| + priority), not relative to the
+    difference, in which the two values cancel, plus one float32 step of
+    h^-1 at that value, the resolution at which the value is read."""
+    base = getattr(batch, "base", batch)
+    value = base.target_value[:, 0].abs().cpu() + cpu_priority.abs()
+    bound = VALUE_TOL * (1.0 + value) + h_inverse_step(value)
+    return float(((card_priority - cpu_priority).abs() / bound).max())
+
+
 def learn_step_card_vs_cpu(policy, batch) -> tuple:
     """One learn step on the card and one on the CPU, each from a fresh
-    optimizer over the same params, on the same batch: (record, agree)."""
+    optimizer over the same params, on the same batch: (record, agree).
+    The gradient Adam sees holds the decay term wd * p, except under AdamW,
+    which decays after Adam's scaling."""
     results = {}
     for dev in ("cuda", "cpu"):
         p = type(policy)(policy.cfg, model=copy.deepcopy(policy.model), device=dev)
         before = {k: v.detach().cpu().clone() for k, v in p.model.named_parameters()}
         state = p.init_train_state()
+        wd = (0.0 if isinstance(state.optimizer, torch.optim.AdamW)
+              else float(p.cfg.weight_decay))
         _, logs, priority = p.forward_learn(state, batch_to(batch, p.device))
-        g = {k: v.grad.cpu() + float(p.cfg.weight_decay) * before[k]
-             for k, v in p.model.named_parameters()}
+        g = {k: v.grad.cpu() + wd * before[k] for k, v in p.model.named_parameters()}
         results[dev] = dict(logs={k: float(v) for k, v in logs.items()}, priority=priority.cpu(),
                             params={k: v.detach().cpu() for k, v in p.model.named_parameters()},
                             g=g)
     card, cpu = results["cuda"], results["cpu"]
     lr = float(policy.cfg.learning_rate)
     log_err, tight_err, loose_err, loose, total = compare_learn_steps(card, cpu)
-    # a priority is |root value - target value|: it carries the root value's
-    # error, VALUE_TOL relative to the value (at most |target| + priority),
-    # not relative to the difference, in which the two values cancel
-    base = getattr(batch, "base", batch)
-    value_scale = 1.0 + base.target_value[:, 0].abs().cpu() + cpu["priority"].abs()
-    priorities_agree = bool(((card["priority"] - cpu["priority"]).abs()
-                             <= VALUE_TOL * value_scale).all())
+    priority_ratio = priority_err_over_bound(card["priority"], cpu["priority"], batch)
     rec = dict(phase="train_card_vs_cpu", batch=int(cpu["priority"].shape[0]),
                max_log_rel_err=max(log_err.values()), log_rel_err=log_err,
                priority_max_abs_err=float((card["priority"] - cpu["priority"]).abs().max()),
+               priority_err_over_bound=priority_ratio,
                param_max_abs_err=tight_err, param_max_abs_err_rounding_bound=loose_err,
                rounding_bound_elements=loose, elements=total,
                total_loss_card=card["logs"]["total_loss"], total_loss_cpu=cpu["logs"]["total_loss"])
     emit(rec)
     agree = (rec["max_log_rel_err"] <= LEARN_LOG_RTOL and tight_err <= LEARN_PARAM_ATOL
-             and loose_err <= 2 * lr and priorities_agree and loose < total // 4)
+             and loose_err <= 2 * lr and priority_ratio <= 1.0 and loose < total // 4)
     return rec, agree
 
 
@@ -1075,8 +1165,16 @@ def eval_episodes(policy, card: str, label: str, env=None, returns_range=(0, mat
     return rec
 
 
+def with_sims(config, sims: int):
+    """A deep copy of a MuZero-family config whose searches run ``sims``
+    simulations."""
+    cfg = copy.deepcopy(config)
+    cfg.policy.num_simulations = sims
+    return cfg
+
+
 def short_train(cfg, card: str, label: str, launches_per_search: int,
-                extra_launches=lambda: 0) -> tuple:
+                extra_launches=lambda: 0, timed_steps: int = TIMED_LEARN_STEPS) -> tuple:
     """train_muzero with the device left unset (the card): an eval at iter
     0, one collect round and SHORT_TRAIN_ITERS learn steps, the launch
     counter read around it (``extra_launches()`` adds what the run launched
@@ -1106,11 +1204,12 @@ def short_train(cfg, card: str, label: str, launches_per_search: int,
     buffer = stats["buffer"]
     batch, _ = buffer.sample(int(policy.cfg.batch_size), state.target_model)
     agreement, agree = learn_step_card_vs_cpu(policy, batch)
-    state, step_ms, _, timed_losses = time_learn_steps(policy, state, buffer, TIMED_LEARN_STEPS)
+    state, step_ms, _, timed_losses = time_learn_steps(policy, state, buffer, timed_steps)
     params_finite = all(bool(torch.isfinite(p).all()) for p in state.model.parameters())
     rec = dict(phase=f"{label}_train", train_iter=stats["train_iter"], env_steps=stats["env_steps"],
                collect_searches=collect_searches, eval_searches=stats["eval_env_steps"],
-               launches=launches, expected_launches=expected, logged_total_losses=losses,
+               num_simulations=int(cfg.policy.num_simulations), launches=launches,
+               expected_launches=expected, logged_total_losses=losses,
                logged_reanalyzed=reanalyzed,
                collect_steps_per_s=collect_sps, wall_s=wall,
                learn_step_ms_median=float(np.median(step_ms)), learn_step_ms=step_ms,
@@ -1147,7 +1246,8 @@ def phase_efficientzero(card: str, l2_ns: float) -> tuple:
         raise AssertionError(f"captured simulations {sorted(captures)}, expected {EZ_CAPTURED_SIMS}")
     cases = phase_captured(captures, l2_ns, search="efficientzero eval search")
 
-    train, problems, *_ = short_train(ez_config, card, "efficientzero", sims)
+    train, problems, *_ = short_train(with_sims(ez_config, SHORT_TRAIN_SIMS), card,
+                                      "efficientzero", SHORT_TRAIN_SIMS)
     emit(train)
     if problems:
         raise AssertionError(f"efficientzero train failed: {problems}")
@@ -1368,7 +1468,7 @@ def phase_stochastic(card: str) -> dict:
     cfg.env.max_episode_steps = STOCH_TRAIN_EPISODE_STEPS
     cfg.policy.num_simulations = STOCH_TRAIN_SIMS
     train, problems, *_ = short_train(cfg, card, "stochastic_muzero", 0)
-    train.update(episodes_truncated_at=STOCH_TRAIN_EPISODE_STEPS, num_simulations=STOCH_TRAIN_SIMS)
+    train.update(episodes_truncated_at=STOCH_TRAIN_EPISODE_STEPS)
     emit(train)
     if problems:
         raise AssertionError(f"stochastic_muzero train failed: {problems}")
@@ -1591,10 +1691,11 @@ def phase_rezero_history(card: str) -> dict:
                              f"{ev['env_steps']} x {sims}")
     cfg = copy.deepcopy(rezero_config)
     cfg.env.max_episode_steps = REZERO_TRAIN_EPISODE_STEPS
-    calls, restore = watch_reanalyze(sims)
+    cfg.policy.num_simulations = SHORT_TRAIN_SIMS
+    calls, restore = watch_reanalyze(SHORT_TRAIN_SIMS)
     try:
         train, problems, policy, state, buffer = short_train(
-            cfg, card, "rezero", sims,
+            cfg, card, "rezero", SHORT_TRAIN_SIMS,
             extra_launches=lambda: sum(c["expected_launches"] for c in calls))
         reuse = reuse_search_card_vs_cpu(policy)
         buffer.reanalyze_buffer(state.target_model, reanalyze_batch_size=160, partition=0.75,
@@ -1620,7 +1721,8 @@ def phase_rezero_history(card: str) -> dict:
         raise AssertionError(f"muzero_context: traverse launches {ev['launches']} != env steps "
                              f"{ev['env_steps']} x {sims}")
     latents = context_card_vs_cpu(policy)
-    train, problems, *_ = short_train(context_config, card, "muzero_context", sims)
+    train, problems, *_ = short_train(with_sims(context_config, SHORT_TRAIN_SIMS), card,
+                                      "muzero_context", SHORT_TRAIN_SIMS)
     emit(train)
     if problems:
         raise AssertionError(f"muzero_context train failed: {problems}")
@@ -1638,7 +1740,8 @@ def phase_rezero_history(card: str) -> dict:
         raise AssertionError(f"muzero_rnn: traverse launches {ev['launches']} != env steps "
                              f"{ev['env_steps']} x {sims}")
     agreement = search_card_vs_cpu(policy, "muzero_rnn")
-    train, problems, *_ = short_train(cfg, card, "muzero_rnn", sims)
+    train, problems, *_ = short_train(with_sims(cfg, SHORT_TRAIN_SIMS), card, "muzero_rnn",
+                                      SHORT_TRAIN_SIMS)
     emit(train)
     if problems:
         raise AssertionError(f"muzero_rnn train failed: {problems}")
@@ -1733,7 +1836,8 @@ def phase_grid(card: str, l2_ns: float) -> tuple:
 
         cfg = copy.deepcopy(config)
         cfg.env.max_steps = GRID_TRAIN_EPISODE_STEPS
-        train, problems, *_ = short_train(cfg, card, label, sims)
+        cfg.policy.num_simulations = SHORT_TRAIN_SIMS
+        train, problems, *_ = short_train(cfg, card, label, SHORT_TRAIN_SIMS)
         train.update(episodes_truncated_at=GRID_TRAIN_EPISODE_STEPS)
         emit(train)
         if problems:
@@ -1789,7 +1893,11 @@ def phase_probes(card: str, l2_ns: float) -> tuple:
                 raise AssertionError(f"captured simulations {sorted(captures)}, "
                                      f"expected {PROBE_CAPTURED_SIMS}")
             cases += phase_captured(captures, l2_ns, search=f"{label} eval search")
-        train, problems, *_ = short_train(config, card, label, sims)
+        cfg = with_sims(config, SHORT_TRAIN_SIMS)
+        # out of reach (a return is at most 1): at 10 simulations Catch's
+        # iter-0 eval caught every ball and the run stopped before collecting
+        cfg.env.stop_value = 2.0
+        train, problems, *_ = short_train(cfg, card, label, SHORT_TRAIN_SIMS)
         emit(train)
         if problems:
             raise AssertionError(f"{label} train failed: {problems}")
@@ -1923,6 +2031,7 @@ def phase_alphazero(card: str) -> tuple:
 
     cfg = copy.deepcopy(ttt_az_config)
     cfg.policy.update_per_collect = SHORT_TRAIN_ITERS
+    cfg.policy.num_simulations = AZ_TRAIN_SIMS
     with tempfile.TemporaryDirectory() as tmp:
         cfg.exp_name = os.path.join(tmp, "tictactoe_alphazero")
         t1 = time.perf_counter()
@@ -1995,7 +2104,7 @@ def phase_connect4(card: str) -> tuple:
     cfg.policy.num_simulations = C4_TRAIN_SIMS
     cfg.env.evaluator_env_num = cfg.env.n_evaluator_episode = C4_TRAIN_EVAL_EPISODES
     train, problems, _, _, buffer = short_train(cfg, card, "connect4_muzero", 0)
-    train.update(num_simulations=C4_TRAIN_SIMS, mirror_augmentation=buffer.mirror_augmentation)
+    train.update(mirror_augmentation=buffer.mirror_augmentation)
     emit(train)
     if not buffer.mirror_augmentation:
         problems.append("the buffer does not mirror")
@@ -2023,17 +2132,16 @@ def az_board_run(card: str, label: str, config, policy_cls, descent_name: str,
                  draws_for, close=(), tol=VALUE_TOL) -> dict:
     """One AlphaZero-family config on a board at its zoo width: 4 self-play
     positions searched card vs CPU with the draws ``draws_for(legal)``
-    (seeded heads); a train_alphazero run (device unset: the card) whose
-    eval at iter 0 plays BIG_EVAL_EPISODES games against the rule bot on 5
-    envs with its descents timed, then one self-play collect of 8 games
-    (more where the replay holds less than a batch) and SHORT_TRAIN_ITERS
-    learn steps; one learn step card vs CPU; the median of
+    (seeded heads); a train_alphazero run (device unset: the card) at
+    AZ_TRAIN_SIMS simulations whose eval at iter 0 plays BIG_EVAL_EPISODES
+    games against the rule bot on 5 envs with its descents timed, then one
+    self-play collect of 8 games (more where the replay holds less than a
+    batch) and SHORT_TRAIN_ITERS learn steps; one learn step card vs CPU; the median of
     TIMED_LEARN_STEPS learn steps. No search launches the kernel."""
     fused_traverse.launches = 0
     sp_env = build_env(config.env, "self_play_mode")
     policy = policy_cls(config.policy, sp_env, device="cuda", seed=MAIN_SEED)
     randomize_heads(policy.model, MAIN_SEED + 61)
-    sims = int(policy.cfg.num_simulations)
     state, legal = az_positions(sp_env, MAIN_SEED + 61)
     agreement = az_search_card_vs_cpu(policy, label, state, close=close, tol=tol,
                                       **draws_for(legal))
@@ -2054,6 +2162,7 @@ def az_board_run(card: str, label: str, config, policy_cls, descent_name: str,
 
     cfg = copy.deepcopy(config)
     cfg.policy.update_per_collect = SHORT_TRAIN_ITERS
+    cfg.policy.num_simulations = AZ_TRAIN_SIMS
     cfg.env.evaluator_env_num, cfg.env.n_evaluator_episode = 5, BIG_EVAL_EPISODES
     AlphaZeroBotEvaluator.eval = timed_eval
     try:
@@ -2077,9 +2186,9 @@ def az_board_run(card: str, label: str, config, policy_cls, descent_name: str,
     emit(ev)
     if (len(res["episode_returns"]) != BIG_EVAL_EPISODES
             or not set(res["episode_returns"]) <= {-1.0, 0.0, 1.0}
-            or descent["calls"] != res["env_steps"] * sims):
+            or descent["calls"] != res["env_steps"] * AZ_TRAIN_SIMS):
         raise AssertionError(f"{label} eval: {res['episode_returns']}, {descent['calls']} "
-                             f"descents for {res['env_steps']} steps x {sims}")
+                             f"descents for {res['env_steps']} steps x {AZ_TRAIN_SIMS}")
     losses = [r["learner/total_loss"] for r in records if "learner/total_loss" in r]
     collect_sps = [r["collector/steps_per_sec"] for r in records if "collector/steps_per_sec" in r]
     batch_size = int(trained.cfg.batch_size)
@@ -2189,8 +2298,7 @@ def gomoku_muzero_on_card(card: str) -> dict:
     cfg.policy.num_simulations = BIG_MZ_TRAIN_SIMS
     cfg.env.evaluator_env_num = cfg.env.n_evaluator_episode = 3
     train, problems, *_ = short_train(cfg, card, "gomoku_muzero", 0)
-    train.update(num_simulations=BIG_MZ_TRAIN_SIMS,
-                 collect_steps_per_s=float(np.median(train["collect_steps_per_s"])))
+    train.update(collect_steps_per_s=float(np.median(train["collect_steps_per_s"])))
     emit(train)
     if problems:
         raise AssertionError(f"gomoku_muzero train failed: {problems}")
@@ -2241,6 +2349,138 @@ def phase_big_boards(card: str) -> tuple:
     return records, time.perf_counter() - t0
 
 
+def cache_bytes_per_node(policy) -> int:
+    """The bytes of one tree node's KV cache: k and v (L, H, Tc, Dh) float32,
+    the slots' positions (Tc) and the next position, int64."""
+    cache = policy.init_collect_state(1)
+    return sum(t.numel() * t.element_size() for t in cache)
+
+
+def uz_context_card_vs_cpu(policy, env_cls) -> dict:
+    """UZ_CONTEXT_STEPS stateful steps of 4 grid envs on the card and on the
+    CPU from the same weights and an empty context, with tie_break='first':
+    eval steps (the same argmax actions, so the contexts stay alike), then a
+    collect step with the same Dirichlet noise. At each step the visit counts
+    equal and the searched and predicted root values within VALUE_TOL; the
+    contexts' slot positions equal."""
+    B, A = 4, env_cls.action_space_size
+    g = torch.Generator().manual_seed(MAIN_SEED + 15)
+    env = env_cls()
+    state, obs = env.reset(B, g)
+    frames = []
+    for _ in range(UZ_CONTEXT_STEPS):
+        frames.append(obs)
+        step = env.step(state, torch.randint(0, A, (B,), generator=g), g)
+        state, obs = step.state, step.obs
+    legal = torch.ones((B, A), dtype=torch.bool)
+    to_play = torch.full((B,), -1, dtype=torch.int32)
+    noise = torch.from_numpy(np.random.default_rng(MAIN_SEED + 15).dirichlet(
+        np.full(A, 0.3), B).astype(np.float32))
+    cpu_policy = type(policy)(policy.cfg, model=copy.deepcopy(policy.model).cpu(), device="cpu")
+    search_cfg = policy.search_cfg
+    runs = []
+    try:
+        for p in (policy, cpu_policy):
+            p.search_cfg = dataclasses.replace(search_cfg, tie_break="first")
+            d, context, run = p.device, p.init_collect_state(B), []
+            for t, o in enumerate(frames):
+                collect = t == len(frames) - 1
+                out, context = p._forward_collect_stateful(
+                    o.to(d), legal.to(d), to_play.to(d), 1.0, 0.0, context,
+                    deterministic=not collect, noise=noise.to(d) if collect else None)
+                run.append(dict({k: out[k].cpu() for k in
+                                 ("visit_counts", "searched_value", "predicted_value")},
+                                pos=context.pos.cpu()))
+            runs.append(run)
+    finally:
+        policy.search_cfg = search_cfg
+    err = {k: max(float((a[k] - b[k]).abs().max()) for a, b in zip(*runs))
+           for k in ("searched_value", "predicted_value")}
+    rec = dict(phase="unizero_context_card_vs_cpu", batch=B, steps=UZ_CONTEXT_STEPS,
+               tie_break="first", visit_counts=[r["visit_counts"].tolist() for r in runs[0]],
+               max_abs_err=err)
+    emit(rec)
+    for t, (a, b) in enumerate(zip(*runs)):
+        for key in ("visit_counts", "pos"):
+            if not torch.equal(a[key], b[key]):
+                raise AssertionError(f"unizero: card and CPU {key} differ at step {t}")
+        for key in ("searched_value", "predicted_value"):
+            if not (torch.isfinite(a[key]).all()
+                    and torch.allclose(a[key], b[key], rtol=VALUE_TOL, atol=VALUE_TOL)):
+                raise AssertionError(f"unizero: card and CPU {key} differ at step {t}: "
+                                     f"{a[key].tolist()} vs {b[key].tolist()}")
+    return rec
+
+
+def phase_unizero(card: str, l2_ns: float) -> tuple:
+    """UniZero on Grid Breakout at the ws config's full width (conv 64, embed
+    256, 2 layers, 8 heads, 24 tokens, 25 simulations, batch 256, drift
+    correction of depth 2, group_kl) and Sampled UniZero on Pendulum (K=16,
+    50 simulations), random weights from seed 0: every search keeps a KV
+    cache per node and launches the descent kernel once a simulation
+    (prefetch route at A=3, row read at K=16)."""
+    t0 = time.perf_counter()
+    records, cases = {}, []
+    for i, (label, policy_cls, config, env_cls, eval_steps, train_steps, captured) in enumerate((
+            ("unizero", UniZeroPolicy, uz_ws_config, BreakoutGridEnv, UZ_EVAL_STEPS,
+             UZ_TRAIN_EPISODE_STEPS, UZ_CAPTURED_SIMS),
+            ("sampled_unizero", SampledUniZeroPolicy, suz_config, PendulumEnv, SUZ_EVAL_STEPS,
+             SUZ_TRAIN_EPISODE_STEPS, SUZ_CAPTURED_SIMS))):
+        policy = policy_cls(config.policy, device="cuda", seed=MAIN_SEED)
+        randomize_heads(policy.model, MAIN_SEED + 15 + i)
+        sims = policy.search_cfg.num_simulations
+        sampled = policy_cls is SampledUniZeroPolicy
+        width = policy.K if sampled else env_cls.action_space_size
+        if sampled:
+            env, returns_range = (PendulumEnv(max_episode_steps=eval_steps),
+                                  (-17.0 * eval_steps, 0.0))
+        else:
+            env, returns_range = BreakoutGridEnv(max_steps=eval_steps), (0.0, float(eval_steps))
+        ev = eval_episodes(policy, card, label, env=env, returns_range=returns_range)
+        ev.update(config=("pendulum_sampled_unizero" if sampled else "breakout_grid_unizero_ws"),
+                  num_simulations=sims, A=width, route=kernel_route(width),
+                  episodes_truncated_at=eval_steps, cache_bytes_per_node=cache_bytes_per_node(policy))
+        emit(ev)
+        if ev["launches"] != ev["env_steps"] * sims:
+            raise AssertionError(f"{label}: traverse launches {ev['launches']} != env steps "
+                                 f"{ev['env_steps']} x {sims}")
+        if sampled:
+            agreement = sampled_search_card_vs_cpu(policy, label)
+            obs = PendulumEnv().reset(3, torch.Generator().manual_seed(MAIN_SEED))[1]
+            legal = torch.ones((3, 1), dtype=torch.bool)
+        else:
+            agreement = uz_context_card_vs_cpu(policy, env_cls)
+            obs, legal = grid_states(env_cls(), 3, MAIN_SEED + 25)
+        captures = capture_descent_inputs(policy, obs.cuda(), legal.cuda(), captured)
+        if sorted(captures) != list(captured):
+            raise AssertionError(f"captured simulations {sorted(captures)}, expected {captured}")
+        cases += phase_captured(captures, l2_ns, search=f"{label} eval search")
+
+        cfg = copy.deepcopy(config)
+        if sampled:
+            cfg.env.max_episode_steps = train_steps
+            cfg.env.stop_value = 1.0  # out of reach: a return is at most 0
+            cfg.policy.num_simulations = SUZ_TRAIN_SIMS
+        else:
+            cfg.env.max_steps = train_steps
+            cfg.policy.train_start_after_envsteps = 0
+        train, problems, *_ = short_train(cfg, card, label, cfg.policy.num_simulations,
+                                          timed_steps=UZ_TIMED_LEARN_STEPS)
+        train.update(episodes_truncated_at=train_steps)
+        emit(train)
+        if problems:
+            raise AssertionError(f"{label} train failed: {problems}")
+        records[label] = dict(eval=ev, card_vs_cpu=agreement, train=train)
+    wall = time.perf_counter() - t0
+    emit(dict(phase="unizero_summary", wall_s=wall, card=card, **{
+        f"{label}_{key}": value for label, rec in records.items() for key, value in (
+            ("eval_s_per_env_step", rec["eval"]["wall_per_env_step_s"]),
+            ("learn_step_ms", rec["train"]["learn_step_ms_median"]),
+            ("collect_steps_per_s", rec["train"]["collect_steps_per_s"]),
+            ("cache_bytes_per_node", rec["eval"]["cache_bytes_per_node"]))}))
+    return records, cases, wall
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs on a GPU", file=sys.stderr)
@@ -2276,6 +2516,8 @@ def main() -> int:
     az, az_wall = phase_alphazero(card)
     c4, c4_wall = phase_connect4(card)
     big, big_wall = phase_big_boards(card)
+    uz, uz_cases, uz_wall = phase_unizero(card, l2_ns)
+    cases += uz_cases
 
     main_case = next(c for c in cases if (c["B"], c["A"], c["N"], c["tie_break"]) == (3, 2, 26, "noise"))
     kernels = [dict(
@@ -2328,6 +2570,11 @@ def main() -> int:
         # Chess AlphaZero, whose searches take the generic or the Gumbel
         # descent: 0
         **{f"launches_{name}": rec["launches"] for name, rec in big.items()},
+        # phase 15: UniZero's (Grid Breakout, A=3, prefetch route) and Sampled
+        # UniZero's (Pendulum, K=16, row read) evals and training runs
+        **{f"launches_{name}{suffix}": uz[name][part]["launches"]
+           for name in ("unizero", "sampled_unizero")
+           for suffix, part in (("", "eval"), ("_train", "train"))},
         max_abs_err=max(c["max_abs_err"] for c in cases),
         ms=main_case["ms"],
         # launch to launch through the wrapper, the host's dispatch included:
@@ -2387,7 +2634,15 @@ def main() -> int:
               **{f"{name}_eval_s_per_env_step": rec["eval"]["wall_per_env_step_s"]
                  for name, rec in big.items()},
               **{f"{name}_learn_step_ms": rec["train"]["learn_step_ms_median"]
-                 for name, rec in big.items() if "train" in rec}))
+                 for name, rec in big.items() if "train" in rec},
+              unizero_wall_s=uz_wall,
+              **{f"{name}_{key}": uz[name][part][field]
+                 for name in ("unizero", "sampled_unizero")
+                 for key, part, field in (
+                     ("eval_s_per_env_step", "eval", "wall_per_env_step_s"),
+                     ("learn_step_ms", "train", "learn_step_ms_median"),
+                     ("collect_steps_per_s", "train", "collect_steps_per_s"),
+                     ("cache_bytes_per_node", "eval", "cache_bytes_per_node"))}))
     faulthandler.cancel_dump_traceback_later()
     signal.alarm(0)
     print(card, flush=True)

@@ -18,6 +18,10 @@ path, as in the JAX buffer: their actions are (T, D) floats (or ints) and
 the batch is a ``SampledTrainBatch`` with the root candidates of every
 unroll position.
 
+A policy with ``reanalyze_needs_context`` (UniZero) also gets, for every
+reanalyzed position, the stored observations and actions of the
+``reanalyze_context_steps`` steps before it (``_context_history``).
+
 ReZero's whole-buffer reanalyze (``reanalyze_buffer``) searches again, with
 the target network, the newest transitions up to a share of the buffer and
 overwrites their stored policy targets and root values in place; with
@@ -420,17 +424,51 @@ class GameBuffer:
                 int(self._rng.randint(1 << 30))
             )
         dev = self.policy.device
+        context = {}
+        H = int(self.policy.cfg.get("reanalyze_context_steps", 4))
+        if getattr(self.policy, "reanalyze_needs_context", False) and H > 0:
+            oh, ah, hl = self._context_history(idx[:n_re], H, obs_shape)
+            context = dict(obs_hist=torch.from_numpy(oh.reshape((M, H + 1) + obs_shape)).to(dev),
+                           act_hist=torch.from_numpy(ah.reshape(M, H)).to(dev),
+                           hist_len=torch.from_numpy(hl.reshape(M)).to(dev))
         fresh_policy, _ = self.policy.forward_reanalyze(
             target_model,
             torch.from_numpy(re_obs.reshape((M,) + obs_shape)).to(dev),
             torch.from_numpy(re_legal.reshape(M, A)).to(dev),
             torch.from_numpy(re_to_play.reshape(M)).to(dev, torch.int32),
             generator=self._re_generator,
+            **context,
         )
         fresh_policy = fresh_policy.cpu().numpy().reshape(n_re, K + 1, A)
         target_policy = np.array(target_policy)
         target_policy[:n_re] = fresh_policy * re_valid[..., None]
         return target_policy
+
+    def _context_history(self, idx, H: int, obs_shape) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """The stored history before each reanalyzed position, for a policy
+        whose reanalyze root is the prefill of its context (UniZero,
+        game_buffer.py:484-508): observations (n, K+1, H+1, *obs) and actions
+        (n, K+1, H) ending at step t = min(pos + k, T - 1), aligned to the
+        right, and the valid history length min(t, H) (n, K+1). The native
+        path takes this loop too, as the JAX buffer does."""
+        K = self.K
+        n = len(idx)
+        oh = np.zeros((n, K + 1, H + 1) + tuple(obs_shape), np.float32)
+        ah = np.zeros((n, K + 1, H), np.int64)
+        hl = np.zeros((n, K + 1), np.int64)
+        for b in range(n):
+            ep = self._episodes[self._flat_ep[idx[b]]]
+            pos = int(self._flat_pos[idx[b]])
+            T = len(ep.actions)
+            for k in range(K + 1):
+                t = min(pos + k, T - 1)
+                length = min(t, H)
+                hl[b, k] = length
+                for i in range(length + 1):
+                    oh[b, k, H - i] = self._stacked_obs(ep, t - i)
+                for i in range(length):
+                    ah[b, k, H - 1 - i] = ep.actions[t - 1 - i]
+        return oh, ah, hl
 
     def _to_device(self, obs, actions, mask, target_reward, target_value, target_policy,
                    weights, chance, sampled_actions=None) -> Union[TrainBatch, SampledTrainBatch]:

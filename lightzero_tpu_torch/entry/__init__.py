@@ -6,3 +6,7 @@ from lightzero_tpu_torch.entry.train_muzero import eval_muzero, train_muzero
 # package's entry/__init__.py
 train_rezero = train_muzero
 train_muzero_segment = train_muzero
+# UniZero and Sampled UniZero share the loop too, chosen by policy.type
+train_unizero = train_muzero
+eval_unizero = eval_muzero
+train_unizero_segment = train_muzero

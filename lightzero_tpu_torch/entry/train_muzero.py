@@ -1,6 +1,7 @@
 """Training entry (``lightzero_tpu/entry/train_muzero.py``) for the ported
 policies: MuZero, EfficientZero, Gumbel MuZero, Stochastic MuZero, Sampled
-MuZero, Sampled EfficientZero, MuZero-Context and MuZero-RNN-full-obs,
+MuZero, Sampled EfficientZero, MuZero-Context, MuZero-RNN-full-obs, UniZero
+and Sampled UniZero,
 chosen by ``cfg.policy.type`` from ``POLICIES`` as the JAX entry does from
 its registry, on the ported envs (CartPole, 2048, Pendulum, the five
 MinAtar-class grids: breakout, asterix, freeway, space invaders, seaquest,
@@ -78,7 +79,9 @@ from lightzero_tpu_torch.policy import (
     MuZeroRNNFullObsPolicy,
     SampledEfficientZeroPolicy,
     SampledMuZeroPolicy,
+    SampledUniZeroPolicy,
     StochasticMuZeroPolicy,
+    UniZeroPolicy,
 )
 from lightzero_tpu_torch.utils.checkpoint import (
     load_checkpoint_lenient,
@@ -118,10 +121,12 @@ POLICIES = {
     "gumbel_muzero": GumbelMuZeroPolicy, "stochastic_muzero": StochasticMuZeroPolicy,
     "sampled_muzero": SampledMuZeroPolicy, "sampled_efficientzero": SampledEfficientZeroPolicy,
     "muzero_context": MuZeroContextPolicy, "muzero_rnn_full_obs": MuZeroRNNFullObsPolicy,
+    "unizero": UniZeroPolicy, "sampled_unizero": SampledUniZeroPolicy,
 }
 # the policies that train_muzero runs on board games (env_type "board_games"):
 # those that the JAX entry runs there
-BOARD_POLICIES = ("muzero", "efficientzero", "gumbel_muzero", "muzero_context")
+BOARD_POLICIES = ("muzero", "efficientzero", "gumbel_muzero", "muzero_context", "unizero",
+                  "sampled_unizero")
 # the other policy types, each with the way the JAX entry fails on a board
 # game (a TicTacToe bot-mode config through lightzero_tpu's train_muzero)
 JAX_BOARD_FAULTS = {
@@ -137,8 +142,7 @@ JAX_BOARD_FAULTS = {
 # the policy types of the JAX entry that are not ported yet, and the ROADMAP
 # slice that ports each
 OTHER_POLICIES = {
-    "unizero": 18, "sampled_unizero": 18, "muzero_multitask": 19, "unizero_multitask": 19,
-    "sampled_unizero_multitask": 19,
+    "muzero_multitask": 19, "unizero_multitask": 19, "sampled_unizero_multitask": 19,
 }
 
 

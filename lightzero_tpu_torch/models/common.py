@@ -1,5 +1,5 @@
 """Shared neural building blocks (``lightzero_tpu/models/common.py``):
-``NetworkOutput``, ``_norm``, ``MLPTorso``, the MuZero MLP representation,
+``NetworkOutput``, ``_norm``, ``SimNorm``, ``MLPTorso``, the MuZero MLP representation,
 dynamics and prediction networks and the SSL projector (:24-193, 345-377),
 and the conv stack (:198-344): ``ResBlock``, ``DownSample`` and the conv
 representation, dynamics and prediction networks.
@@ -58,6 +58,21 @@ def _norm(norm_type: Optional[str], dim: int) -> Optional[nn.Module]:
     if norm_type in (None, "none"):
         return None
     raise ValueError(f"unsupported norm_type {norm_type!r}")
+
+
+class SimNorm(nn.Module):
+    """Simplicial normalization (flax ``SimNorm``, common.py:45-56): the
+    last axis in groups of ``simnorm_dim``, each group softmaxed. No
+    parameters."""
+
+    def __init__(self, simnorm_dim: int = 8):
+        super().__init__()
+        self.simnorm_dim = simnorm_dim
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        shp = x.shape
+        x = x.reshape(*shp[:-1], -1, self.simnorm_dim)
+        return torch.softmax(x, dim=-1).reshape(shp)
 
 
 def lecun_normal_(weight: torch.Tensor, generator: Optional[torch.Generator] = None):

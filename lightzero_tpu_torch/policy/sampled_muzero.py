@@ -95,6 +95,26 @@ def sample_discrete_actions(logits: torch.Tensor, num_samples: int, gumbel: torc
     return actions, torch.gather(logp_all, -1, actions)
 
 
+def sample_candidates(K: int, generator: torch.Generator, logits: Optional[torch.Tensor] = None,
+                      mu: Optional[torch.Tensor] = None, sigma: Optional[torch.Tensor] = None,
+                      draws: Optional[torch.Tensor] = None,
+                      legal_mask: Optional[torch.Tensor] = None):
+    """K candidates and their log-weights: Gumbel-top-K of ``logits`` when
+    given (discrete), else tanh-Gaussian draws from (``mu``, ``sigma``).
+    ``draws`` (Gumbels (B, A), or standard normals (B, K, D)) default to
+    ``generator``'s."""
+    if logits is not None:
+        if draws is None:
+            u = torch.rand(logits.shape, generator=generator, device=logits.device,
+                           dtype=logits.dtype)
+            draws = -torch.log(-torch.log(torch.clamp(u, min=torch.finfo(u.dtype).tiny)))
+        return sample_discrete_actions(logits, K, draws, legal_mask=legal_mask)
+    if draws is None:
+        B, D = mu.shape
+        draws = torch.randn((B, K, D), generator=generator, device=mu.device, dtype=mu.dtype)
+    return gaussian_tanh_sample(mu, sigma, draws)
+
+
 def sampled_search_prior(cfg: Config, logp: torch.Tensor) -> torch.Tensor:
     """The slots' prior logits: uniform (zeros) under ``sampled_node_prior``
     'uniform', the candidates' log-weights under 'density'."""
@@ -145,17 +165,10 @@ class SampledMuZeroPolicy(MuZeroPolicy):
         """K candidates and their log-weights from a model output; ``draws``
         (standard normals (B, K, D), or Gumbels (B, A) when discrete) default
         to the policy generator's."""
-        g, dev = self.generator, self.device
         if self.discrete:
-            logits = out.policy_logits
-            if draws is None:
-                u = torch.rand(logits.shape, generator=g, device=dev, dtype=logits.dtype)
-                draws = -torch.log(-torch.log(torch.clamp(u, min=torch.finfo(u.dtype).tiny)))
-            return sample_discrete_actions(logits, self.K, draws, legal_mask=legal_mask)
-        if draws is None:
-            B, D = out.mu.shape
-            draws = torch.randn((B, self.K, D), generator=g, device=dev, dtype=out.mu.dtype)
-        return gaussian_tanh_sample(out.mu, out.sigma, draws)
+            return sample_candidates(self.K, self.generator, logits=out.policy_logits,
+                                     draws=draws, legal_mask=legal_mask)
+        return sample_candidates(self.K, self.generator, mu=out.mu, sigma=out.sigma, draws=draws)
 
     @staticmethod
     def _slot_actions(emb: Any, slot: torch.Tensor) -> torch.Tensor:

@@ -1,7 +1,8 @@
 """Carry flax parameters of the JAX ``MuZeroModel`` (with the SSL projector),
 ``EfficientZeroModel``, ``StochasticMuZeroModel``, ``SampledMuZeroModel``,
 ``SampledEfficientZeroModel`` (MLP and conv branches), ``MuZeroRNNModel``
-(MLP) and ``AlphaZeroModel`` into the port's models, and back.
+(MLP), ``AlphaZeroModel`` and ``UniZeroModel`` into the port's models, and
+back.
 
 ``flax_to_state_dict`` takes the flax params as nested dicts of numpy arrays
 (``{"params": {...}}`` or the inner dict), e.g.
@@ -45,6 +46,21 @@ top segments map as lists too (``Conv_0`` -> ``conv.0``). A conv ``kernel`` (kh,
 out) becomes a ``weight`` (out, in, kh, kw); the way back tells a
 LayerNorm ``weight`` (1-D, flax ``scale``) from a Dense (2-D) or conv (4-D)
 ``kernel`` by its rank.
+
+UniZero (a flax tree with ``_wm``; a port state_dict with ``transformer.``)
+maps segment by segment (``_unizero_port_name``): the tops by ``_UZ_TOPS``
+(``_wm`` -> ``transformer``, ``_dec_convs_i`` -> ``decoder_convs.i``), a
+numbered submodule ``X_i`` as a list entry (``Block_i`` and ``ViTBlock_i`` ->
+``blocks.i``, ``Dense_i`` -> ``dense.i``, ``LayerNorm_i`` -> ``norm.i``,
+``Conv_i`` -> ``conv.i``, ``ResBlock_i`` -> ``res.i``, ``expert_e`` ->
+``experts.e``), ``SelfAttention_0`` and ``MultiHeadDotProductAttention_0``
+-> ``attn``, ``MoELayer_0`` -> ``moe``, ``DownSample_0`` -> ``downsample``,
+and the names ``qkv``, ``out_proj``, ``ff_up``, ``ff_down``, ``gate``,
+``base``, ``task_embed``, ``query``, ``key``, ``value``, ``out`` as they
+are. A Dense or conv ``kernel``, a LayerNorm ``scale`` and an Embed
+``embedding`` become ``weight`` (transposed as above; an embedding table is
+(num, D) on both sides); the attention's 3-D kernels, the LoRA factors and
+scales, ``pos_embed`` and ``log_alpha`` keep flax's layout and name.
 
 The GRU of MuZero-RNN: flax ``GRUCell`` holds input kernels ``i{r,z,n}``
 (in, H) with ``bias``, recurrent kernels ``h{r,z}`` (H, H) without and
@@ -278,13 +294,116 @@ def _port_name(pmap: _ParamMap, key: str) -> str:
     raise KeyError(f"no counterpart in the port for flax parameter {key!r}")
 
 
+# UniZero's flax tops -> the port's attributes
+_UZ_TOPS = {
+    "_enc": "encoder", "_enc_conv": "encoder_conv", "_enc_proj": "encoder_proj",
+    "_enc_vit": "encoder_vit", "_simnorm": "latent_norm", "_act_embed": "action_embed",
+    "_act_embed_dense": "action_embed_dense", "_mu_head": "mu_head", "_sigma_head": "sigma_head",
+    "_wm": "transformer", "_value_head": "value_head", "_policy_head": "policy_head",
+    "_reward_head": "reward_head", "_obs_head": "obs_head", "_dec": "decoder",
+    "_dec_proj": "decoder_proj", "_dec_out": "decoder_out",
+}
+_UZ_TOPS_BACK = {v: k for k, v in _UZ_TOPS.items()}
+_UZ_LISTS = {"Block": "blocks", "ViTBlock": "blocks", "Dense": "dense", "LayerNorm": "norm",
+             "Conv": "conv", "ResBlock": "res", "expert": "experts", "_dec_convs": "decoder_convs"}
+_UZ_SINGLE = {"SelfAttention_0": "attn", "MultiHeadDotProductAttention_0": "attn",
+              "MoELayer_0": "moe", "DownSample_0": "downsample"}
+_UZ_NAMES = ("qkv", "out_proj", "ff_up", "ff_down", "gate", "base", "task_embed", "query",
+             "key", "value", "out")
+_UZ_LEAVES = {"kernel": "weight", "scale": "weight", "embedding": "weight", "bias": "bias"}
+_UZ_RAW_LEAF = re.compile(r"pos_embed|base_scale|log_alpha|(lora_A|lora_B|adapter_scale)_\d+")
+
+
+def _unizero_port_name(key: str) -> str:
+    """Port state_dict key of a UniZero flax parameter path."""
+    *mods, leaf = key.split("/")
+    parts = []
+    for i, mod in enumerate(mods):
+        m = re.fullmatch(r"(\w+?)_(\d+)", mod)
+        if i == 0 and mod in _UZ_TOPS:
+            parts.append(_UZ_TOPS[mod])
+        elif mod in _UZ_SINGLE:
+            parts.append(_UZ_SINGLE[mod])
+        elif mod in _UZ_NAMES:
+            parts.append(mod)
+        elif m is not None and m.group(1) in _UZ_LISTS:
+            parts += [_UZ_LISTS[m.group(1)], m.group(2)]
+        else:
+            raise KeyError(f"no counterpart in the port for flax parameter {key!r}")
+    if _UZ_RAW_LEAF.fullmatch(leaf):
+        return ".".join(parts + [leaf])
+    if leaf not in _UZ_LEAVES or not parts:
+        raise KeyError(f"no counterpart in the port for flax parameter {key!r}")
+    return ".".join(parts + [_UZ_LEAVES[leaf]])
+
+
+def _unizero_flax_path(name: str, ndim: int) -> str:
+    """The inverse of ``_unizero_port_name`` ('/'-joined flax path)."""
+    *mods, leaf = name.split(".")
+    vit = bool(mods) and mods[0] == "encoder_vit"
+    lists_back = {"blocks": "ViTBlock" if vit else "Block", "dense": "Dense",
+                  "norm": "LayerNorm", "conv": "Conv", "res": "ResBlock", "experts": "expert",
+                  "decoder_convs": "_dec_convs"}
+    single_back = {"attn": "MultiHeadDotProductAttention_0" if vit else "SelfAttention_0",
+                   "moe": "MoELayer_0", "downsample": "DownSample_0"}
+    parts, i = [], 0
+    while i < len(mods):
+        mod = mods[i]
+        if i == 0 and mod in _UZ_TOPS_BACK:
+            parts.append(_UZ_TOPS_BACK[mod])
+        elif mod in single_back:
+            parts.append(single_back[mod])
+        elif mod in _UZ_NAMES:
+            parts.append(mod)
+        elif mod in lists_back and i + 1 < len(mods) and mods[i + 1].isdigit():
+            parts.append(f"{lists_back[mod]}_{mods[i + 1]}")
+            i += 1
+        else:
+            raise KeyError(f"no counterpart in flax for port parameter {name!r}")
+        i += 1
+    if _UZ_RAW_LEAF.fullmatch(leaf):
+        return "/".join(parts + [leaf])
+    if leaf == "bias" and parts:
+        return "/".join(parts + ["bias"])
+    if leaf != "weight" or not parts:
+        raise KeyError(f"no counterpart in flax for port parameter {name!r}")
+    if mods[-1] in ("action_embed", "task_embed"):
+        return "/".join(parts + ["embedding"])
+    return "/".join(parts + ["scale" if ndim == 1 else "kernel"])
+
+
+def _unizero_to_state_dict(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+    out = {}
+    for key, value in flat.items():
+        if key.endswith("/kernel"):
+            # Dense (in, out) -> (out, in); conv HWIO -> OIHW; attention 3-D as is
+            value = {2: lambda x: x.T, 4: lambda x: x.transpose(3, 2, 0, 1)}.get(
+                value.ndim, lambda x: x)(value)
+        out[_unizero_port_name(key)] = torch.from_numpy(np.array(value, np.float32, order="C"))
+    return out
+
+
+def _unizero_to_flax(state_dict: Mapping[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+    flat = {}
+    for name, tensor in state_dict.items():
+        value = tensor.detach().cpu().numpy().astype(np.float32)
+        path = _unizero_flax_path(name, value.ndim)
+        if path.endswith("/kernel"):
+            value = {2: lambda x: x.T, 4: lambda x: x.transpose(2, 3, 1, 0)}.get(
+                value.ndim, lambda x: x)(value)
+        flat[path] = np.array(value, order="C")  # 0-d stays 0-d (log_alpha, scales)
+    return flat
+
+
 def flax_to_state_dict(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
-    """Map flax params of one of the six models to the port's state_dict
+    """Map flax params of one of the seven models to the port's state_dict
     keys."""
     if "params" in params:
         params = params["params"]
     out: Dict[str, torch.Tensor] = {}
     flat = _flatten(params)
+    if "_wm" in {k.split("/")[0] for k in flat}:
+        return _unizero_to_state_dict(flat)
     conv = _is_conv_flax(flat)
     pmap = _map_of_flax(flat)
     if pmap.lstm:
@@ -400,7 +519,8 @@ def state_dict_to_flax(state_dict: Mapping[str, torch.Tensor]) -> Dict[str, Any]
     patterns = _flax_paths(pmap)
     conv = any(t.dim() == 4 for t in state_dict.values())
     flat: Dict[str, np.ndarray] = {}
-    for name, tensor in state_dict.items():
+    unizero = any(k.startswith("transformer.") for k in state_dict)
+    for name, tensor in state_dict.items() if not unizero else ():
         value = tensor.detach().cpu().numpy().astype(np.float32)
         if pmap.lstm and name.startswith(f"{_LSTM}."):
             flat.update(_lstm_to_flax(name, value))
@@ -426,6 +546,8 @@ def state_dict_to_flax(state_dict: Mapping[str, torch.Tensor]) -> Dict[str, Any]
         if path.endswith("/kernel"):
             value = np.ascontiguousarray(value.T)
         flat[path] = value
+    if unizero:
+        flat = _unizero_to_flax(state_dict)
     out: Dict[str, Any] = {}
     for path, value in flat.items():
         node = out

@@ -181,7 +181,10 @@ def test_train_muzero_runs_board_configs_shrunk(tmp_path, name, max_moves, polic
 def test_board_policy_types_are_the_ones_the_jax_entry_runs():
     assert set(BOARD_POLICIES) | set(JAX_BOARD_FAULTS) == set(MZ_POLICIES)
     assert not set(BOARD_POLICIES) & set(JAX_BOARD_FAULTS)
-    assert set(BOARD_POLICIES) == {"muzero", "efficientzero", "gumbel_muzero", "muzero_context"}
+    # UniZero and Sampled UniZero (discrete) run on a TicTacToe bot-mode
+    # config through the JAX entry too (tests/test_torch_unizero_train.py)
+    assert set(BOARD_POLICIES) == {"muzero", "efficientzero", "gumbel_muzero", "muzero_context",
+                                   "unizero", "sampled_unizero"}
 
 
 @pytest.mark.parametrize("policy_type", sorted(JAX_BOARD_FAULTS))

@@ -147,6 +147,29 @@ def test_gomoku_go_chess_and_the_alphazero_variants_import_without_jax():
     assert proc.returncode == 0, proc.stderr
 
 
+# UniZero: the transformer world model, the MoE, the ViT, the model, both
+# policies and their configs, named as above
+UNIZERO_MODULES = (
+    "lightzero_tpu_torch.models.unizero_world_model",
+    "lightzero_tpu_torch.models.unizero_world_model.transformer",
+    "lightzero_tpu_torch.models.unizero_world_model.moe", "lightzero_tpu_torch.models.vit",
+    "lightzero_tpu_torch.models.unizero", "lightzero_tpu_torch.policy.unizero",
+    "lightzero_tpu_torch.policy.sampled_unizero",
+    *(f"lightzero_tpu_torch.configs.{name}" for name in (
+        "cartpole_unizero", "breakout_grid_unizero", "breakout_grid_unizero_ws",
+        "memory_unizero", "pendulum_sampled_unizero")),
+)
+
+
+def test_unizero_imports_without_jax():
+    proc = subprocess.run(
+        [sys.executable, "-c", _IMPORT_NAMED.format(forbidden=FORBIDDEN, modules=UNIZERO_MODULES)],
+        cwd=REPO, capture_output=True, text=True, timeout=120,
+        env=dict(os.environ, PYTHONPATH=str(REPO)),
+    )
+    assert proc.returncode == 0, proc.stderr
+
+
 def _imported_roots(path: pathlib.Path):
     tree = ast.parse(path.read_text(), filename=str(path))
     for node in ast.walk(tree):
@@ -194,6 +217,14 @@ def test_search_without_device_raises_with_no_cuda(no_cuda):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         batch_puct_search(root, None, SearchConfig(num_simulations=2),
                           torch.ones(2, 3, dtype=torch.bool))
+
+
+def test_unizero_policies_without_device_raise_with_no_cuda(no_cuda):
+    from lightzero_tpu_torch.policy import SampledUniZeroPolicy, UniZeroPolicy
+
+    for cls in (UniZeroPolicy, SampledUniZeroPolicy):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            cls(dict(model=dict(embed_dim=16, num_heads=2), num_simulations=2))
 
 
 def test_alphazero_policy_without_device_raises_with_no_cuda(no_cuda):

@@ -161,9 +161,11 @@ GOMOKU_MODEL = dict(observation_shape=(6, 6, 3), action_space_size=36, model_typ
 
 # the gumbel_muzero-on-a-board and gomoku cases were refused until slice
 # 17's second half was ported; each now builds its policy and takes one
-# collect
+# collect. UniZero was refused until slice 18; what stays refused of it is
+# the LPIPS perceptual loss (item 20)
 @pytest.mark.parametrize("override,error,match", [
-    (dict(policy=dict(type="unizero")), NotImplementedError, "slice 18"),
+    (dict(policy=dict(type="unizero", latent_recon_loss_weight=0.1, perceptual_loss_weight=1.0)),
+     NotImplementedError, "item 20"),
     (dict(policy=dict(type="muzero_multitask")), NotImplementedError, "slice 19"),
     (dict(policy=dict(type="gumbel_muzero", env_type="board_games")), None, None),
     (dict(env=dict(env_id="gomoku", env_kwargs=dict(board_size=6, n_in_row=4)),
@@ -227,7 +229,7 @@ def test_the_jax_sampled_policys_reanalyze_fails_on_its_models_outputs(policy_ty
 
 @pytest.mark.parametrize("policy_type",
                          ["muzero", "efficientzero", "gumbel_muzero", "stochastic_muzero"] + SAMPLED
-                         + ["muzero_context", "muzero_rnn_full_obs"])
+                         + ["muzero_context", "muzero_rnn_full_obs", "unizero", "sampled_unizero"])
 def test_train_muzero_builds_the_port_of_the_jax_policy(policy_type):
     import importlib
 
@@ -236,7 +238,8 @@ def test_train_muzero_builds_the_port_of_the_jax_policy(policy_type):
 
     assert sorted(POLICIES) == ["efficientzero", "gumbel_muzero", "muzero", "muzero_context",
                                 "muzero_rnn_full_obs", "sampled_efficientzero",
-                                "sampled_muzero", "stochastic_muzero"]
+                                "sampled_muzero", "sampled_unizero", "stochastic_muzero",
+                                "unizero"]
     importlib.import_module(f"lightzero_tpu.policy.{policy_type}")  # registers it
     policy_cls = POLICIES[policy_type]
     assert policy_cls.__name__ == POLICY_REGISTRY.get(policy_type).__name__
