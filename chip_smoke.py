@@ -196,6 +196,24 @@ Phases, each of a fixed size, in one process:
      draws and noise from a fresh context, its short run at SUZ_TRAIN_SIMS
      simulations). A summary gives eval s per env step, learn-step ms, the
      collect rate, the bytes of one node's KV cache and the phase's wall.
+ 16. multitask: ScaleZero v3 at full width (Sampled UniZero multitask over
+     3 Pendulum tasks: embed 256, 2 layers, 8 heads, 22 tokens, K=20, 25
+     simulations, batch 96, unroll 10, LoRA r=4 over 2 stages; random
+     weights) through train_multitask_balance: an eval at iter 0 and one
+     collect round per task (episodes cut at MT_EPISODE_STEPS, collect
+     rounds of MT_COLLECT_STEPS batched steps) and 20 learn steps (launches
+     = the sum over tasks of (eval + collect searches) x 25, row-read
+     route); task 0's eval descent tables (simulations 1, 13, 25) kernel
+     against plain; each task view's search card vs CPU with injected
+     candidates and noise; one learn step on the default path and one on
+     the CAGrad path card vs CPU (the CAGrad weights within CAGRAD_W_ATOL
+     and on the simplex); a forced set_curriculum_stage(1) whose learn step
+     leaves the backbone bit-unchanged and moves the stage-1 adapters; the
+     CartPole + Pendulum balance config and the smoke's own two-task
+     CartPole muzero_multitask run, cut the same way (prefetch route, A=2);
+     ddp_learn_step in a one-rank NCCL group against the plain learn step.
+     A summary gives each task's eval s per env step, the learn-step ms
+     (default and CAGrad), the collect rates and the phase's wall.
 
 The last lines are the card's name and power limit, one JSON object with a
 record per kernel, and {"ok": true, "device": {...}}; that last line is printed
@@ -206,10 +224,12 @@ WATCHDOG_S = 600 s.
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import copy
 import ctypes
 import dataclasses
 import faulthandler
+import importlib
 import json
 import math
 import os
@@ -222,6 +242,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from lightzero_tpu_torch import _build
 from lightzero_tpu_torch.configs.cartpole_efficientzero import main_config as ez_config
@@ -249,8 +270,19 @@ from lightzero_tpu_torch.configs.gomoku_sampled_alphazero_bot_mode import (
 )
 from lightzero_tpu_torch.configs.breakout_grid_unizero_ws import main_config as uz_ws_config
 from lightzero_tpu_torch.configs.pendulum_sampled_unizero import main_config as suz_config
+from lightzero_tpu_torch.configs.pendulum_suite_scalezero_v3 import task_configs as scalezero_v3
+from lightzero_tpu_torch.configs.cartpole_pendulum_balance import task_configs as balance_tasks
+from lightzero_tpu_torch.config import deep_merge
 from lightzero_tpu_torch.buffers import GameBuffer
-from lightzero_tpu_torch.entry import train_alphazero, train_muzero
+from lightzero_tpu_torch.entry import (
+    train_alphazero,
+    train_multitask_balance,
+    train_muzero,
+    train_muzero_multitask,
+)
+from lightzero_tpu_torch.entry.train_muzero_multitask import combine_task_batches
+from lightzero_tpu_torch.parallel.ddp import ddp_learn_step
+from lightzero_tpu_torch.parallel.dryrun import random_batch
 from lightzero_tpu_torch.entry.train_alphazero import build_env
 from lightzero_tpu_torch.entry.train_muzero import create_env
 from lightzero_tpu_torch.envs import (
@@ -305,6 +337,7 @@ from lightzero_tpu_torch.workers import (
     AlphaZeroBotEvaluator,
     AlphaZeroSelfPlayCollector,
     Evaluator,
+    RolloutCollector,
 )
 
 # phases 9 and 10 took the script to 259 s on one host and to 371 s on a
@@ -447,6 +480,23 @@ SUZ_TRAIN_EPISODE_STEPS = 16
 # config's 50): its collect round took 29.5 s at 50 on the card
 SUZ_TRAIN_SIMS = 25
 SUZ_CAPTURED_SIMS = (1, 25, 50)
+# phase 16: ScaleZero v3 (3 Pendulum tasks, embed 256, 8 heads, K=20, 25
+# simulations, batch 96, LoRA over 2 stages) through train_multitask_balance
+# and two short multitask runs, their episodes cut as phase 15 cuts
+# Pendulum's training episodes, and each collect round MT_COLLECT_STEPS
+# batched steps (the collector's 64 cut to the episode)
+MT_EPISODE_STEPS = SUZ_TRAIN_EPISODE_STEPS
+MT_COLLECT_STEPS = 16
+MT_CAPTURED_SIMS = (1, 13, 25)
+MT_TIMED_LEARN_STEPS = 10
+MT_TIMED_CAGRAD_STEPS = 5
+# the entries' modules (the package's names of these two are the functions)
+MT_ENTRY_MODULES = tuple(importlib.import_module(f"lightzero_tpu_torch.entry.{name}")
+                         for name in ("train_muzero_multitask", "train_multitask_balance"))
+# the CAGrad weights card vs CPU, absolute: the simplex solve amplifies the
+# devices' gradient rounding by the Gram matrix's conditioning
+# (tests/test_torch_multitask.py: up to 2.5e-3 at a condition of 250)
+CAGRAD_W_ATOL = 1e-3
 # card vs CPU learn step from the same params and batch (TF32 off): the
 # logged terms to 1e-4 relative (float32 matmuls of batch 256 summed in
 # another order). Adam's first update is lr * g / (|g| + 1e-8), g the
@@ -998,11 +1048,13 @@ def priority_err_over_bound(card_priority, cpu_priority, batch) -> float:
     return float(((card_priority - cpu_priority).abs() / bound).max())
 
 
-def learn_step_card_vs_cpu(policy, batch) -> tuple:
+def learn_step_card_vs_cpu(policy, batch, log_atol=None) -> tuple:
     """One learn step on the card and one on the CPU, each from a fresh
     optimizer over the same params, on the same batch: (record, agree).
     The gradient Adam sees holds the decay term wd * p, except under AdamW,
-    which decays after Adam's scaling."""
+    which decays after Adam's scaling. The logs named in ``log_atol`` are
+    held to its absolute tolerances instead of LEARN_LOG_RTOL."""
+    log_atol = log_atol or {}
     results = {}
     for dev in ("cuda", "cpu"):
         p = type(policy)(policy.cfg, model=copy.deepcopy(policy.model), device=dev)
@@ -1019,8 +1071,11 @@ def learn_step_card_vs_cpu(policy, batch) -> tuple:
     lr = float(policy.cfg.learning_rate)
     log_err, tight_err, loose_err, loose, total = compare_learn_steps(card, cpu)
     priority_ratio = priority_err_over_bound(card["priority"], cpu["priority"], batch)
+    abs_err = {k: abs(card["logs"][k] - cpu["logs"][k]) for k in log_atol}
+    log_err = {k: v for k, v in log_err.items() if k not in log_atol}
     rec = dict(phase="train_card_vs_cpu", batch=int(cpu["priority"].shape[0]),
                max_log_rel_err=max(log_err.values()), log_rel_err=log_err,
+               log_abs_err=abs_err, log_abs_values={k: card["logs"][k] for k in log_atol},
                priority_max_abs_err=float((card["priority"] - cpu["priority"]).abs().max()),
                priority_err_over_bound=priority_ratio,
                param_max_abs_err=tight_err, param_max_abs_err_rounding_bound=loose_err,
@@ -1028,7 +1083,8 @@ def learn_step_card_vs_cpu(policy, batch) -> tuple:
                total_loss_card=card["logs"]["total_loss"], total_loss_cpu=cpu["logs"]["total_loss"])
     emit(rec)
     agree = (rec["max_log_rel_err"] <= LEARN_LOG_RTOL and tight_err <= LEARN_PARAM_ATOL
-             and loose_err <= 2 * lr and priority_ratio <= 1.0 and loose < total // 4)
+             and loose_err <= 2 * lr and priority_ratio <= 1.0 and loose < total // 4
+             and all(abs_err[k] <= tol for k, tol in log_atol.items()))
     return rec, agree
 
 
@@ -1370,6 +1426,7 @@ def seeded_search_card_vs_cpu(policy, label: str, obs, legal, close=(), **draws)
     B = obs.shape[0]
     to_play = torch.full((B,), -1, dtype=torch.int32)
     cpu_policy = type(policy)(policy.cfg, model=copy.deepcopy(policy.model).cpu(), device="cpu")
+    cpu_policy._collect_task_id = policy._collect_task_id  # a multitask view's task
     search_cfg = policy.search_cfg
     outs = []
     try:
@@ -2481,6 +2538,272 @@ def phase_unizero(card: str, l2_ns: float) -> tuple:
     return records, cases, wall
 
 
+@contextlib.contextmanager
+def recorded_mt_workers():
+    """The multitask entries' collectors and evaluators for phase 16: each
+    collect round MT_COLLECT_STEPS batched steps, and every collect and eval
+    recorded with its task (the entries build the workers in task order)."""
+    records = dict(collects=[], evals=[])
+    made = dict(collect=0, eval=0)
+
+    class Collector(RolloutCollector):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, rollout_length=MT_COLLECT_STEPS, **kwargs)
+            self.task, made["collect"] = made["collect"], made["collect"] + 1
+
+        def collect(self, *args, **kwargs):
+            out = super().collect(*args, **kwargs)
+            records["collects"].append(dict(task=self.task, steps=out[2]["steps"],
+                                            steps_per_s=out[2]["steps_per_sec"]))
+            return out
+
+    class RecordedEvaluator(Evaluator):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            self.task, made["eval"] = made["eval"], made["eval"] + 1
+
+        def eval(self, *args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = super().eval(*args, **kwargs)
+            torch.cuda.synchronize()
+            records["evals"].append(dict(task=self.task, env_steps=res["env_steps"],
+                                         seconds=time.perf_counter() - t0))
+            return res
+
+    saved = [(m, m.RolloutCollector, m.Evaluator) for m in MT_ENTRY_MODULES]
+    try:
+        for m in MT_ENTRY_MODULES:
+            m.RolloutCollector, m.Evaluator = Collector, RecordedEvaluator
+        yield records
+    finally:
+        for m, collector, evaluator in saved:
+            m.RolloutCollector, m.Evaluator = collector, evaluator
+
+
+def mt_run(label: str, entry_fn, cfgs: list, card: str) -> tuple:
+    """A multitask entry with the device left unset (the card) for an eval
+    at iter 0, a collect round per task and SHORT_TRAIN_ITERS learn steps,
+    the launch counter read around it: (record, problems, policy, state,
+    stats). Launches = the sum over tasks of (eval + collect searches) x
+    simulations."""
+    cfgs = copy.deepcopy(cfgs)
+    with tempfile.TemporaryDirectory() as tmp, recorded_mt_workers() as workers:
+        for c in cfgs:
+            c.exp_name = os.path.join(tmp, label)
+            c.env.max_episode_steps = MT_EPISODE_STEPS
+            c.policy.update_per_collect = SHORT_TRAIN_ITERS
+        fused_traverse.launches = 0
+        t0 = time.perf_counter()
+        policy, state, stats = entry_fn(cfgs, seed=MAIN_SEED, max_train_iter=SHORT_TRAIN_ITERS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = fused_traverse.launches
+        with open(os.path.join(tmp, label, "log", "train.jsonl")) as f:
+            losses = [json.loads(line)["learner/total_loss"] for line in f
+                      if "learner/total_loss" in line]
+    sims = policy.search_cfg.num_simulations
+    searches = {t: stats["eval_env_steps"][t]
+                + stats["task_env_steps"][t] // int(cfgs[t].env.collector_env_num)
+                for t in stats["task_env_steps"]}
+    expected = sum(searches.values()) * sims
+    eval_s = {t: sum(r["seconds"] for r in workers["evals"] if r["task"] == t)
+              / max(1, sum(r["env_steps"] for r in workers["evals"] if r["task"] == t))
+              for t in searches}
+    rec = dict(phase=f"{label}_train", tasks=len(cfgs), policy_type=cfgs[0].policy.type,
+               train_iter=stats["train_iter"], num_simulations=sims, searches=searches,
+               launches=launches, expected_launches=expected, logged_total_losses=losses,
+               eval_s_per_env_step=eval_s,
+               collect_steps_per_s=[r["steps_per_s"] for r in workers["collects"]],
+               episodes_truncated_at=MT_EPISODE_STEPS, collect_round_steps=MT_COLLECT_STEPS,
+               wall_s=wall, card=card)
+    problems = []
+    if stats["train_iter"] != SHORT_TRAIN_ITERS:
+        problems.append(f"train_iter {stats['train_iter']}, expected {SHORT_TRAIN_ITERS}")
+    if launches != expected:
+        problems.append(f"traverse launches {launches} != (eval + collect searches) x {sims} "
+                        f"= {expected}")
+    if not losses or not all(math.isfinite(x) for x in losses) or not all(
+            bool(torch.isfinite(p).all()) for p in state.model.parameters()):
+        problems.append("non-finite loss or params")
+    return rec, problems, policy, state, stats
+
+
+def mt_batches(policy, state, buffers: dict, n: int) -> list:
+    """n combined multitask batches of the buffers' samples (every task's
+    rows, unit task weights), on the card."""
+    per = int(policy.cfg.batch_size) // policy.task_num
+    order = sorted(buffers)
+    weights = np.ones(policy.task_num, np.float32)
+    return [combine_task_batches([buffers[t].sample(per, state.target_model)[0] for t in order],
+                                 order, per, weights, True) for _ in range(n)]
+
+
+def timed_steps(policy, state, batches: list) -> list:
+    """CUDA events around each learn step: ms."""
+    ms = []
+    for batch in batches:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        state, _, _ = policy.forward_learn(state, batch)
+        end.record()
+        torch.cuda.synchronize()
+        ms.append(start.elapsed_time(end))
+    return ms
+
+
+def stage_switch_on_card(policy, batch, card: str) -> dict:
+    """``set_curriculum_stage(1)`` on a copy of the policy, then one learn
+    step on the card: the transformer backbone (its base weights and task
+    embedding) bit-unchanged, the stage-1 adapters moved (their B factors:
+    the A factors' gradient is zero while B is at its zero init)."""
+    p = type(policy)(policy.cfg, model=copy.deepcopy(policy.model), device="cuda")
+    state = p.set_curriculum_stage(1, p.init_train_state())
+    before = {n: v.detach().clone() for n, v in p.model.named_parameters()}
+    state, logs, _ = p.forward_learn(state, batch)
+    torch.cuda.synchronize()
+    after = dict(p.model.named_parameters())
+    frozen = [n for n in before if n.startswith("transformer.") and "lora_" not in n
+              and "_scale" not in n]
+    adapters = [n for n in before if "lora_B_1" in n]
+    rec = dict(phase="scalezero_stage_switch", stage=p.model.tcfg.curriculum_stage,
+               frozen_tensors=len(frozen),
+               frozen_unchanged=all(torch.equal(after[n], before[n]) for n in frozen),
+               adapter_tensors=len(adapters),
+               adapters_moved=all(not torch.equal(after[n], before[n]) for n in adapters),
+               total_loss=float(logs["total_loss"]), card=card)
+    emit(rec)
+    if not (rec["stage"] == 1 and frozen and adapters and rec["frozen_unchanged"]
+            and rec["adapters_moved"]):
+        raise AssertionError(f"stage switch: {rec}")
+    return rec
+
+
+def ddp_on_card(card: str) -> dict:
+    """``ddp_learn_step`` in a one-rank NCCL group (a FileStore in a temp
+    dir) against the plain learn step, with the CartPole MuZero config's
+    policy from the same seed, on a numpy-seeded batch."""
+    cfg = main_config.policy
+    batch = batch_to(random_batch(int(cfg.batch_size), 5, 2, seed=MAIN_SEED + 16), "cuda")
+    policies = []
+    for _ in range(2):
+        p = MuZeroPolicy(cfg, device="cuda", seed=MAIN_SEED)
+        randomize_heads(p.model, MAIN_SEED + 16)
+        policies.append(p)
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", store=dist.FileStore(os.path.join(tmp, "store"), 1),
+                                rank=0, world_size=1)
+        try:
+            backend = dist.get_backend()
+            _, logs, prio = policies[0].forward_learn(policies[0].init_train_state(), batch)
+            _, ddp_logs, ddp_prio = ddp_learn_step(policies[1], policies[1].init_train_state(),
+                                                   batch)
+            torch.cuda.synchronize()
+        finally:
+            dist.destroy_process_group()
+    pairs = [(a.detach(), b.detach())
+             for a, b in zip(policies[0].model.parameters(), policies[1].model.parameters())]
+    rec = dict(phase="ddp_nccl_world_1", backend=backend, batch=int(cfg.batch_size),
+               bit_equal=all(torch.equal(a, b) for a, b in pairs) and torch.equal(prio, ddp_prio),
+               param_max_abs_err=max(float((a - b).abs().max()) for a, b in pairs),
+               priority_max_abs_err=float((prio - ddp_prio).abs().max()),
+               max_log_rel_err=max(abs(float(ddp_logs[k]) - float(v)) / max(abs(float(v)), 1e-6)
+                                   for k, v in logs.items()),
+               card=card)
+    emit(rec)
+    if not (rec["param_max_abs_err"] <= LEARN_PARAM_ATOL and rec["max_log_rel_err"] <= 1e-6
+            and rec["priority_max_abs_err"] <= VALUE_TOL and not dist.is_initialized()):
+        raise AssertionError(f"ddp_learn_step at world size 1 differs from the plain step: {rec}")
+    return rec
+
+
+def phase_multitask(card: str, l2_ns: float) -> tuple:
+    """ScaleZero v3 at full width (3 tasks, embed 256, 2 layers, 8 heads, 22
+    tokens, K=20, 25 simulations, batch 96, unroll 10, LoRA r=4 over 2
+    stages) through train_multitask_balance, random weights from seed 0:
+    every task view's search launches the descent kernel once a simulation
+    (row-read route, A=K=20). Then its captured tables, its task views and
+    learn steps (default and CAGrad) card vs CPU, a forced stage switch, the
+    CartPole + Pendulum balance config and the smoke's own two-task CartPole
+    muzero_multitask run (prefetch route, A=2), and ddp_learn_step on NCCL."""
+    t0 = time.perf_counter()
+    cases, records = [], {}
+    rec, problems, policy, state, stats = mt_run("scalezero_v3", train_multitask_balance,
+                                                 scalezero_v3, card)
+    width = dict(embed_dim=policy.model.embed_dim, num_heads=policy.model.num_heads,
+                 K=policy.K, batch_size=int(policy.cfg.batch_size), tasks=policy.task_num,
+                 num_simulations=policy.search_cfg.num_simulations)
+    rec.update(width, route=kernel_route(policy.K))
+    emit(rec)
+    if width != dict(embed_dim=256, num_heads=8, K=20, batch_size=96, tasks=3,
+                     num_simulations=25):
+        problems.append(f"not ScaleZero v3's width: {width}")
+    if problems:
+        raise AssertionError(f"scalezero_v3 run failed: {problems}")
+    records["scalezero_v3"] = rec
+    view = policy.task_view(0)
+    obs = PendulumEnv().reset(2, torch.Generator().manual_seed(MAIN_SEED))[1]
+    captures = capture_descent_inputs(view, obs.cuda(), torch.ones((2, 1), dtype=torch.bool).cuda(),
+                                      MT_CAPTURED_SIMS)
+    if sorted(captures) != list(MT_CAPTURED_SIMS):
+        raise AssertionError(f"captured simulations {sorted(captures)}, expected "
+                             f"{MT_CAPTURED_SIMS}")
+    cases += phase_captured(captures, l2_ns, search="scalezero task-0 eval search")
+    records["task_views"] = [sampled_search_card_vs_cpu(policy.task_view(t), f"scalezero_task{t}")
+                             for t in range(policy.task_num)]
+    batches = mt_batches(policy, state, stats["buffers"], MT_TIMED_LEARN_STEPS + 1)
+    default, agree = learn_step_card_vs_cpu(policy, batches[0])
+    cagrad_policy = type(policy)(deep_merge(policy.cfg, dict(grad_correction="cagrad")),
+                                 model=copy.deepcopy(policy.model), device="cuda")
+    cagrad, agree_cagrad = learn_step_card_vs_cpu(
+        cagrad_policy, batches[0],
+        log_atol={f"task{t}_cagrad_w": CAGRAD_W_ATOL for t in range(policy.task_num)})
+    w_sum = sum(cagrad["log_abs_values"].values())
+    if not (agree and agree_cagrad and abs(w_sum - 1.0) < 1e-5):
+        raise AssertionError(f"scalezero learn steps card vs CPU: default {default}, "
+                             f"CAGrad {cagrad} (weights sum {w_sum})")
+    default_ms = timed_steps(policy, state, batches[1:])
+    cagrad_ms = timed_steps(cagrad_policy, cagrad_policy.init_train_state(),
+                            batches[1:1 + MT_TIMED_CAGRAD_STEPS])
+    records["learn"] = dict(default=default, cagrad=cagrad, default_ms=default_ms,
+                            cagrad_ms=cagrad_ms)
+    records["stage_switch"] = stage_switch_on_card(policy, batches[0], card)
+    del policy, state, stats, cagrad_policy, batches
+
+    records["balance"], problems, *_ = mt_run("balance_cartpole_pendulum",
+                                              train_multitask_balance, balance_tasks, card)
+    emit(records["balance"])
+    # the smoke's own two-task CartPole run: the task layout of
+    # tests/test_entries_extra.py's multitask smoke (stop values 195 and
+    # 150, 2 collect and 2 eval envs, one episode a round, batch 16) at the
+    # CartPole MuZero config's model width and 25 simulations
+    mz = []
+    for stop in (195, 150):
+        c = copy.deepcopy(main_config)
+        c.env.update(stop_value=stop, collector_env_num=2, evaluator_env_num=2,
+                     n_evaluator_episode=2)
+        c.policy.update(type="muzero_multitask", batch_size=16, n_episode=1)
+        mz.append(c)
+    records["muzero_multitask"], mz_problems, *_ = mt_run("muzero_multitask",
+                                                           train_muzero_multitask, mz, card)
+    emit(records["muzero_multitask"])
+    if problems or mz_problems:
+        raise AssertionError(f"multitask short runs failed: {problems + mz_problems}")
+    records["ddp"] = ddp_on_card(card)
+    wall = time.perf_counter() - t0
+    sz = records["scalezero_v3"]
+    emit(dict(phase="multitask_summary", wall_s=wall, card=card,
+              scalezero_eval_s_per_env_step=sz["eval_s_per_env_step"],
+              scalezero_learn_step_ms=float(np.median(default_ms)),
+              scalezero_cagrad_learn_step_ms=float(np.median(cagrad_ms)),
+              scalezero_collect_steps_per_s=sz["collect_steps_per_s"],
+              balance_eval_s_per_env_step=records["balance"]["eval_s_per_env_step"],
+              muzero_multitask_eval_s_per_env_step=records["muzero_multitask"][
+                  "eval_s_per_env_step"]))
+    return records, cases, wall
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs on a GPU", file=sys.stderr)
@@ -2518,6 +2841,8 @@ def main() -> int:
     big, big_wall = phase_big_boards(card)
     uz, uz_cases, uz_wall = phase_unizero(card, l2_ns)
     cases += uz_cases
+    mt, mt_cases, mt_wall = phase_multitask(card, l2_ns)
+    cases += mt_cases
 
     main_case = next(c for c in cases if (c["B"], c["A"], c["N"], c["tie_break"]) == (3, 2, 26, "noise"))
     kernels = [dict(
@@ -2575,6 +2900,11 @@ def main() -> int:
         **{f"launches_{name}{suffix}": uz[name][part]["launches"]
            for name in ("unizero", "sampled_unizero")
            for suffix, part in (("", "eval"), ("_train", "train"))},
+        # phase 16: the multitask runs (evals and collect rounds of every
+        # task view): ScaleZero v3 (K=20, row read), the CartPole + Pendulum
+        # balance UniZero and the two-task muzero_multitask (A=2, prefetch)
+        **{f"launches_mt_{name}": mt[name]["launches"]
+           for name in ("scalezero_v3", "balance", "muzero_multitask")},
         max_abs_err=max(c["max_abs_err"] for c in cases),
         ms=main_case["ms"],
         # launch to launch through the wrapper, the host's dispatch included:
@@ -2642,7 +2972,11 @@ def main() -> int:
                      ("eval_s_per_env_step", "eval", "wall_per_env_step_s"),
                      ("learn_step_ms", "train", "learn_step_ms_median"),
                      ("collect_steps_per_s", "train", "collect_steps_per_s"),
-                     ("cache_bytes_per_node", "eval", "cache_bytes_per_node"))}))
+                     ("cache_bytes_per_node", "eval", "cache_bytes_per_node"))},
+              multitask_wall_s=mt_wall,
+              scalezero_eval_s_per_env_step=mt["scalezero_v3"]["eval_s_per_env_step"],
+              scalezero_learn_step_ms=float(np.median(mt["learn"]["default_ms"])),
+              scalezero_cagrad_learn_step_ms=float(np.median(mt["learn"]["cagrad_ms"]))))
     faulthandler.cancel_dump_traceback_later()
     signal.alarm(0)
     print(card, flush=True)

@@ -10,3 +10,13 @@ train_muzero_segment = train_muzero
 train_unizero = train_muzero
 eval_unizero = eval_muzero
 train_unizero_segment = train_muzero
+
+from lightzero_tpu_torch.entry.train_muzero_multitask import train_muzero_multitask
+from lightzero_tpu_torch.entry.train_multitask_balance import train_multitask_balance
+
+# the reference's multitask entry names, as the JAX package maps them: the
+# ddp-segment entries to the multitask entry, the balance variant to the
+# curriculum entry
+train_muzero_multitask_segment_ddp = train_muzero_multitask
+train_unizero_multitask_segment_ddp = train_muzero_multitask
+train_unizero_multitask_balance_segment_ddp = train_multitask_balance

@@ -33,9 +33,13 @@ Usage (on the card, or with ``device="cpu"``)::
 ``eval_muzero`` loads a checkpoint (or params export) and runs the
 deterministic eval.
 
-Not ported yet, and refused with ``NotImplementedError``: the other policies,
-the other envs, the RND reward model (``cfg.reward_model``) and the
-loss-landscape analysis (their ROADMAP slices are named in the errors).
+The multitask policy types are refused with a ``ValueError``: they train
+through ``train_muzero_multitask`` and ``train_multitask_balance``, and fail
+in the JAX package's ``train_muzero`` (``JAX_MULTITASK_FAULT``).
+
+Not ported yet, and refused with ``NotImplementedError``: the other envs,
+the RND reward model (``cfg.reward_model``) and the loss-landscape analysis
+(their ROADMAP slices are named in the errors).
 """
 from __future__ import annotations
 
@@ -139,11 +143,15 @@ JAX_BOARD_FAULTS = {
     "muzero_rnn_full_obs": "the JAX MuZero-RNN model calls int() on the board's observation "
                            "shape and raises TypeError",
 }
-# the policy types of the JAX entry that are not ported yet, and the ROADMAP
-# slice that ports each
-OTHER_POLICIES = {
-    "muzero_multitask": 19, "unizero_multitask": 19, "sampled_unizero_multitask": 19,
-}
+# the multitask policy types train only through the multitask entries: in
+# the JAX package's train_muzero their first learn step fails, since only
+# the multitask entries attach the task fields to the batch
+MULTITASK_POLICIES = ("muzero_multitask", "unizero_multitask", "sampled_unizero_multitask")
+JAX_MULTITASK_FAULT = (
+    "the JAX package's train_muzero raises AttributeError: 'TrainBatch' object has no "
+    "attribute 'task_id' at the first learn step (lightzero_tpu/policy/multitask.py:75-78 reads "
+    "the task fields, which only the multitask entries attach); train it with "
+    "train_muzero_multitask or train_multitask_balance (ROADMAP queue 3)")
 
 
 def create_env(env_cfg: Config) -> TensorEnv:
@@ -203,10 +211,11 @@ def check_observation_shape(env: TensorEnv, pcfg: Config, policy_cls) -> None:
 
 def _check_scope(pcfg: Config) -> None:
     policy_type = pcfg.get("type", "muzero")
+    if policy_type in MULTITASK_POLICIES:
+        raise ValueError(f"train_muzero does not train the {policy_type} policy: "
+                         f"{JAX_MULTITASK_FAULT}")
     if policy_type not in POLICIES:
-        slice_ = OTHER_POLICIES.get(policy_type)
-        where = f"ROADMAP queue 1, slice {slice_}" if slice_ else "ROADMAP queue 1"
-        raise NotImplementedError(f"policy type {policy_type!r} is not ported yet ({where})")
+        raise NotImplementedError(f"policy type {policy_type!r} is not ported (ROADMAP queue 1)")
     if pcfg.get("env_type") == "board_games" and policy_type not in BOARD_POLICIES:
         raise ValueError(
             f"the {policy_type} policy does not run on board games: "

@@ -6,9 +6,15 @@ observations) or 'conv' (NHWC image observations (H, W, C); latents
 of a / A under 'not_one_hot'; the projector reads the latent flattened in
 (h, w, c) order).
 
+With ``num_tasks`` > 0 (the multitask policy, ``muzero_model_multitask``'s
+role) a learned task embedding is added to the root latent: a feature add
+under 'mlp' (width ``latent_state_dim``), a per-channel bias over the grid
+under 'conv' (width ``num_channels``). Only ``representation`` and
+``initial_inference`` take the task id; the dynamics carry the conditioning
+forward from the root. A task id of None skips it.
+
 Not ported yet, and refused by ``from_config``: the HarmonyDream loss
-weights (ROADMAP queue 1, slice 20) and the multitask task embedding
-(slice 19).
+weights (ROADMAP queue 1, slice 20).
 """
 from __future__ import annotations
 
@@ -56,6 +62,7 @@ class MuZeroModel(nn.Module):
         proj_out: int = 1024,
         pred_hid: int = 512,
         pred_out: int = 1024,
+        num_tasks: int = 0,
         generator: Optional[torch.Generator] = None,
     ):
         super().__init__()
@@ -125,6 +132,13 @@ class MuZeroModel(nn.Module):
             if self_supervised_learning_loss
             else None
         )
+        self.num_tasks = num_tasks
+        if num_tasks > 0:
+            # flax nn.Embed's default init: normal with std 1 / sqrt(width)
+            dim = latent_state_dim if model_type == "mlp" else num_channels
+            self.task_embed = nn.Embedding(num_tasks, dim)
+            with torch.no_grad():
+                self.task_embed.weight.normal_(0.0, dim ** -0.5, generator=generator)
 
     def _encode_action(self, action: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
         """(B, A) one-hot, or (B, 1) a / A under 'not_one_hot' (reference
@@ -133,8 +147,20 @@ class MuZeroModel(nn.Module):
             return nn.functional.one_hot(action.long(), self.action_space_size).to(dtype)
         return (action.to(dtype) / self.action_space_size)[:, None]
 
-    def representation(self, obs: torch.Tensor) -> torch.Tensor:
-        return self.representation_network(obs)
+    def _condition_on_task(self, latent: torch.Tensor,
+                           task_id: Optional[torch.Tensor]) -> torch.Tensor:
+        """The latent plus the task's embedding ((B, h, w, c) latents: a
+        per-channel bias); the latent itself without a table or a task id."""
+        if self.num_tasks == 0 or task_id is None:
+            return latent
+        e = self.task_embed(task_id.long())
+        if latent.dim() == 4:
+            e = e[:, None, None, :]
+        return latent + e
+
+    def representation(self, obs: torch.Tensor,
+                       task_id: Optional[torch.Tensor] = None) -> torch.Tensor:
+        return self._condition_on_task(self.representation_network(obs), task_id)
 
     def dynamics(self, latent: torch.Tensor, action: torch.Tensor):
         enc = self._encode_action(action, latent.dtype)
@@ -146,9 +172,11 @@ class MuZeroModel(nn.Module):
     def prediction(self, latent: torch.Tensor):
         return self.prediction_network(latent)
 
-    def initial_inference(self, obs: torch.Tensor) -> NetworkOutput:
-        """The reward at the root is a zero pad."""
-        latent = self.representation(obs)
+    def initial_inference(self, obs: torch.Tensor,
+                          task_id: Optional[torch.Tensor] = None) -> NetworkOutput:
+        """The reward at the root is a zero pad. ``task_id`` (B,) conditions
+        the root latent in multitask runs."""
+        latent = self.representation(obs, task_id)
         value_logits, policy_logits = self.prediction(latent)
         return NetworkOutput(
             value_logits=value_logits,
@@ -178,10 +206,6 @@ class MuZeroModel(nn.Module):
             raise NotImplementedError(
                 "the HarmonyDream loss weights are not ported yet (ROADMAP queue 1, slice 20)"
             )
-        if int(model_cfg.get("num_tasks", 0)) > 0:
-            raise NotImplementedError(
-                "the multitask task embedding is not ported yet (ROADMAP queue 1, slice 19)"
-            )
         obs_shape = model_cfg.get("observation_shape", 4)
         kwargs = dict(
             observation_shape=tuple(obs_shape) if isinstance(obs_shape, list) else obs_shape,
@@ -195,6 +219,7 @@ class MuZeroModel(nn.Module):
             num_channels=model_cfg.get("num_channels", 64),
             num_res_blocks=model_cfg.get("num_res_blocks", 1),
             downsample=model_cfg.get("downsample", True),
+            num_tasks=int(model_cfg.get("num_tasks", 0)),
         )
         for k in (
             "value_support_size",

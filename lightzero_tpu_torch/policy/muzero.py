@@ -99,6 +99,22 @@ class MuZeroPolicy:
     """Holds the model, the search config and a generator for the search's
     and the action sampling's randomness."""
 
+    # the task id a multitask policy's view binds for its collector,
+    # evaluator and buffer (``policy/multitask.py``, ``task_view``): the
+    # model's task embedding conditions their searches; None elsewhere
+    _collect_task_id: Optional[int] = None
+    # set by ``parallel.ddp.ddp_learn_step`` for one learn step: called with
+    # (the model's parameters, the logs) between backward and the clip, it
+    # averages the gradients and the logs over the ranks
+    grad_sync: Optional[Callable] = None
+
+    def _task_ids(self, batch_size: int) -> Optional[torch.Tensor]:
+        """(B,) task ids of the bound task, or None outside a task view."""
+        if self._collect_task_id is None:
+            return None
+        return torch.full((batch_size,), int(self._collect_task_id), dtype=torch.long,
+                          device=self.device)
+
     @staticmethod
     def default_config() -> Config:
         """The JAX policy's defaults (``lightzero_tpu/policy/muzero.py:99``)."""
@@ -262,6 +278,17 @@ class MuZeroPolicy:
         return TrainState(self.model, target, optimizer, lr_scheduler, 0)
 
     # ------------------------------------------------------------ inference
+    def _initial(self, model: nn.Module, obs: torch.Tensor,
+                 task_id: Optional[torch.Tensor] = None):
+        """The model's initial inference, conditioned on ``task_id``, or on
+        the view's bound task when it is None (the models without a task
+        embedding take the observation alone)."""
+        if task_id is None:
+            task_id = self._task_ids(obs.shape[0])
+        if task_id is None:
+            return model.initial_inference(obs)
+        return model.initial_inference(obs, task_id)
+
     def _root_embedding(self, out0) -> Any:
         """Search embedding at the root; variants extend it."""
         return out0.latent_state
@@ -278,20 +305,24 @@ class MuZeroPolicy:
     @torch.no_grad()
     def _bootstrap_value_fn(self, target_model: nn.Module, obs: torch.Tensor) -> torch.Tensor:
         """Fresh target-net root values for the buffer's bootstrap targets."""
-        out = target_model.initial_inference(obs)
+        out = self._initial(target_model, obs)
         return inverse_scalar_transform(out.value_logits, self.value_support)
 
     # ---------------------------------------------------------------- learn
-    def _sample_losses(self, model: nn.Module, batch: TrainBatch):
+    def _sample_losses(self, model: nn.Module, batch: TrainBatch,
+                       task_id: Optional[torch.Tensor] = None, train_iter: Optional[int] = None):
         """Per-sample loss vector before importance weighting and reduction:
         ``(loss (B,), logs, value_priority (B,))``. (The JAX version also
-        returns the HarmonyDream regularizer, which is not ported.)"""
+        returns the HarmonyDream regularizer, which is not ported.)
+        ``task_id`` (B,) conditions the root latent and the SSL target's
+        representation when the model has a task embedding; ``train_iter``
+        is unused here, as in the JAX version."""
         cfg = self.cfg
         K = self.num_unroll_steps
         tv_cat = phi_transform(self.value_support, scalar_transform(batch.target_value))
         tr_cat = phi_transform(self.reward_support, scalar_transform(batch.target_reward))
 
-        out0 = model.initial_inference(batch.obs[:, 0])
+        out0 = self._initial(model, batch.obs[:, 0], task_id)
         latent = out0.latent_state
         value_loss = cross_entropy_loss(out0.value_logits, tv_cat[:, 0])
         policy_loss = cross_entropy_loss(out0.policy_logits, batch.target_policy[:, 0])
@@ -313,7 +344,7 @@ class MuZeroPolicy:
                 # the target branch carries no gradient (stop_gradient of
                 # the projection of stop_gradient(representation))
                 with torch.no_grad():
-                    repr_k = model.representation(batch.obs[:, k + 1])
+                    repr_k = model.representation(batch.obs[:, k + 1], task_id)
                     proj_obs = model.project(repr_k, with_grad=False)
                 consistency_loss = consistency_loss + negative_cosine_similarity(
                     proj_dyn, proj_obs
@@ -368,6 +399,8 @@ class MuZeroPolicy:
             # and still takes the weight decay's step
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
+        if self.grad_sync is not None:
+            self.grad_sync(params, logs)
         logs["grad_norm"] = clip_by_global_norm_(
             [p.grad for p in params], float(self.cfg.grad_clip_value)
         )
@@ -397,7 +430,7 @@ class MuZeroPolicy:
         g = self.generator
         obs = obs.to(self.device, torch.float32)
         legal_mask = legal_mask.to(self.device)
-        out0 = self.model.initial_inference(obs)
+        out0 = self._initial(self.model, obs)
         pred_value = inverse_scalar_transform(out0.value_logits, self.value_support)
         if bool(self.cfg.get("collect_with_pure_policy", False)):
             # no-search mode (reference muzero.py:800-812): act from the
@@ -500,7 +533,7 @@ class MuZeroPolicy:
         replaces the Dirichlet draw (for tests). ``true_action`` with
         ``reuse_value`` selects ReZero's reuse search (muzero.py:493-533)."""
         obs = obs.to(self.device, torch.float32)
-        out0 = target_model.initial_inference(obs)
+        out0 = self._initial(target_model, obs)
         root = RootOutput(
             prior_logits=out0.policy_logits,
             value=inverse_scalar_transform(out0.value_logits, self.value_support),

@@ -93,8 +93,9 @@ class SampledUniZeroPolicy(UniZeroPolicy):
     def _recurrent_fn(self, model: nn.Module, draws: Optional[Iterator[torch.Tensor]],
                       slot: torch.Tensor, emb) -> RecurrentOutput:
         action = emb["sampled_actions"][torch.arange(slot.shape[0], device=slot.device), slot]
-        a_out, cache = model.infer_action_step(emb["cache"], action)
-        o_out, cache = model.infer_obs_step(cache, a_out["obs_pred"])
+        tid = self._task_ids(slot.shape[0])
+        a_out, cache = model.infer_action_step(emb["cache"], action, tid)
+        o_out, cache = model.infer_obs_step(cache, a_out["obs_pred"], tid)
         new_actions, logp = self._sample_candidates(o_out, None if draws is None else next(draws))
         return RecurrentOutput(
             reward=inverse_scalar_transform(a_out["reward_logits"], self.reward_support),
@@ -125,7 +126,8 @@ class SampledUniZeroPolicy(UniZeroPolicy):
         dev = self.device
         model = self.model
         obs = obs.to(dev, torch.float32)
-        o_out, cache = model.infer_obs_step(collect_state, model.encode_obs(obs))
+        tid = self._task_ids(obs.shape[0])
+        o_out, cache = model.infer_obs_step(collect_state, model.encode_obs(obs), tid)
         pred_value = inverse_scalar_transform(o_out["value_logits"], self.value_support)
         root_actions, root_logp = self._sample_candidates(
             o_out, None if root_draws is None else root_draws.to(dev),
@@ -149,7 +151,7 @@ class SampledUniZeroPolicy(UniZeroPolicy):
             search_out.visit_counts, temperature, deterministic=deterministic,
             generator=self.generator)
         action = root_actions[torch.arange(B, device=dev), slot]
-        _, new_state = model.infer_action_step(cache, action)
+        _, new_state = model.infer_action_step(cache, action, tid)
         out = dict(
             action=action,
             chosen_slot=slot,
@@ -165,14 +167,16 @@ class SampledUniZeroPolicy(UniZeroPolicy):
         raise NotImplementedError(_REANALYZE_REFUSED)
 
     # ---------------------------------------------------------------- learn
-    def _sample_losses(self, model: nn.Module, batch: SampledTrainBatch, train_iter: int = 0):
+    def _sample_losses(self, model: nn.Module, batch: SampledTrainBatch,
+                       task_id: Optional[torch.Tensor] = None, train_iter: int = 0):
         """(loss (B,), extra 0, logs, value_priority (B,)) of a
-        ``SampledTrainBatch`` (sampled_unizero.py:136-202)."""
+        ``SampledTrainBatch`` (sampled_unizero.py:136-202); ``task_id`` (B,)
+        conditions the world model's tokens."""
         cfg = self.cfg
         base, sampled = batch.base, batch.sampled_actions  # (B, K+1, Ks[, D])
         tv_cat = phi_transform(self.value_support, scalar_transform(base.target_value))
         tr_cat = phi_transform(self.reward_support, scalar_transform(base.target_reward))
-        out = model.train_forward(base.obs, base.actions)
+        out = model.train_forward(base.obs, base.actions, task_id)
         value_loss = cross_entropy_loss(out["value_logits"], tv_cat).sum(-1)
         reward_loss = cross_entropy_loss(out["reward_logits"], tr_cat).sum(-1)
         obs_loss = predict_latent_loss(out["obs_pred"], out["obs_embeddings"][:, 1:].detach(),

@@ -36,13 +36,19 @@ Encoder-Clip and Head-Clip, whose scale is then min(1, threshold / NaN) =
 NaN and overwrites the encoder or heads with NaN (ROADMAP queue 3); here
 the clips run only on the steps that update.
 
+Multitask: a task view (``policy/multitask.py``) conditions every token of
+its searches, its bootstrap values and its reanalyze prefill on its task;
+``_sample_losses`` takes the batch's task ids. ``set_curriculum_stage``
+switches the CurriculumLoRA stage in place and rebuilds the optimizer over
+the new stage's trainable parameters.
+
 Refused with ``NotImplementedError``: ``perceptual_loss_weight > 0`` (the
 LPIPS term, ROADMAP queue 1, item 20); another ``optim_type`` than AdamW (no
-UniZero config sets one); and, in the entry, the multitask policies and the
-curriculum stages an entry drives (item 19).
+UniZero config sets one).
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Any, Dict, Optional, Tuple
 
@@ -52,6 +58,7 @@ from torch import nn
 from lightzero_tpu_torch.config import Config
 from lightzero_tpu_torch.models.unizero import UniZeroModel
 from lightzero_tpu_torch.models.unizero_world_model.transformer import (
+    CurriculumLoRADense,
     KVCache,
     curriculum_trainable_mask,
 )
@@ -181,6 +188,25 @@ class UniZeroPolicy(MuZeroPolicy):
         opt = torch.optim.AdamW(groups, lr=float(cfg.learning_rate), eps=1e-8)
         return opt, torch.optim.lr_scheduler.LambdaLR(opt, lambdas)
 
+    def set_curriculum_stage(self, stage: int, state: Optional[TrainState] = None
+                             ) -> Optional[TrainState]:
+        """Switch the CurriculumLoRA stage of the policy's model (and of
+        ``state``'s target copy) in place, and return ``state`` with a fresh
+        optimizer and learning-rate schedule over the stage's trainable
+        parameters (the JAX policy rebuilds its optimizer and the entry
+        re-inits ``opt_state``, whose schedule count starts again at 0).
+        Every task view shares the model, so it follows."""
+        models = [self.model] + ([state.target_model] if state is not None else [])
+        for model in models:
+            model.tcfg = dataclasses.replace(model.tcfg, curriculum_stage=int(stage))
+            for m in model.modules():
+                if isinstance(m, CurriculumLoRADense):
+                    m.stage = int(stage)
+        if state is None:
+            return None
+        optimizer, lr_scheduler = self._make_optimizer(state.model)
+        return state._replace(optimizer=optimizer, lr_scheduler=lr_scheduler)
+
     # ---------------------------------------------------------- collect state
     def _fresh_cache(self, batch_size: int, model: Optional[nn.Module] = None) -> KVCache:
         return (model or self.model).init_cache(batch_size, self.device)
@@ -198,8 +224,9 @@ class UniZeroPolicy(MuZeroPolicy):
 
     # ------------------------------------------------------------ inference
     def _recurrent_fn(self, model: nn.Module, action: torch.Tensor, emb: Any) -> RecurrentOutput:
-        a_out, cache = model.infer_action_step(emb["cache"], action)
-        o_out, cache = model.infer_obs_step(cache, a_out["obs_pred"])
+        tid = self._task_ids(action.shape[0])
+        a_out, cache = model.infer_action_step(emb["cache"], action, tid)
+        o_out, cache = model.infer_obs_step(cache, a_out["obs_pred"], tid)
         return RecurrentOutput(
             reward=inverse_scalar_transform(a_out["reward_logits"], self.reward_support),
             value=inverse_scalar_transform(o_out["value_logits"], self.value_support),
@@ -209,7 +236,8 @@ class UniZeroPolicy(MuZeroPolicy):
 
     def _root(self, model: nn.Module, obs: torch.Tensor, context: KVCache):
         """The obs token appended to ``context``: (root, cache)."""
-        o_out, cache = model.infer_obs_step(context, model.encode_obs(obs))
+        o_out, cache = model.infer_obs_step(context, model.encode_obs(obs),
+                                            self._task_ids(obs.shape[0]))
         root = RootOutput(
             prior_logits=o_out["policy_logits"],
             value=inverse_scalar_transform(o_out["value_logits"], self.value_support),
@@ -236,7 +264,8 @@ class UniZeroPolicy(MuZeroPolicy):
         root, cache = self._root(self.model, obs, collect_state)
         out = self._search_and_act(root, legal_mask.to(self.device), to_play, temperature,
                                    epsilon, deterministic, noise=noise)
-        _, new_state = self.model.infer_action_step(cache, out["action"])
+        _, new_state = self.model.infer_action_step(cache, out["action"],
+                                                    self._task_ids(obs.shape[0]))
         return out, new_state
 
     @torch.no_grad()
@@ -273,7 +302,8 @@ class UniZeroPolicy(MuZeroPolicy):
         obs = obs.to(dev, torch.float32)
         if obs_hist is not None:
             o_out, cache = target_model.prefill(obs_hist.to(dev, torch.float32),
-                                                act_hist.to(dev), hist_len.to(dev))
+                                                act_hist.to(dev), hist_len.to(dev),
+                                                self._task_ids(obs.shape[0]))
             root = RootOutput(
                 prior_logits=o_out["policy_logits"],
                 value=inverse_scalar_transform(o_out["value_logits"], self.value_support),
@@ -295,14 +325,17 @@ class UniZeroPolicy(MuZeroPolicy):
         return counts / torch.clamp(counts.sum(-1, keepdim=True), min=1e-9), search_out.root_value
 
     # ---------------------------------------------------------------- learn
-    def _sample_losses(self, model: nn.Module, batch: TrainBatch, train_iter: int = 0):
+    def _sample_losses(self, model: nn.Module, batch: TrainBatch,
+                       task_id: Optional[torch.Tensor] = None, train_iter: int = 0):
         """Per-sample loss before importance weighting, the terms added once
         per batch (the alpha loss and the weighted reconstruction loss), the
-        logs and the priorities: ``(loss (B,), extra, logs, value_priority)``."""
+        logs and the priorities: ``(loss (B,), extra, logs, value_priority)``.
+        ``task_id`` (B,) conditions the world model's tokens (None: task 0
+        where the model has a task table)."""
         cfg = self.cfg
         tv_cat = phi_transform(self.value_support, scalar_transform(batch.target_value))
         tr_cat = phi_transform(self.reward_support, scalar_transform(batch.target_reward))
-        out = model.train_forward(batch.obs, batch.actions)
+        out = model.train_forward(batch.obs, batch.actions, task_id)
         value_loss = cross_entropy_loss(out["value_logits"], tv_cat).sum(-1)
         policy_loss = cross_entropy_loss(out["policy_logits"], batch.target_policy).sum(-1)
         reward_loss = cross_entropy_loss(out["reward_logits"], tr_cat).sum(-1)
@@ -349,7 +382,7 @@ class UniZeroPolicy(MuZeroPolicy):
             for _ in range(dc_depth):
                 obs_ed = torch.cat([out["obs_embeddings"][:, :1], prev["obs_pred"].detach()],
                                    dim=1)
-                outd = model.train_forward_embedded(obs_ed, batch.actions)
+                outd = model.train_forward_embedded(obs_ed, batch.actions, task_id)
                 dc_reward = cross_entropy_loss(outd["reward_logits"], tr_cat).sum(-1)
                 dc_value = cross_entropy_loss(outd["value_logits"][:, 1:], tv_cat[:, 1:]).sum(-1)
                 dc_policy = cross_entropy_loss(outd["policy_logits"][:, 1:],
@@ -384,7 +417,8 @@ class UniZeroPolicy(MuZeroPolicy):
         return loss, extra, {k: v.detach() for k, v in logs.items()}, value_priority
 
     def _loss_fn(self, model: nn.Module, batch, train_iter: int = 0):
-        loss, extra, logs, value_priority = self._sample_losses(model, batch, train_iter)
+        loss, extra, logs, value_priority = self._sample_losses(model, batch,
+                                                                train_iter=train_iter)
         weights = getattr(batch, "base", batch).weights
         weighted_total_loss = torch.mean(weights * loss) + extra
         logs["total_loss"] = weighted_total_loss.detach()
@@ -407,7 +441,10 @@ class UniZeroPolicy(MuZeroPolicy):
         """One UniZero learn step: ``(state, logs, value_priority (B,))``."""
         cfg = self.cfg
         model = state.model
-        state.optimizer.zero_grad(set_to_none=True)
+        # every parameter's, not only the optimizer's: under CurriculumLoRA
+        # the frozen ones get gradients too, which the logged norm and the
+        # non-finite guard read
+        model.zero_grad(set_to_none=True)
         steps = int(cfg.get("accumulation_steps", 1))
         micro = self._micro_batches(batch, steps) if steps > 1 else [batch]
         logs_m, prio_m = [], []
@@ -422,6 +459,10 @@ class UniZeroPolicy(MuZeroPolicy):
         for p in named.values():
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
+        if self.grad_sync is not None:
+            # a non-finite loss or gradient on any rank makes the averages
+            # non-finite on every rank, so all of them skip the step together
+            self.grad_sync(list(named.values()), logs)
         # the norm is non-finite where any gradient is: one read-back
         grad_norm = torch.nn.utils.get_total_norm([p.grad for p in named.values()])
         finite = bool(torch.isfinite(logs["total_loss"]) & torch.isfinite(grad_norm))

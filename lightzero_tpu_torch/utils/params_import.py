@@ -62,6 +62,9 @@ are. A Dense or conv ``kernel``, a LayerNorm ``scale`` and an Embed
 (num, D) on both sides); the attention's 3-D kernels, the LoRA factors and
 scales, ``pos_embed`` and ``log_alpha`` keep flax's layout and name.
 
+MuZero's multitask task embedding (flax ``task_embed/embedding``, MLP and
+conv) is the port's ``task_embed.weight``, (num_tasks, width) on both sides.
+
 The GRU of MuZero-RNN: flax ``GRUCell`` holds input kernels ``i{r,z,n}``
 (in, H) with ``bias``, recurrent kernels ``h{r,z}`` (H, H) without and
 ``hn`` with ``bias``; the port's ``FlaxGRUCell`` holds ``weight_ih`` (3H,
@@ -84,6 +87,8 @@ _GRU_GATES = ("r", "z", "n")
 # flax SSLProjector layer -> port SSLProjector layer
 _PROJECTOR_LAYERS = {"proj": "proj", "proj_norms": "proj_norms", "pred": "pred"}
 _LEAVES = {"kernel": "weight", "scale": "weight", "bias": "bias"}
+# MuZero's task embedding (num_tasks > 0): flax path -> port name
+_TASK_EMBED = ("task_embed/embedding", "task_embed.weight")
 
 
 class _ParamMap(NamedTuple):
@@ -410,6 +415,8 @@ def flax_to_state_dict(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
         out.update(_lstm_to_torch({k: flat.pop(k) for k in list(flat) if k.startswith("_lstm/")}))
     if pmap.gru:
         out.update(_gru_to_torch({k: flat.pop(k) for k in list(flat) if k.startswith("_gru/")}))
+    if _TASK_EMBED[0] in flat:
+        out[_TASK_EMBED[1]] = torch.from_numpy(np.array(flat.pop(_TASK_EMBED[0]), np.float32))
     for key, value in flat.items():
         if key.endswith("/kernel"):
             # Dense (in, out) -> (out, in); conv HWIO -> OIHW
@@ -527,6 +534,9 @@ def state_dict_to_flax(state_dict: Mapping[str, torch.Tensor]) -> Dict[str, Any]
             continue
         if pmap.gru and name.startswith(f"{_GRU}."):
             flat.update(_gru_to_flax(name, value))
+            continue
+        if name == _TASK_EMBED[1]:
+            flat[_TASK_EMBED[0]] = value
             continue
         if conv:
             path = _conv_flax_path(name, value.ndim)

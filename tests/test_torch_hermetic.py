@@ -3,7 +3,8 @@
 - every module of lightzero_tpu_torch imports with jax, flax, optax and
   lightzero_tpu made unimportable, and no source of the port or
   chip_smoke.py names them (nor pytest or gymnasium) in an import;
-- with no CUDA device, the entry points built without ``device=`` raise;
+- with no CUDA device, the entry points built without ``device=`` raise
+  (the multitask policies and entries among them);
 - the kernel loader raises a clear error when nvcc is absent or fails, and
   never hands back the plain version; the replay core's loader raises when
   g++ is absent, and the buffer does not fall back to its Python path.
@@ -170,6 +171,30 @@ def test_unizero_imports_without_jax():
     assert proc.returncode == 0, proc.stderr
 
 
+# multitask and scale-out: the multitask policies, their entries and
+# configs, the benchmark tables and torch.distributed scale-out, named as above
+MULTITASK_MODULES = (
+    "lightzero_tpu_torch.policy.multitask", "lightzero_tpu_torch.entry.train_muzero_multitask",
+    "lightzero_tpu_torch.entry.train_multitask_balance",
+    "lightzero_tpu_torch.utils.benchmark_scores", "lightzero_tpu_torch.parallel",
+    "lightzero_tpu_torch.parallel.distributed", "lightzero_tpu_torch.parallel.ddp",
+    "lightzero_tpu_torch.parallel.dryrun",
+    *(f"lightzero_tpu_torch.configs.{name}" for name in (
+        "cartpole_pendulum_balance", "pendulum_suite_scalezero", "pendulum_suite_scalezero_v2",
+        "pendulum_suite_scalezero_v3")),
+)
+
+
+def test_multitask_and_scale_out_import_without_jax():
+    proc = subprocess.run(
+        [sys.executable, "-c", _IMPORT_NAMED.format(forbidden=FORBIDDEN,
+                                                    modules=MULTITASK_MODULES)],
+        cwd=REPO, capture_output=True, text=True, timeout=120,
+        env=dict(os.environ, PYTHONPATH=str(REPO)),
+    )
+    assert proc.returncode == 0, proc.stderr
+
+
 def _imported_roots(path: pathlib.Path):
     tree = ast.parse(path.read_text(), filename=str(path))
     for node in ast.walk(tree):
@@ -225,6 +250,25 @@ def test_unizero_policies_without_device_raise_with_no_cuda(no_cuda):
     for cls in (UniZeroPolicy, SampledUniZeroPolicy):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             cls(dict(model=dict(embed_dim=16, num_heads=2), num_simulations=2))
+
+
+def test_multitask_policies_and_entries_without_device_raise_with_no_cuda(no_cuda, tmp_path):
+    import copy
+
+    from lightzero_tpu_torch.configs.pendulum_suite_scalezero_v3 import task_configs
+    from lightzero_tpu_torch.entry import train_multitask_balance, train_muzero_multitask
+    from lightzero_tpu_torch.policy import MuZeroMTPolicy, SampledUniZeroMTPolicy, UniZeroMTPolicy
+
+    for cls in (MuZeroMTPolicy, UniZeroMTPolicy, SampledUniZeroMTPolicy):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            cls(dict(model=dict(embed_dim=16, num_heads=2, latent_state_dim=8),
+                     num_simulations=2))
+    cfgs = copy.deepcopy(task_configs)
+    for c in cfgs:
+        c.exp_name = str(tmp_path / "exp")
+    for entry in (train_muzero_multitask, train_multitask_balance):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            entry(cfgs)
 
 
 def test_alphazero_policy_without_device_raises_with_no_cuda(no_cuda):

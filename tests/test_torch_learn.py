@@ -283,8 +283,9 @@ def test_three_learn_steps_with_a_target_copy(jax_policy):
 def test_learn_step_refuses_harmony_and_reuse():
     with pytest.raises(NotImplementedError, match="slice 20"):
         MuZeroPolicy(dict(model=dict(harmony_balance=True)), device="cpu")
-    with pytest.raises(NotImplementedError, match="slice 19"):
-        MuZeroPolicy(dict(model=dict(num_tasks=2)), device="cpu")
+    # the multitask task embedding is ported (tests/test_torch_multitask.py)
+    assert MuZeroPolicy(dict(model=dict(num_tasks=2)),
+                        device="cpu").model.task_embed.weight.shape == (2, 256)
     # the reuse search is ported for two players too: a board-game policy's
     # reuse reanalyze runs, and agrees with JAX's on the same params
     # (tests/test_torch_two_player_search.py holds the search itself)

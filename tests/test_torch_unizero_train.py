@@ -13,7 +13,8 @@
   the stored history;
 - UniZero and discrete Sampled UniZero on a TicTacToe bot-mode config (the
   JAX entry runs both there, with ``downsample=False``);
-- the entry aliases, and the refusals: the multitask types (item 19), the
+- the entry aliases, and the refusals: the multitask types (which train
+  through the multitask entries, and fail in JAX's train_muzero), the
   LPIPS loss (item 20), another optimizer than AdamW, and no CUDA device
   without ``device=``.
 """
@@ -160,8 +161,8 @@ def test_entry_aliases():
 
 
 @pytest.mark.parametrize("override,error,match", [
-    (dict(type="unizero_multitask"), NotImplementedError, "slice 19"),
-    (dict(type="sampled_unizero_multitask"), NotImplementedError, "slice 19"),
+    (dict(type="unizero_multitask"), ValueError, "train_muzero_multitask"),
+    (dict(type="sampled_unizero_multitask"), ValueError, "train_muzero_multitask"),
     (dict(perceptual_loss_weight=0.5, latent_recon_loss_weight=0.1), NotImplementedError,
      "item 20"),
     (dict(optim_type="Adam"), NotImplementedError, "AdamW"),
