@@ -6,7 +6,9 @@
 Phases, each of a fixed size, in one process:
   1. card: the GPU's name and power limit (nvidia-smi);
   2. build: nvcc compiles every kernel of the port, and g++ the replay
-     buffer's core, into lightzero_tpu_torch/_build/, all at once;
+     buffer's core, into lightzero_tpu_torch/_build/, all at once, while
+     torch.profiler's device tracing starts and stops once (its first start
+     costs seconds);
   3. kernel vs plain: the descent kernel's branch-free division against '/'
      on 4M random operand pairs and 4M pairs whose quotient lies next to a
      rounding midpoint; each kernel against its plain PyTorch version on
@@ -36,8 +38,9 @@ Phases, each of a fixed size, in one process:
      online net after the copy at iter 100, descent launches = (collect + eval
      searches) x 25; one learn step on the card against one on the CPU from
      the same params and batch; one sample at reanalyze_ratio=0.25 adds 25
-     launches; the median learn-step time over 10 steps (CUDA events), the
-     collect rate, and a torch.profiler pass over 5 learn steps;
+     launches; the median learn-step time over TIMED_LEARN_STEPS steps (CUDA
+     events), the collect rate, and a torch.profiler pass over 5 learn steps
+     (both profiler passes record the device's events only);
   7. efficientzero: the CartPole EfficientZero config at full width (latent
      128, LSTM 128, supports of 601 atoms, 25 simulations), whose search is
      the pUCT search through the descent kernel: the Evaluator on 3 envs
@@ -45,19 +48,22 @@ Phases, each of a fixed size, in one process:
      searched on the card against the same search on the CPU; the descent
      inputs of one eval search (simulations 1, 13 and 25) rerun kernel
      against plain as in phase 3; train_muzero with the device left unset
-     and its searches cut to SHORT_TRAIN_SIMS = 10 simulations: an eval at
+     and its searches cut to SHORT_TRAIN_SIMS = 5 simulations: an eval at
      iter 0, one collect round and 20 learn steps, launches = (collect +
-     eval searches) x 10; one learn step on the card against one on the
+     eval searches) x 5, its collect round SHORT_COLLECT_STEPS batched steps
+     over twice the config's collect envs; one learn step on the card
+     against one on the
      CPU; the median learn-step time;
   8. gumbel_muzero: the CartPole Gumbel MuZero config (10 simulations, 2
      considered actions), whose collect and eval search is the Gumbel
-     search in plain PyTorch: the Evaluator on 3 envs adds no descent
+     search in plain PyTorch: the Evaluator on 3 envs, episodes truncated
+     at GUMBEL_EVAL_STEPS, adds no descent
      launch (its wall as a user runs it), then a second eval with every
      descent timed between two device syncs, for the descent's share of
      that instrumented wall; a batch of 4 searched on
      the card against the CPU with the same Gumbel table; a short
      train_muzero run as in phase 7 (no launch) and one reanalyze sample,
-     which searches with the pUCT search (10 launches); one learn step on
+     which searches with the pUCT search (5 launches); one learn step on
      the card against one on the CPU; the median learn-step time;
   9. stochastic_muzero: the 2048 Stochastic MuZero config at full width
      (observations 4x4x16, 4 actions, 32 chance outcomes, latent 256,
@@ -70,8 +76,8 @@ Phases, each of a fixed size, in one process:
      draws and tie_break='first'; a short train_muzero run as in phase 7
      at STOCH_TRAIN_SIMS simulations with episodes truncated at
      STOCH_TRAIN_EPISODE_STEPS (its eval runs
-     that many steps, its collect round the collector's 64, 512
-     transitions); one learn step on the card against one on the CPU; the
+     that many steps, its collect round SHORT_COLLECT_STEPS over 16 envs,
+     512 transitions); one learn step on the card against one on the CPU; the
      median learn-step time;
  10. sampled: the Pendulum Sampled MuZero and Sampled EfficientZero configs
      at full width (observation 3, action dimension 1, K=20 sampled
@@ -94,15 +100,15 @@ Phases, each of a fixed size, in one process:
      ReZero (supports of 51 atoms): a short train_muzero run as in phase 7,
      its episodes truncated at REZERO_TRAIN_EPISODE_STEPS, whose collect
      round triggers the whole-buffer reuse reanalyze (groups of 160
-     episodes, backward in time): launches = (collect + eval searches) x 10
-     + 10 x groups, since only each group's first search takes the kernel
-     and the reuse searches the generic descent (10 x (longest episode - 1)
+     episodes, backward in time): launches = (collect + eval searches) x 5
+     + 5 x groups, since only each group's first search takes the kernel
+     and the reuse searches the generic descent (5 x (longest episode - 1)
      descents a group), and the logged count of reanalyzed transitions is
      that of the newest episodes covering 75 % of the buffer; a reuse search
      of 4 numpy-seeded CartPole states on the card and on the CPU with the
      same Dirichlet noise, true actions and reused values and
      tie_break='first' (no launch); one plain reanalyze_buffer
-     (reuse_search=False) of the trained buffer, 10 launches a batch of 160.
+     (reuse_search=False) of the trained buffer, 5 launches a batch of 160.
      MuZero-Context: the Evaluator on 3 envs (launches = env steps x 25)
      through the stateful path; the root latents of 7 stateful steps on the
      card against the CPU, across an episode reset after step 2 and the
@@ -123,7 +129,7 @@ Phases, each of a fixed size, in one process:
      inputs of one eval search (simulations 1, 13, 25) rerun kernel against
      plain as in phase 3; a short train_muzero run as in phase 7 with
      episodes truncated at GRID_TRAIN_EPISODE_STEPS (launches = (collect +
-     eval searches) x 10), one learn step on the card against one on the
+     eval searches) x 5), one learn step on the card against one on the
      CPU and the median learn-step time. Then one initial and one recurrent
      inference of conv MuZero at the Atari width (96x96x12, 64 channels,
      the DownSample pyramid) on 4 seeded frames, card against CPU;
@@ -135,13 +141,13 @@ Phases, each of a fixed size, in one process:
      steps x simulations), Catch's eval descent inputs (simulations 1, 13,
      25) rerun kernel against plain as in phase 3, a short train_muzero run
      as in phase 7, its stop_value out of reach (launches = (collect + eval
-     searches) x 10) with its learn step on the card against the CPU.
+     searches) x 5) with its learn step on the card against the CPU.
      TicTacToe AlphaZero (3x3x3 planes, 32 channels, 1 res block, 25 simulations; the env is the
      search's simulator and its players alternate, so the search takes the
      generic descent): 4 positions searched on the card and on the CPU with
      the same Dirichlet noise and tie_break='first', one self-play collect of
      8 games, AZ_EVAL_EPISODES games against the rule bot, a train_alphazero
-     run at AZ_TRAIN_SIMS = 16 simulations and SHORT_TRAIN_ITERS learn steps
+     run at AZ_TRAIN_SIMS = 8 simulations and SHORT_TRAIN_ITERS learn steps
      with its learn step on the card against the CPU; no launch. Connect4
      MuZero (the fine-tune config: conv 64 channels, A=7, 50 simulations, bot
      mode, mirror augmentation; seeded weights): the Evaluator against the rule bot on 3 envs with its generic
@@ -158,7 +164,7 @@ Phases, each of a fixed size, in one process:
      (K=18 of 36, 50 simulations): each 4 positions searched on the card
      and on the CPU with the same draws (Dirichlet noise; the Gumbel table;
      the root's and every simulation's Gumbel-top-K draws) and
-     tie_break='first', then a train_alphazero run at AZ_TRAIN_SIMS = 16
+     tie_break='first', then a train_alphazero run at AZ_TRAIN_SIMS = 8
      simulations whose iter-0 eval plays BIG_EVAL_EPISODES games against the
      rule bot on 5 envs with its descents timed, one self-play collect of 8
      games (more until the replay holds a batch) and SHORT_TRAIN_ITERS learn
@@ -188,12 +194,13 @@ Phases, each of a fixed size, in one process:
      eval search's descent inputs (simulations 1, 13, 25) rerun kernel
      against plain; a short train_muzero run as in phase 7 with episodes
      cut at UZ_TRAIN_EPISODE_STEPS and training from the first collect
-     round (launches = (collect + eval searches) x 25), one learn step on
+     round, searching with SHORT_TRAIN_SIMS (launches = (collect + eval
+     searches) x 5), one learn step on
      the card against the CPU and the
      median of UZ_TIMED_LEARN_STEPS learn steps. Sampled UniZero with the
      Pendulum config (K=16, 50 simulations; the row-read route): the same,
      cut like phase 10 (its card-vs-CPU search with injected candidate
-     draws and noise from a fresh context, its short run at SUZ_TRAIN_SIMS
+     draws and noise from a fresh context, its short run at SHORT_TRAIN_SIMS
      simulations). A summary gives eval s per env step, learn-step ms, the
      collect rate, the bytes of one node's KV cache and the phase's wall.
  16. multitask: ScaleZero v3 at full width (Sampled UniZero multitask over
@@ -210,10 +217,40 @@ Phases, each of a fixed size, in one process:
      and on the simplex); a forced set_curriculum_stage(1) whose learn step
      leaves the backbone bit-unchanged and moves the stage-1 adapters; the
      CartPole + Pendulum balance config and the smoke's own two-task
-     CartPole muzero_multitask run, cut the same way (prefetch route, A=2);
-     ddp_learn_step in a one-rank NCCL group against the plain learn step.
+     CartPole muzero_multitask run, cut the same way and at
+     SHORT_TRAIN_SIMS simulations (prefetch route, A=2);
+     ddp_learn_step in a one-rank NCCL group (InfiniBand and NVLS off)
+     against the plain learn step, its setup, step and teardown timed.
      A summary gives each task's eval s per env step, the learn-step ms
-     (default and CAGrad), the collect rates and the phase's wall.
+     (default and CAGrad), the collect rates and the phase's wall;
+ 17. host: the host envs' path, RND, eval_offline and HarmonyDream. (a) One
+     line says which of gymnasium, Box2D, mujoco and dm_control import on
+     this machine, with their versions. (b) train_muzero's host path with
+     the CartPole MuZero config at full width (25 simulations, latent 128,
+     batch 256) over StandInHostEnv, a vec env with HostVecEnv's interface
+     and seeding over the port's CartPoleEnv on the CPU, defined here and
+     not in the package, so that the path runs whatever (a) found: an eval
+     at iter 0 through HostEvaluator, one collect round through
+     HostCollector and SHORT_TRAIN_ITERS learn steps, launches = (collect +
+     eval batched steps) x 25, its learn step card vs CPU; then
+     HOST_COMPARED_STEPS batched eval steps over the stand-in on the card
+     and on the CPU from the same weights and seeds (equal actions and visit
+     counts, searched values within VALUE_TOL); the host path's eval s per
+     env step and collect env steps/s beside phase 4's and phase 6's
+     TensorEnv figures. (c) Where their libraries import, mtcar_muzero
+     (gymnasium) and lunarlander_disc_muzero (Box2D) through train_muzero
+     cut like phase 7 (SHORT_TRAIN_SIMS simulations, episodes cut at
+     HOST_EPISODE_STEPS, stop_value out of reach); where they do not, a
+     line says these configs did not run. (d) The zoo's memory_muzero_rnd
+     at full width (latent 128, 50 simulations, batch 256, unroll 12)
+     through train_muzero_with_reward_model, cut like phase 7 at its 50
+     simulations, its collect round RND_COLLECT_STEPS batched steps: launches = (collect + eval searches) x 50, one RND train
+     step and one estimate card vs CPU within RND_RTOL, the learn step card
+     vs CPU and timed, and the RND train and estimate ms per episode.
+     (e) The CartPole MuZero config with harmony_balance: a learn step card
+     vs CPU (compare_learn_steps) on a batch of (b)'s buffer, timed learn
+     steps, and the three scalars moved. (f) eval_offline over (d)'s
+     checkpoints (ckpt_final), launches = eval searches x 50.
 
 The last lines are the card's name and power limit, one JSON object with a
 record per kernel, and {"ok": true, "device": {...}}; that last line is printed
@@ -229,6 +266,7 @@ import copy
 import ctypes
 import dataclasses
 import faulthandler
+import functools
 import importlib
 import json
 import math
@@ -272,13 +310,18 @@ from lightzero_tpu_torch.configs.breakout_grid_unizero_ws import main_config as 
 from lightzero_tpu_torch.configs.pendulum_sampled_unizero import main_config as suz_config
 from lightzero_tpu_torch.configs.pendulum_suite_scalezero_v3 import task_configs as scalezero_v3
 from lightzero_tpu_torch.configs.cartpole_pendulum_balance import task_configs as balance_tasks
+from lightzero_tpu_torch.configs.mtcar_muzero import main_config as mtcar_config
+from lightzero_tpu_torch.configs.lunarlander_disc_muzero import main_config as lunarlander_config
+from lightzero_tpu_torch.configs.memory_muzero_rnd import main_config as rnd_config
 from lightzero_tpu_torch.config import deep_merge
 from lightzero_tpu_torch.buffers import GameBuffer
 from lightzero_tpu_torch.entry import (
+    eval_offline,
     train_alphazero,
     train_multitask_balance,
     train_muzero,
     train_muzero_multitask,
+    train_muzero_with_reward_model,
 )
 from lightzero_tpu_torch.entry.train_muzero_multitask import combine_task_batches
 from lightzero_tpu_torch.parallel.ddp import ddp_learn_step
@@ -333,10 +376,13 @@ from lightzero_tpu_torch.search.fused_traverse import (
     fused_traverse_reference,
     kernel_route,
 )
+from lightzero_tpu_torch.reward_model import RNDRewardModel
 from lightzero_tpu_torch.workers import (
     AlphaZeroBotEvaluator,
     AlphaZeroSelfPlayCollector,
     Evaluator,
+    HostCollector,
+    HostEvaluator,
     RolloutCollector,
 )
 
@@ -346,7 +392,10 @@ from lightzero_tpu_torch.workers import (
 # Phase 11 took the script to 317 s on the first host (with 200 learn steps
 # in phase 6, now 100). With phase 15 the script took 533-767 s on H100
 # hosts whose speed differed by up to 1.5x, so the short training runs of
-# phases 7 and 11-13 search with SHORT_TRAIN_SIMS simulations
+# phases 7 and 11-13 search with SHORT_TRAIN_SIMS simulations. With phase 17
+# it took 483-505 s on one host and passed 600 s on one 1.5x slower, so the
+# short runs' searches, the AlphaZero runs' and the timed learn steps were
+# cut again (below) and the profiler passes record the device only
 WATCHDOG_S = 600
 # H100 SXM peaks (NVIDIA data sheet): HBM bandwidth and float32 outside the
 # tensor cores; the bound of a kernel is the larger of bytes/rate, ops/rate
@@ -378,10 +427,10 @@ EDGE_SHAPES = [(256, 4, 26), (256, 18, 26)]
 # train phase: learn steps of the CartPole run (100, where the target net is
 # copied: the run's depth was halved from 200 when phase 11 came, to keep the
 # script within half the run limit on slower hosts), learn steps timed after
-# it and after each short run (20 until phase 15 came; phase 15 times 20),
-# learn steps under the profiler
+# it and after each short run (20 until phase 15 came, 10 until phase 17
+# came; phase 15 times 10), learn steps under the profiler
 TRAIN_ITERS = 100
-TIMED_LEARN_STEPS = 10
+TIMED_LEARN_STEPS = 5
 PROFILED_LEARN_STEPS = 5
 # phases 7 and 8: learn steps of the short train_muzero run, the
 # simulations of the EfficientZero eval search whose descent inputs are
@@ -392,27 +441,42 @@ SHORT_TRAIN_ITERS = 20
 # host dispatch, 64 times in a collect round; with phase 15 the script went
 # past its watchdog on slower hosts. Phase 10's runs keep their 50: at 10,
 # Sampled MuZero's learn-step check failed on its mean predicted value near
-# 0 (1.8e-4 relative, against LEARN_LOG_RTOL), as at 16-step episodes
-SHORT_TRAIN_SIMS = 10
+# 0 (1.8e-4 relative, against LEARN_LOG_RTOL), as at 16-step episodes.
+# (10 until phase 17 came: a batched step costs ~22 ms plus ~4 ms a
+# simulation of host dispatch at 8 envs.)
+SHORT_TRAIN_SIMS = 5
+# the batched steps of those runs' collect round, over twice the configs'
+# collect envs: the transitions of the collector's 64 steps over the
+# configs' envs in half the steps (64 over the configs' envs until phase 17
+# came). Phase 10's runs and the host path's keep the collector's 64.
+SHORT_COLLECT_STEPS = 32
 EZ_CAPTURED_SIMS = (1, 13, 25)
+# phase 8: Gumbel MuZero's two evals truncate CartPole's episodes here (its
+# evals ran 54 batched steps, 6 s each, before phase 17 came)
+GUMBEL_EVAL_STEPS = 16
 # phase 9's short training run searches with STOCH_TRAIN_SIMS simulations,
 # its evals with the config's 50: its collect round took 45 s at 50, and
 # phase 14 would have taken the script past the watchdog on slower hosts
-STOCH_TRAIN_SIMS = 10
+# (10 until phase 17 came)
+STOCH_TRAIN_SIMS = 5
 # phase 9: a 2048 episode runs for hundreds of moves, so the evals and the
 # short training run truncate episodes at these env steps (the first eval
 # at 12 until phase 14 came; phase 10's at 12, phase 12's at 16 and phase
 # 13's AlphaZero eval at 10 games were cut for it too)
 STOCH_EVAL_STEPS = 4  # 8 until phase 15 came
-STOCH_TIMED_EVAL_STEPS = 6
+STOCH_TIMED_EVAL_STEPS = 4  # 6 until phase 17 came
 STOCH_TRAIN_EPISODE_STEPS = 16
 # phase 10: a Pendulum episode runs 200 steps, so the evals truncate episodes
 # at SAMPLED_EVAL_STEPS, and the short training run at
 # SAMPLED_TRAIN_EPISODE_STEPS (its eval runs that many steps, and one collect
 # round of the collector's 64 steps x 8 envs, 16 episodes, fills the batch);
 # the simulations of the Sampled MuZero eval search whose descent inputs are
-# rerun kernel against plain
-SAMPLED_EVAL_STEPS = 8
+# rerun kernel against plain. (The evals' cut was 8 until phase 17 came. The
+# short runs keep their data: 50 simulations, 32-step episodes and the
+# collector's 64 steps over 8 envs. Their learn-step check holds the mean
+# predicted value, near 0, to 1e-4 relative; over 16 envs x 32 steps
+# Sampled EfficientZero's came to 3.4e-4.)
+SAMPLED_EVAL_STEPS = 4
 SAMPLED_TRAIN_EPISODE_STEPS = 32
 SAMPLED_CAPTURED_SIMS = (1, 25, 50)
 # phase 11: ReZero's reuse reanalyze searches each group of episodes once per
@@ -427,8 +491,8 @@ CONTEXT_STEPS = 7
 RNN_HIDDEN_SIZE = 128
 # phase 12: a grid episode runs up to 400-500 steps, so the evals truncate
 # episodes at GRID_EVAL_STEPS and the short training runs at
-# GRID_TRAIN_EPISODE_STEPS (one collect round of 64 steps x 8 envs fills the
-# batch of 256 either way); the Atari-width check's frames and tolerance
+# GRID_TRAIN_EPISODE_STEPS (one collect round of SHORT_COLLECT_STEPS x 16
+# envs fills the batch of 256 either way); the Atari-width check's frames and tolerance
 # (float32 convolutions of up to 576 terms by other algorithms on the card)
 GRID_EVAL_STEPS = 10
 GRID_TRAIN_EPISODE_STEPS = 32
@@ -443,7 +507,7 @@ ATARI_TOL = 1e-4
 # and the eval envs and episodes of that run
 PROBE_CAPTURED_SIMS = (1, 13, 25)
 AZ_EVAL_EPISODES = 5
-C4_TRAIN_SIMS = 10
+C4_TRAIN_SIMS = 5  # 10 until phase 17 came
 C4_TRAIN_EVAL_EPISODES = 3
 # phase 14: Go games are cut at GO_MAX_MOVES plies and chess games at
 # CHESS_MAX_MOVES (the envs' move cap: a cut Go game is scored, a cut chess
@@ -457,39 +521,42 @@ GO_MAX_MOVES = 12
 # the simulations of the AlphaZero training runs of phases 13 and 14 (self-
 # play and, in phase 14, the run's timed iter-0 eval; the configs' 25-60
 # until phase 15 came and the script passed its watchdog on slower hosts);
-# the card-vs-CPU searches and TicTacToe's own collect and eval keep them
-AZ_TRAIN_SIMS = 16
+# the card-vs-CPU searches and TicTacToe's own collect and eval keep them;
+# 16 until phase 17 came)
+AZ_TRAIN_SIMS = 8
 CHESS_MAX_MOVES = 2  # 4 until phase 15 came
 BIG_EVAL_EPISODES = 5
-BIG_MZ_TRAIN_SIMS = 10
+BIG_MZ_TRAIN_SIMS = 5  # 10 until phase 17 came
 PERFT_CASES = (
     ("start", "rnbqkbnr/pppppppp/8/8/8/8/PPPPPPPP/RNBQKBNR w KQkq - 0 1", 2, 400),
     ("kiwipete", "r3k2r/p1ppqpb1/bn2pnp1/3PN3/1p2P3/2N2Q1p/PPPBBPPP/R3K2R w KQkq - 0 1", 2,
      2039),
 )
 # phase 15: UniZero on Grid Breakout at the ws config's width, its eval
-# and training episodes cut; Sampled UniZero on Pendulum cut as phase 10
+# and training episodes cut; Sampled UniZero on Pendulum cut as phase 10.
+# Both short runs search with SHORT_TRAIN_SIMS (their evals with the
+# configs' 25 and 50; the runs' 25 until phase 17 came: Sampled UniZero's
+# collect round took 29.5 s at 50 on the card, 14 s at 25)
 UZ_EVAL_STEPS = 10
 UZ_TRAIN_EPISODE_STEPS = 32
 UZ_CAPTURED_SIMS = (1, 13, 25)
 UZ_CONTEXT_STEPS = 3
-UZ_TIMED_LEARN_STEPS = 20
+UZ_TIMED_LEARN_STEPS = 10
 SUZ_EVAL_STEPS = 4  # 8 until phase 15 took 60.7 s of its 60 s budget
 SUZ_TRAIN_EPISODE_STEPS = 16
-# the simulations of Sampled UniZero's short run (its evals search with the
-# config's 50): its collect round took 29.5 s at 50 on the card
-SUZ_TRAIN_SIMS = 25
 SUZ_CAPTURED_SIMS = (1, 25, 50)
 # phase 16: ScaleZero v3 (3 Pendulum tasks, embed 256, 8 heads, K=20, 25
 # simulations, batch 96, LoRA over 2 stages) through train_multitask_balance
 # and two short multitask runs, their episodes cut as phase 15 cuts
 # Pendulum's training episodes, and each collect round MT_COLLECT_STEPS
-# batched steps (the collector's 64 cut to the episode)
-MT_EPISODE_STEPS = SUZ_TRAIN_EPISODE_STEPS
-MT_COLLECT_STEPS = 16
+# batched steps (the collector's 64 cut to the episode; both 16 until phase
+# 17 came: one collect round of 4 envs still fills ScaleZero's 32 rows a
+# task and the balance config's 32)
+MT_EPISODE_STEPS = 8
+MT_COLLECT_STEPS = 8
 MT_CAPTURED_SIMS = (1, 13, 25)
-MT_TIMED_LEARN_STEPS = 10
-MT_TIMED_CAGRAD_STEPS = 5
+MT_TIMED_LEARN_STEPS = 5  # 10 until phase 17 came
+MT_TIMED_CAGRAD_STEPS = 3  # 5 until phase 17 came
 # the entries' modules (the package's names of these two are the functions)
 MT_ENTRY_MODULES = tuple(importlib.import_module(f"lightzero_tpu_torch.entry.{name}")
                          for name in ("train_muzero_multitask", "train_multitask_balance"))
@@ -497,6 +564,22 @@ MT_ENTRY_MODULES = tuple(importlib.import_module(f"lightzero_tpu_torch.entry.{na
 # devices' gradient rounding by the Gram matrix's conditioning
 # (tests/test_torch_multitask.py: up to 2.5e-3 at a condition of 250)
 CAGRAD_W_ATOL = 1e-3
+# phase 17: the host path's card-vs-CPU eval steps, the gymnasium configs'
+# episode cut, RND's card-vs-CPU tolerance, and the HarmonyDream scalars
+HOST_COMPARED_STEPS = 8
+HOST_EPISODE_STEPS = 32
+# phase 17: the batched steps of the RND run's collect round: 3 memory
+# episodes of 12 steps an env, 288 transitions for the batch of 256 (the
+# collector's 64 until the script passed its watchdog on a slower host)
+RND_COLLECT_STEPS = 36
+RND_RTOL = 1e-5
+HARMONY_SCALARS = ("harmony_policy", "harmony_value", "harmony_reward")
+# train_muzero's module (the entry package binds the function's name), whose
+# env factories phase 17 points at its stand-in
+TRAIN_MUZERO_MODULE = importlib.import_module("lightzero_tpu_torch.entry.train_muzero")
+# the RND entry's module, whose collector phase 17 cuts to RND_COLLECT_STEPS
+RND_ENTRY_MODULE = importlib.import_module(
+    "lightzero_tpu_torch.entry.train_muzero_with_reward_model")
 # card vs CPU learn step from the same params and batch (TF32 off): the
 # logged terms to 1e-4 relative (float32 matmuls of batch 256 summed in
 # another order). Adam's first update is lr * g / (|g| + 1e-8), g the
@@ -645,13 +728,29 @@ def phase_card() -> str:
     return out
 
 
+def warm_profiler() -> float:
+    """Start and stop torch.profiler's device tracing once on a trivial
+    op, creating the CUDA context on the way: phase 5's profiler pass,
+    start to parse, took 16.3 s on an H100 host when it was the first,
+    for a search of 0.38 s. Returns the seconds."""
+    from torch.profiler import ProfilerActivity, profile
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]):
+        torch.ones(1, device="cuda").add_(1)
+        torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
 def phase_build() -> dict:
     """Every source at once, one compiler each (nvcc for the kernels, g++
-    for the replay buffer's core)."""
+    for the replay buffer's core); the profiler is warmed up meanwhile."""
     sources = ["fused_traverse", "latency_probe", "replay_core"]
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
-        paths = dict(zip(sources, pool.map(_build.compile_library, sources)))
+        # map submits every compile before it returns
+        compiled = pool.map(_build.compile_library, sources)
+        profiler_warmup_s = warm_profiler()
+        paths = dict(zip(sources, compiled))
     for name in sources:
         _build.load(name)
     seconds = time.perf_counter() - t0
@@ -662,6 +761,7 @@ def phase_build() -> dict:
         output[name] = [line for line in log.splitlines()
                         if "registers" in line or "spill" in line]
     rec = dict(phase="build", seconds=seconds, nvcc_seconds=_build.build_seconds,
+               profiler_warmup_s=profiler_warmup_s,
                libraries={k: os.path.relpath(v) for k, v in paths.items()},
                compiler_output=output)
     emit(rec)
@@ -693,7 +793,9 @@ def traverse_case(B: int, A: int, N: int, first: bool, l2_ns: float, seed: int =
     # launch to launch through the Python wrapper, host dispatch included: at a
     # small batch this is the wrapper's host time
     wrapper_ms = cuda_ms(lambda: fused_traverse(*args, **kw), reps=200)
-    plain_ms = cuda_ms(lambda: fused_traverse_reference(*args, **kw), reps=3, warmup=1)
+    # one call: the plain call above is its warm-up, and the plain version is
+    # host-bound at 50-150 ms a call (4 calls until phase 17 came)
+    plain_ms = cuda_ms(lambda: fused_traverse_reference(*args, **kw), reps=1, warmup=0)
 
     # the least the card could take: the rows each descent visits (depth+1
     # distinct rows), the per-tree inputs and noise rows it reads, its outputs
@@ -906,6 +1008,7 @@ def device_busy(prof) -> dict:
 
 
 def phase_bench_shape(card: str) -> tuple:
+    t_phase = time.perf_counter()
     cfg = MuZeroPolicy.default_config()
     cfg.model.observation_shape = 8
     cfg.model.action_space_size = 4
@@ -924,6 +1027,7 @@ def phase_bench_shape(card: str) -> tuple:
     # warm-up (cuBLAS handles, caching allocator), keeping the descent's
     # inputs of some simulations
     captures = capture_descent_inputs(policy, obs, legal, CAPTURED_SIMS)
+    setup_s = time.perf_counter() - t_phase
 
     walls = []
     for _ in range(BENCH_SEARCHES):
@@ -943,19 +1047,25 @@ def phase_bench_shape(card: str) -> tuple:
         puct.fused_traverse = fused_traverse
     equal = torch.equal(with_kernel["visit_counts"], plain["visit_counts"])
 
-    # one more search under the profiler: where the device time goes
+    # one more search under the profiler: where the device time goes (the
+    # device's events only: the host's op events took seconds to parse)
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    t_profile = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         policy.forward_eval(obs, legal)
         torch.cuda.synchronize()
         profiled_s = time.perf_counter() - t0
     busy = device_busy(prof)
+    profile_s = time.perf_counter() - t_profile
     measured = busy["device_events"] > 0
     rec = dict(phase="bench_shape", B=B, A=A, num_simulations=sims,
                search_s_kernel=kernel_s, search_s_kernel_all=walls, search_s_plain=plain_s,
                sims_per_s_kernel=B * sims / kernel_s, sims_per_s_plain=B * sims / plain_s,
                visit_counts_equal=equal,
+               # the phase's own cost: policy and warm-up search, and the
+               # profiled search with the profiler's start, stop and parse
+               setup_s=setup_s, profile_s=profile_s,
                profiled_search_s=profiled_s, profiler_device_events=busy["device_events"],
                device_busy_ms=busy["busy_us"] / 1e3 if measured else None,
                # busy share of the profiled search's wall, and of the median
@@ -1157,7 +1267,7 @@ def phase_train(card: str) -> dict:
     from torch.profiler import ProfilerActivity, profile
     batches = [buffer.sample(batch_size, state.target_model)[0] for _ in range(PROFILED_LEARN_STEPS)]
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t1 = time.perf_counter()
         for batch in batches:
             state, logs, _ = policy.forward_learn(state, batch)
@@ -1230,21 +1340,31 @@ def with_sims(config, sims: int):
 
 
 def short_train(cfg, card: str, label: str, launches_per_search: int,
-                extra_launches=lambda: 0, timed_steps: int = TIMED_LEARN_STEPS) -> tuple:
+                extra_launches=lambda: 0, timed_steps: int = TIMED_LEARN_STEPS,
+                halved_round: bool = True) -> tuple:
     """train_muzero with the device left unset (the card): an eval at iter
-    0, one collect round and SHORT_TRAIN_ITERS learn steps, the launch
-    counter read around it (``extra_launches()`` adds what the run launched
-    outside its collect and eval searches); then one learn step on the card
-    against one on the CPU, and the learn-step time. (record, problems,
-    policy, state, buffer)"""
+    0, one collect round (with ``halved_round``, SHORT_COLLECT_STEPS batched
+    steps over twice the config's collect envs) and SHORT_TRAIN_ITERS learn
+    steps, the launch counter read around it (``extra_launches()`` adds what
+    the run launched outside its collect and eval searches); then one learn
+    step on the card against one on the CPU, and the learn-step time.
+    (record, problems, policy, state, buffer)"""
     cfg = copy.deepcopy(cfg)
     cfg.policy.update_per_collect = SHORT_TRAIN_ITERS
+    if halved_round:
+        cfg.env.collector_env_num *= 2
+        TRAIN_MUZERO_MODULE.RolloutCollector = functools.partial(
+            RolloutCollector, rollout_length=SHORT_COLLECT_STEPS)
     n_envs = cfg.env.collector_env_num
     with tempfile.TemporaryDirectory() as tmp:
         cfg.exp_name = os.path.join(tmp, label)
         fused_traverse.launches = 0
         t0 = time.perf_counter()
-        policy, state, stats = train_muzero(cfg, seed=MAIN_SEED, max_train_iter=SHORT_TRAIN_ITERS)
+        try:
+            policy, state, stats = train_muzero(cfg, seed=MAIN_SEED,
+                                                max_train_iter=SHORT_TRAIN_ITERS)
+        finally:
+            TRAIN_MUZERO_MODULE.RolloutCollector = RolloutCollector
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = fused_traverse.launches
@@ -1264,8 +1384,8 @@ def short_train(cfg, card: str, label: str, launches_per_search: int,
     params_finite = all(bool(torch.isfinite(p).all()) for p in state.model.parameters())
     rec = dict(phase=f"{label}_train", train_iter=stats["train_iter"], env_steps=stats["env_steps"],
                collect_searches=collect_searches, eval_searches=stats["eval_env_steps"],
-               num_simulations=int(cfg.policy.num_simulations), launches=launches,
-               expected_launches=expected, logged_total_losses=losses,
+               num_simulations=int(cfg.policy.num_simulations), collect_envs=n_envs,
+               launches=launches, expected_launches=expected, logged_total_losses=losses,
                logged_reanalyzed=reanalyzed,
                collect_steps_per_s=collect_sps, wall_s=wall,
                learn_step_ms_median=float(np.median(step_ms)), learn_step_ms=step_ms,
@@ -1351,7 +1471,9 @@ def phase_gumbel(card: str) -> dict:
     randomize_heads(policy.model, MAIN_SEED + 4)
     sims = policy.gumbel_cfg.num_simulations
 
-    ev = eval_episodes(policy, card, "gumbel_muzero")
+    ev = eval_episodes(policy, card, "gumbel_muzero",
+                       env=CartPoleEnv(max_episode_steps=GUMBEL_EVAL_STEPS),
+                       returns_range=(1, GUMBEL_EVAL_STEPS))
     emit(ev)
     if ev["launches"] != 0:
         raise AssertionError(f"gumbel_muzero: the eval launched the pUCT kernel {ev['launches']} times")
@@ -1361,7 +1483,9 @@ def phase_gumbel(card: str) -> dict:
     # of this instrumented wall; the first eval's wall has no added sync
     descent, restore = timed_descents(gumbel, "_gumbel_traverse")
     try:
-        timed = eval_episodes(policy, card, "gumbel_muzero_descent_timed")
+        timed = eval_episodes(policy, card, "gumbel_muzero_descent_timed",
+                              env=CartPoleEnv(max_episode_steps=GUMBEL_EVAL_STEPS),
+                              returns_range=(1, GUMBEL_EVAL_STEPS))
     finally:
         restore()
     emit(descent_record(timed, descent))
@@ -1372,8 +1496,10 @@ def phase_gumbel(card: str) -> dict:
         np.random.default_rng(MAIN_SEED + 4).gumbel(size=(4, 2)).astype(np.float32))
     agreement = search_card_vs_cpu(policy, "gumbel_muzero", gumbel_table=table)
 
-    train, problems, policy, state, buffer = short_train(gumbel_config, card, "gumbel_muzero", 0)
+    train, problems, policy, state, buffer = short_train(
+        with_sims(gumbel_config, SHORT_TRAIN_SIMS), card, "gumbel_muzero", 0)
     # reanalyze searches with the pUCT search, through the kernel
+    sims = SHORT_TRAIN_SIMS
     buffer.reanalyze_ratio = 0.25
     before = fused_traverse.launches
     buffer.sample(int(policy.cfg.batch_size), state.target_model)
@@ -1566,7 +1692,7 @@ def phase_sampled(card: str, l2_ns: float) -> tuple:
         cfg = copy.deepcopy(config)
         cfg.env.max_episode_steps = SAMPLED_TRAIN_EPISODE_STEPS
         cfg.env.stop_value = 1.0  # out of reach: a return is at most 0
-        train, problems, *_ = short_train(cfg, card, label, sims)
+        train, problems, *_ = short_train(cfg, card, label, sims, halved_round=False)
         train.update(episodes_truncated_at=SAMPLED_TRAIN_EPISODE_STEPS, stop_value=1.0)
         emit(train)
         if problems:
@@ -2517,10 +2643,10 @@ def phase_unizero(card: str, l2_ns: float) -> tuple:
         if sampled:
             cfg.env.max_episode_steps = train_steps
             cfg.env.stop_value = 1.0  # out of reach: a return is at most 0
-            cfg.policy.num_simulations = SUZ_TRAIN_SIMS
         else:
             cfg.env.max_steps = train_steps
             cfg.policy.train_start_after_envsteps = 0
+        cfg.policy.num_simulations = SHORT_TRAIN_SIMS
         train, problems, *_ = short_train(cfg, card, label, cfg.policy.num_simulations,
                                           timed_steps=UZ_TIMED_LEARN_STEPS)
         train.update(episodes_truncated_at=train_steps)
@@ -2691,20 +2817,34 @@ def ddp_on_card(card: str) -> dict:
         p = MuZeroPolicy(cfg, device="cuda", seed=MAIN_SEED)
         randomize_heads(p.model, MAIN_SEED + 16)
         policies.append(p)
+    # a one-rank group on one card reaches no peer over InfiniBand or NVLink
+    # SHARP, so both are off (this whole check took 1.3-2.0 s on three H100
+    # hosts and 39 s on a fourth with both at NCCL's defaults; the timings
+    # below say where such time goes)
+    os.environ.setdefault("NCCL_IB_DISABLE", "1")
+    os.environ.setdefault("NCCL_NVLS_ENABLE", "0")
+    seconds = {}
     with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
         dist.init_process_group("nccl", store=dist.FileStore(os.path.join(tmp, "store"), 1),
                                 rank=0, world_size=1)
+        seconds["init"] = time.perf_counter() - t0
         try:
             backend = dist.get_backend()
             _, logs, prio = policies[0].forward_learn(policies[0].init_train_state(), batch)
+            t0 = time.perf_counter()
             _, ddp_logs, ddp_prio = ddp_learn_step(policies[1], policies[1].init_train_state(),
                                                    batch)
             torch.cuda.synchronize()
+            seconds["ddp_step"] = time.perf_counter() - t0
         finally:
+            t0 = time.perf_counter()
             dist.destroy_process_group()
+            seconds["destroy"] = time.perf_counter() - t0
     pairs = [(a.detach(), b.detach())
              for a, b in zip(policies[0].model.parameters(), policies[1].model.parameters())]
     rec = dict(phase="ddp_nccl_world_1", backend=backend, batch=int(cfg.batch_size),
+               seconds=seconds,
                bit_equal=all(torch.equal(a, b) for a, b in pairs) and torch.equal(prio, ddp_prio),
                param_max_abs_err=max(float((a - b).abs().max()) for a, b in pairs),
                priority_max_abs_err=float((prio - ddp_prio).abs().max()),
@@ -2771,8 +2911,12 @@ def phase_multitask(card: str, l2_ns: float) -> tuple:
     records["stage_switch"] = stage_switch_on_card(policy, batches[0], card)
     del policy, state, stats, cagrad_policy, batches
 
-    records["balance"], problems, *_ = mt_run("balance_cartpole_pendulum",
-                                              train_multitask_balance, balance_tasks, card)
+    # the balance and muzero_multitask runs check launches and finite
+    # losses only: they search with SHORT_TRAIN_SIMS (25, then 10, until
+    # phase 17 came)
+    records["balance"], problems, *_ = mt_run(
+        "balance_cartpole_pendulum", train_multitask_balance,
+        [with_sims(c, SHORT_TRAIN_SIMS) for c in balance_tasks], card)
     emit(records["balance"])
     # the smoke's own two-task CartPole run: the task layout of
     # tests/test_entries_extra.py's multitask smoke (stop values 195 and
@@ -2783,7 +2927,8 @@ def phase_multitask(card: str, l2_ns: float) -> tuple:
         c = copy.deepcopy(main_config)
         c.env.update(stop_value=stop, collector_env_num=2, evaluator_env_num=2,
                      n_evaluator_episode=2)
-        c.policy.update(type="muzero_multitask", batch_size=16, n_episode=1)
+        c.policy.update(type="muzero_multitask", batch_size=16, n_episode=1,
+                        num_simulations=SHORT_TRAIN_SIMS)
         mz.append(c)
     records["muzero_multitask"], mz_problems, *_ = mt_run("muzero_multitask",
                                                            train_muzero_multitask, mz, card)
@@ -2802,6 +2947,465 @@ def phase_multitask(card: str, l2_ns: float) -> tuple:
               muzero_multitask_eval_s_per_env_step=records["muzero_multitask"][
                   "eval_s_per_env_step"]))
     return records, cases, wall
+
+
+class StandInHostEnv:
+    """The stand-in for a gymnasium env in phase 17: a vec env with
+    HostVecEnv's interface (lightzero_tpu_torch/envs/host_env.py) over the
+    port's CartPoleEnv, stepped on the CPU one env at a time and seeded as
+    HostVecEnv seeds: env i's episodes start from seed + i, and each reset
+    adds 10,000. It drives the host collector and evaluator on a machine
+    without gymnasium; it is not part of the package."""
+
+    observation_shape = 4
+    action_space_size = 2
+    continuous = False
+
+    def __init__(self, num_envs: int, seed: int = 0, max_episode_steps: int = 200):
+        self.num_envs = num_envs
+        self.env = CartPoleEnv(max_episode_steps=max_episode_steps)
+        self._seeds = [seed + i for i in range(num_envs)]
+        self._states = [None] * num_envs
+
+    def _generator(self, i: int) -> torch.Generator:
+        return torch.Generator().manual_seed(self._seeds[i])
+
+    def _legal(self) -> np.ndarray:
+        return np.ones((self.num_envs, 2), bool)
+
+    def reset_all(self):
+        obs = []
+        for i in range(self.num_envs):
+            self._states[i], o = self.env.reset(1, self._generator(i))
+            self._seeds[i] += 10_000
+            obs.append(o[0].numpy())
+        return np.stack(obs), self._legal(), np.full(self.num_envs, -1, np.int64)
+
+    def step(self, actions):
+        obs, rewards, dones = [], [], []
+        for i in range(self.num_envs):
+            # the step resets a finished episode from the env's next seed
+            step = self.env.step(self._states[i], torch.as_tensor([int(actions[i])]),
+                                 self._generator(i))
+            done = bool(step.done[0])
+            if done:
+                self._seeds[i] += 10_000
+            self._states[i] = step.state
+            obs.append(step.obs[0].numpy())
+            rewards.append(float(step.reward[0]))
+            dones.append(done)
+        return (np.stack(obs).astype(np.float32), np.asarray(rewards, np.float32),
+                np.asarray(dones, bool), self._legal(), np.full(self.num_envs, -1, np.int64))
+
+
+def host_libraries() -> dict:
+    """Which of the host envs' libraries import here, with their versions
+    (None where one does not import)."""
+    import importlib.metadata
+
+    found = {}
+    for name, dist in (("gymnasium", "gymnasium"), ("Box2D", "box2d"), ("mujoco", "mujoco"),
+                       ("dm_control", "dm_control")):
+        try:
+            mod = importlib.import_module(name)
+        except Exception:
+            found[name] = None
+            continue
+        try:
+            found[name] = importlib.metadata.version(dist)
+        except importlib.metadata.PackageNotFoundError:
+            found[name] = getattr(mod, "__version__", "imported (version unknown)")
+    return found
+
+
+@contextlib.contextmanager
+def recorded_host_workers():
+    """Every HostEvaluator.eval (seconds and batched steps, the device
+    synchronised around it) and HostCollector.collect (its stats) while the
+    block runs."""
+    records = dict(evals=[], collects=[])
+    evaluate, collect = HostEvaluator.eval, HostCollector.collect
+
+    def timed_eval(self, *args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = evaluate(self, *args, **kwargs)
+        torch.cuda.synchronize()
+        records["evals"].append(dict(env_steps=res["env_steps"],
+                                     seconds=time.perf_counter() - t0))
+        return res
+
+    def recorded_collect(self, *args, **kwargs):
+        out = collect(self, *args, **kwargs)
+        records["collects"].append(dict(steps=out[2]["steps"], steps_per_s=out[2]["steps_per_sec"]))
+        return out
+
+    HostEvaluator.eval, HostCollector.collect = timed_eval, recorded_collect
+    try:
+        yield records
+    finally:
+        HostEvaluator.eval, HostCollector.collect = evaluate, collect
+
+
+def host_figures(rec: dict, workers: dict) -> dict:
+    """The host path's eval wall per batched env step and collect env steps/s."""
+    steps = sum(r["env_steps"] for r in workers["evals"])
+    rec.update(host_eval_s_per_env_step=sum(r["seconds"] for r in workers["evals"]) / steps,
+               host_collect_steps_per_s=[r["steps_per_s"] for r in workers["collects"]])
+    return rec
+
+
+@contextlib.contextmanager
+def standin_host_envs():
+    """train_muzero's host path over StandInHostEnv: create_env gives None
+    for every config, and make_host_vec_env the stand-in."""
+    saved = TRAIN_MUZERO_MODULE.create_env, TRAIN_MUZERO_MODULE.make_host_vec_env
+    TRAIN_MUZERO_MODULE.create_env = lambda env_cfg: None
+    TRAIN_MUZERO_MODULE.make_host_vec_env = lambda env_cfg, n, seed: StandInHostEnv(n, seed)
+    try:
+        yield
+    finally:
+        TRAIN_MUZERO_MODULE.create_env, TRAIN_MUZERO_MODULE.make_host_vec_env = saved
+
+
+def host_eval_card_vs_cpu(policy) -> dict:
+    """The first HOST_COMPARED_STEPS batched steps of HostEvaluator over the
+    stand-in (3 envs, seed MAIN_SEED + 777), on the card and on the CPU from
+    the same weights: each step's actions and visit counts equal, its
+    searched values within VALUE_TOL."""
+    steps = {}
+    for dev in ("cuda", "cpu"):
+        p = policy if dev == "cuda" else type(policy)(
+            policy.cfg, model=copy.deepcopy(policy.model).cpu(), device="cpu")
+        evaluator = HostEvaluator(StandInHostEnv(3, MAIN_SEED + 777), p, device=dev)
+        seen = steps[dev] = []
+        search = evaluator._search
+
+        def recorded(*args, search=search, seen=seen, **kwargs):
+            out, state = search(*args, **kwargs)
+            seen.append(out)
+            return out, state
+
+        evaluator._search = recorded
+        evaluator.eval(n_episodes=10 ** 6, max_steps=HOST_COMPARED_STEPS)
+    err = 0.0
+    for t, (card, cpu) in enumerate(zip(steps["cuda"], steps["cpu"])):
+        for key in ("action", "visit_counts"):
+            if not np.array_equal(card[key], cpu[key]):
+                raise AssertionError(f"host eval step {t}: card and CPU differ in {key}: "
+                                     f"{card[key].tolist()} vs {cpu[key].tolist()}")
+        a, b = card["searched_value"], cpu["searched_value"]
+        err = max(err, float(np.abs(a - b).max()))
+        if not (np.isfinite(a).all() and np.allclose(a, b, rtol=VALUE_TOL, atol=VALUE_TOL)):
+            raise AssertionError(f"host eval step {t}: card and CPU searched values differ: "
+                                 f"{a.tolist()} vs {b.tolist()}")
+    if len(steps["cuda"]) != HOST_COMPARED_STEPS or len(steps["cpu"]) != HOST_COMPARED_STEPS:
+        raise AssertionError(f"compared {len(steps['cuda'])} and {len(steps['cpu'])} host eval "
+                             f"steps, expected {HOST_COMPARED_STEPS}")
+    rec = dict(phase="host_eval_card_vs_cpu", envs=3, steps=HOST_COMPARED_STEPS,
+               searched_value_max_abs_err=err,
+               actions=[s["action"].tolist() for s in steps["cuda"]])
+    emit(rec)
+    return rec
+
+
+def host_short_train(cfg, card: str, label: str) -> dict:
+    """short_train on a host config, its eval and collect figures recorded;
+    the short run's problems raise."""
+    with recorded_host_workers() as workers:
+        rec, problems, policy, state, buffer = short_train(cfg, card, label,
+                                                           int(cfg.policy.num_simulations),
+                                                           halved_round=False)
+    rec = host_figures(rec, workers)
+    emit(rec)
+    if problems:
+        raise AssertionError(f"{label} failed: {problems}")
+    return rec, policy, state, buffer
+
+
+@contextlib.contextmanager
+def timed_rnd():
+    """The device time of every RNDRewardModel.train_step and estimate while
+    the block runs (ms, CUDA events around each call)."""
+    times = dict(train=[], estimate=[])
+    saved = {name: getattr(RNDRewardModel, name) for name in ("train_step", "estimate")}
+
+    def timed(name, fn):
+        def call(self, *args, **kwargs):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(self, *args, **kwargs)
+            end.record()
+            torch.cuda.synchronize()
+            times["train" if name == "train_step" else "estimate"].append(start.elapsed_time(end))
+            return out
+        return call
+
+    for name, fn in saved.items():
+        setattr(RNDRewardModel, name, timed(name, fn))
+    try:
+        yield times
+    finally:
+        for name, fn in saved.items():
+            setattr(RNDRewardModel, name, fn)
+
+
+def rnd_card_vs_cpu(model, state, obs: np.ndarray) -> dict:
+    """One RND train step and one estimate on the card and on the CPU from
+    the same weights and running statistics, on the same observations: the
+    predictor's params within RND_RTOL of each tensor's largest magnitude
+    where the gradient is more than GRAD_TO_ROUNDING times the two devices'
+    rounding of it (Adam's first step, lr g / (|g| + eps), still carries a
+    relative gradient error of up to 1 / GRAD_TO_ROUNDING where |g| is near
+    eps), within 2 lr elsewhere (fewer than a quarter of them); the running
+    count, mean and M2 within RND_RTOL relative; the intrinsic rewards,
+    (error - mean) / std, within RND_RTOL of the errors' scale after the
+    product with std (their difference from the mean cancels)."""
+    results = {}
+    rewards = np.zeros(len(obs), np.float32)
+    for dev in ("cuda", "cpu"):
+        m = RNDRewardModel(model.obs_dim, intrinsic_reward_weight=model.weight, device=dev)
+        m.load_state_dict(model.state_dict())
+        s = m.init_state()._replace(count=state.count.to(m.device), mean=state.mean.to(m.device),
+                                    m2=state.m2.to(m.device), train_iter=state.train_iter)
+        s, loss = m.train_step(s, obs)
+        # copies: on the CPU .cpu() aliases the parameters, which the next
+        # line overwrites
+        grads = {k: p.grad.cpu().clone() for k, p in m.predictor.named_parameters()}
+        params = {k: p.detach().cpu().clone() for k, p in m.predictor.named_parameters()}
+        m.load_state_dict(model.state_dict())  # the estimate on the run's weights
+        s, new, intr = m.estimate(s, obs, rewards)
+        err = m.error(obs).detach().cpu()
+        results[dev] = dict(loss=loss, grads=grads, params=params, intr=intr.cpu(),
+                            new=new.cpu(), err=err,
+                            stats={k: float(getattr(s, k)) for k in ("count", "mean", "m2")})
+    card, cpu = results["cuda"], results["cpu"]
+    lr = model.learning_rate
+    tight, loose, n_loose, total = 0.0, 0.0, 0, 0
+    for k, exp in cpu["params"].items():
+        rel = (card["params"][k] - exp).abs() / exp.abs().max()
+        rounding = (card["grads"][k] - cpu["grads"][k]).abs()
+        sensitive = cpu["grads"][k].abs() <= GRAD_TO_ROUNDING * rounding
+        if (~sensitive).any():
+            tight = max(tight, float(rel[~sensitive].max()))
+        if sensitive.any():
+            loose = max(loose, float((card["params"][k] - exp).abs()[sensitive].max()))
+        n_loose += int(sensitive.sum())
+        total += sensitive.numel()
+    stats_err = {k: abs(card["stats"][k] - v) / abs(v) for k, v in cpu["stats"].items()}
+    std = {d: math.sqrt(max(r["stats"]["m2"] / r["stats"]["count"], 1e-8))
+           for d, r in results.items()}
+    intr_err = float((card["intr"] * std["cuda"] - cpu["intr"] * std["cpu"]).abs().max()
+                     / cpu["err"].abs().max())
+    rec = dict(phase="rnd_card_vs_cpu", observations=len(obs), loss_card=card["loss"],
+               loss_cpu=cpu["loss"], param_max_rel_err=tight, param_max_abs_err_rounding=loose,
+               rounding_bound_elements=n_loose, elements=total, stats_rel_err=stats_err,
+               intrinsic_err_over_error_scale=intr_err,
+               shaped_max_abs_err=float((card["new"] - cpu["new"]).abs().max()))
+    emit(rec)
+    if not (tight <= RND_RTOL and loose <= 2 * lr and n_loose < total // 4
+            and max(stats_err.values()) <= RND_RTOL and intr_err <= RND_RTOL):
+        raise AssertionError(f"RND card and CPU disagree: {rec}")
+    return rec
+
+
+def rnd_run(card: str, tmp: str) -> tuple:
+    """The zoo's memory_muzero_rnd at full width through
+    train_muzero_with_reward_model on the card, cut like phase 7 (an eval at
+    iter 0, one collect round, of RND_COLLECT_STEPS batched steps, and
+    SHORT_TRAIN_ITERS learn steps) at its 50 simulations, its exp dir under
+    ``tmp``: launches = (collect + eval searches) x 50; its RND model card
+    vs CPU; the learn step card vs CPU and timed. (record, the run's config)"""
+    cfg = copy.deepcopy(rnd_config)
+    cfg.exp_name = os.path.join(tmp, "memory_muzero_rnd")
+    cfg.policy.update_per_collect = SHORT_TRAIN_ITERS
+    fused_traverse.launches = 0
+    t0 = time.perf_counter()
+    RND_ENTRY_MODULE.RolloutCollector = functools.partial(RolloutCollector,
+                                                          rollout_length=RND_COLLECT_STEPS)
+    try:
+        with timed_rnd() as rnd_ms:
+            policy, state, stats = train_muzero_with_reward_model(
+                cfg, seed=MAIN_SEED, max_train_iter=SHORT_TRAIN_ITERS)
+    finally:
+        RND_ENTRY_MODULE.RolloutCollector = RolloutCollector
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = fused_traverse.launches
+    sims = policy.search_cfg.num_simulations
+    n_envs = cfg.env.collector_env_num
+    collect_searches = stats["env_steps"] // n_envs
+    expected = (collect_searches + stats["eval_env_steps"]) * sims
+    width = dict(latent_state_dim=policy.model.latent_state_dim, num_simulations=sims,
+                 batch_size=int(policy.cfg.batch_size), num_unroll_steps=policy.num_unroll_steps)
+    buffer = stats["buffer"]
+    episodes = buffer._episodes
+    obs = episodes[0].obs.reshape(len(episodes[0].obs), -1)
+    rnd = rnd_card_vs_cpu(stats["reward_model"], stats["rnd_state"], obs)
+    batch, _ = buffer.sample(int(policy.cfg.batch_size), state.target_model)
+    agreement, agree = learn_step_card_vs_cpu(policy, batch)
+    state, step_ms, _, timed_losses = time_learn_steps(policy, state, buffer, TIMED_LEARN_STEPS)
+    rec = dict(phase="rnd_train", config="memory_muzero_rnd", width=width,
+               train_iter=stats["train_iter"], env_steps=stats["env_steps"],
+               collect_searches=collect_searches, eval_searches=stats["eval_env_steps"],
+               collect_round_steps=RND_COLLECT_STEPS,
+               launches=launches, expected_launches=expected, episodes=len(episodes),
+               rnd_train_steps=stats["rnd_state"].train_iter,
+               intrinsic_weight=stats["reward_model"].weight,
+               rnd_train_ms_per_episode=float(np.median(rnd_ms["train"])),
+               rnd_estimate_ms_per_episode=float(np.median(rnd_ms["estimate"])),
+               rnd_train_ms=rnd_ms["train"], rnd_estimate_ms=rnd_ms["estimate"],
+               learn_step_ms_median=float(np.median(step_ms)), learn_step_ms=step_ms,
+               card_vs_cpu=agreement, rnd_card_vs_cpu=rnd, wall_s=wall, card=card)
+    emit(rec)
+    problems = [] if agree else [f"card and CPU learn steps disagree: {agreement}"]
+    if width != dict(latent_state_dim=128, num_simulations=50, batch_size=256,
+                     num_unroll_steps=12):
+        problems.append(f"not memory_muzero_rnd's width: {width}")
+    if stats["train_iter"] != SHORT_TRAIN_ITERS:
+        problems.append(f"train_iter {stats['train_iter']}, expected {SHORT_TRAIN_ITERS}")
+    if launches != expected:
+        problems.append(f"traverse launches {launches} != (collect + eval searches) x {sims}")
+    if not (stats["rnd_state"].train_iter == len(episodes) == len(rnd_ms["train"])
+            == len(rnd_ms["estimate"])):
+        problems.append(f"{len(rnd_ms['train'])} RND train steps and {len(rnd_ms['estimate'])} "
+                        f"estimates for {len(episodes)} episodes")
+    if not all(math.isfinite(x) for x in timed_losses) or not all(
+            bool(torch.isfinite(p).all()) for p in state.model.parameters()):
+        problems.append("non-finite loss or params")
+    if problems:
+        raise AssertionError(f"RND run failed: {problems}")
+    return rec, cfg
+
+
+def eval_offline_on_card(cfg, card: str) -> dict:
+    """eval_offline over the RND run's checkpoints on the card (the run
+    writes ckpt_final only), the launch counter read around it: launches =
+    eval searches x simulations."""
+    evaluate = Evaluator.eval
+    steps = []
+
+    def counted(self, *args, **kwargs):
+        res = evaluate(self, *args, **kwargs)
+        steps.append(res["env_steps"])
+        return res
+
+    Evaluator.eval = counted
+    fused_traverse.launches = 0
+    try:
+        res = eval_offline(cfg, seed=MAIN_SEED, n_episodes=4)
+    finally:
+        Evaluator.eval = evaluate
+    torch.cuda.synchronize()
+    sims = int(cfg.policy.num_simulations)
+    rec = dict(phase="eval_offline", results=res["results"], best_ckpt=res["best_ckpt"],
+               eval_searches=sum(steps), launches=fused_traverse.launches,
+               expected_launches=sum(steps) * sims, card=card)
+    emit(rec)
+    if list(res["results"]) != ["ckpt_final"] or not all(
+            math.isfinite(v) for v in res["results"].values()):
+        raise AssertionError(f"eval_offline swept {res['results']}, expected ckpt_final")
+    if rec["launches"] != rec["expected_launches"]:
+        raise AssertionError(f"eval_offline launches {rec['launches']} != eval searches x {sims}")
+    return rec
+
+
+def harmony_on_card(buffer, target_model, card: str) -> dict:
+    """The CartPole MuZero config with harmony_balance at full width: one
+    learn step card vs CPU (compare_learn_steps) on a batch of the stand-in
+    run's buffer, with the scalars set off zero, then TIMED_LEARN_STEPS
+    timed steps on the card, after which each scalar has moved."""
+    cfg = deep_merge(main_config.policy, dict(model=dict(harmony_balance=True)))
+    policy = MuZeroPolicy(cfg, device="cuda", seed=MAIN_SEED)
+    randomize_heads(policy.model, MAIN_SEED + 5)
+    with torch.no_grad():
+        for name, h in zip(HARMONY_SCALARS, (0.3, -0.2, 0.1)):
+            getattr(policy.model, name).fill_(h)
+    batch, _ = buffer.sample(int(policy.cfg.batch_size), target_model)
+    agreement, agree = learn_step_card_vs_cpu(policy, batch)
+    state = policy.init_train_state()
+    start = {k: float(getattr(policy.model, k).detach()) for k in HARMONY_SCALARS}
+    state, step_ms, _, losses = time_learn_steps(policy, state, buffer, TIMED_LEARN_STEPS)
+    moved = {k: float(getattr(policy.model, k).detach()) - start[k] for k in HARMONY_SCALARS}
+    rec = dict(phase="harmony_learn", config="cartpole_muzero+harmony_balance",
+               batch_size=int(policy.cfg.batch_size), card_vs_cpu=agreement,
+               scalars_moved_by=moved, learn_step_ms_median=float(np.median(step_ms)),
+               learn_step_ms=step_ms, card=card)
+    emit(rec)
+    if not agree:
+        raise AssertionError(f"HarmonyDream learn steps card vs CPU disagree: {agreement}")
+    if not all(v != 0.0 for v in moved.values()) or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"HarmonyDream scalars did not move or losses not finite: {rec}")
+    return rec
+
+
+def phase_host(card: str, tensor_eval_s: float, tensor_collect_sps: list) -> tuple:
+    """Phase 17: the host path, RND, eval_offline and HarmonyDream on the card."""
+    t0 = time.perf_counter()
+    records = {}
+    libs = host_libraries()
+    missing = [k for k, v in libs.items() if v is None]
+    records["libraries"] = dict(phase="host_libraries", versions=libs, missing=missing)
+    emit(records["libraries"])
+    print("chip_smoke: host env libraries on this machine: " + ", ".join(
+        f"{k} {v}" if v else f"{k} absent" for k, v in libs.items()), flush=True)
+
+    # (b) the host collector and evaluator over the stand-in, at full width
+    with standin_host_envs():
+        rec, policy, state, buffer = host_short_train(main_config, card, "host_standin")
+    rec.update(env="StandInHostEnv (CartPoleEnv on the CPU, HostVecEnv's seeding)",
+               tensor_env_eval_s_per_env_step=tensor_eval_s,
+               tensor_env_collect_steps_per_s=tensor_collect_sps)
+    records["standin"] = rec
+    emit(dict(phase="host_standin_vs_tensor_env", host_eval_s_per_env_step=rec[
+        "host_eval_s_per_env_step"], tensor_env_eval_s_per_env_step=tensor_eval_s,
+        host_collect_steps_per_s=rec["host_collect_steps_per_s"],
+        tensor_env_collect_steps_per_s=tensor_collect_sps, card=card))
+    seeded = MuZeroPolicy(main_config.policy, device="cuda", seed=MAIN_SEED)
+    randomize_heads(seeded.model, MAIN_SEED + 1)
+    records["standin_card_vs_cpu"] = host_eval_card_vs_cpu(seeded)
+
+    # (c) the gymnasium configs, where their libraries import
+    records["gymnasium"] = {}
+    for name, config, needs in (("mtcar_muzero", mtcar_config, ("gymnasium",)),
+                                ("lunarlander_disc_muzero", lunarlander_config,
+                                 ("gymnasium", "Box2D"))):
+        absent = [lib for lib in needs if libs[lib] is None]
+        if absent:
+            records["gymnasium"][name] = dict(phase=f"host_{name}", ran=False, absent=absent)
+            emit(records["gymnasium"][name])
+            print(f"chip_smoke: {name} did not run on the card: {', '.join(absent)} absent",
+                  flush=True)
+            continue
+        cfg = with_sims(config, SHORT_TRAIN_SIMS)
+        cfg.env.update(stop_value=1e9, env_kwargs=dict(max_episode_steps=HOST_EPISODE_STEPS))
+        r, *_ = host_short_train(cfg, card, f"host_{name}")
+        records["gymnasium"][name] = dict(r, ran=True)
+
+    # (d) RND at full width, (f) eval_offline over its checkpoints
+    with tempfile.TemporaryDirectory() as tmp:
+        records["rnd"], rnd_cfg = rnd_run(card, tmp)
+        records["eval_offline"] = eval_offline_on_card(rnd_cfg, card)
+
+    # (e) HarmonyDream's learn step
+    records["harmony"] = harmony_on_card(buffer, state.target_model, card)
+    wall = time.perf_counter() - t0
+    emit(dict(phase="host_summary", wall_s=wall, card=card, libraries=libs,
+              standin_eval_s_per_env_step=rec["host_eval_s_per_env_step"],
+              standin_collect_steps_per_s=rec["host_collect_steps_per_s"],
+              tensor_env_eval_s_per_env_step=tensor_eval_s,
+              tensor_env_collect_steps_per_s=tensor_collect_sps,
+              gymnasium_configs={k: (dict(eval_s_per_env_step=v["host_eval_s_per_env_step"],
+                                          collect_steps_per_s=v["host_collect_steps_per_s"],
+                                          learn_step_ms=v["learn_step_ms_median"])
+                                     if v["ran"] else "did not run")
+                                 for k, v in records["gymnasium"].items()},
+              rnd_learn_step_ms=records["rnd"]["learn_step_ms_median"],
+              rnd_train_ms_per_episode=records["rnd"]["rnd_train_ms_per_episode"],
+              rnd_estimate_ms_per_episode=records["rnd"]["rnd_estimate_ms_per_episode"],
+              harmony_learn_step_ms=records["harmony"]["learn_step_ms_median"]))
+    return records, wall
 
 
 def main() -> int:
@@ -2843,6 +3447,8 @@ def main() -> int:
     cases += uz_cases
     mt, mt_cases, mt_wall = phase_multitask(card, l2_ns)
     cases += mt_cases
+    host, host_wall = phase_host(card, main_rec["wall_per_env_step_s"],
+                                 train["collect_steps_per_s"])
 
     main_case = next(c for c in cases if (c["B"], c["A"], c["N"], c["tie_break"]) == (3, 2, 26, "noise"))
     kernels = [dict(
@@ -2905,6 +3511,16 @@ def main() -> int:
         # balance UniZero and the two-task muzero_multitask (A=2, prefetch)
         **{f"launches_mt_{name}": mt[name]["launches"]
            for name in ("scalezero_v3", "balance", "muzero_multitask")},
+        # phase 17: the host collector and evaluator over the stand-in
+        # (CartPole MuZero, A=2, prefetch route) and over the gymnasium
+        # configs where their libraries import, the RND run on the memory env
+        # (A=4) and eval_offline over its checkpoint; HarmonyDream's learn
+        # steps search nothing
+        launches_host_standin=host["standin"]["launches"],
+        **{f"launches_host_{name}": rec["launches"]
+           for name, rec in host["gymnasium"].items() if rec["ran"]},
+        launches_rnd_memory=host["rnd"]["launches"],
+        launches_eval_offline=host["eval_offline"]["launches"],
         max_abs_err=max(c["max_abs_err"] for c in cases),
         ms=main_case["ms"],
         # launch to launch through the wrapper, the host's dispatch included:
@@ -2976,7 +3592,11 @@ def main() -> int:
               multitask_wall_s=mt_wall,
               scalezero_eval_s_per_env_step=mt["scalezero_v3"]["eval_s_per_env_step"],
               scalezero_learn_step_ms=float(np.median(mt["learn"]["default_ms"])),
-              scalezero_cagrad_learn_step_ms=float(np.median(mt["learn"]["cagrad_ms"]))))
+              scalezero_cagrad_learn_step_ms=float(np.median(mt["learn"]["cagrad_ms"])),
+              host_wall_s=host_wall,
+              host_standin_eval_s_per_env_step=host["standin"]["host_eval_s_per_env_step"],
+              rnd_learn_step_ms=host["rnd"]["learn_step_ms_median"],
+              harmony_learn_step_ms=host["harmony"]["learn_step_ms_median"]))
     faulthandler.cancel_dump_traceback_later()
     signal.alarm(0)
     print(card, flush=True)

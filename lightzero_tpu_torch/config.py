@@ -75,15 +75,18 @@ def _json_default(o):
     return repr(o)
 
 
-def compile_config(cfg: Dict, default_policy_config: Dict, seed: int = 0) -> Config:
+def compile_config(cfg: Dict, default_policy_config: Dict, seed: int = 0,
+                   save_cfg: bool = True) -> Config:
     """Merge the user's cfg over the policy's default config, stamp the seed
-    and the experiment directory, and write the merged tree to
-    ``<exp_name>/total_config.json`` (with ``ckpt/`` and ``log/`` beside it),
-    so that an experiment can be rerun from its directory."""
+    and the experiment directory, and (with ``save_cfg``) write the merged
+    tree to ``<exp_name>/total_config.json`` (with ``ckpt/`` and ``log/``
+    beside it), so that an experiment can be rerun from its directory."""
     cfg = Config(copy.deepcopy(dict(cfg)))
     cfg.policy = deep_merge(default_policy_config, cfg.get("policy", {}))
     cfg.seed = seed
     cfg.exp_name = cfg.get("exp_name", f"exp_{time.strftime('%y%m%d_%H%M%S')}")
+    if not save_cfg:
+        return cfg
     for sub in ("ckpt", "log"):
         os.makedirs(os.path.join(cfg.exp_name, sub), exist_ok=True)
     with open(os.path.join(cfg.exp_name, "total_config.json"), "w") as f:

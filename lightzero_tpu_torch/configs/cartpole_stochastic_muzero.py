@@ -1,0 +1,25 @@
+"""The values of
+``zoo/classic_control/cartpole/config/cartpole_stochastic_muzero_config.py``,
+copied so that the port never loads the zoo file (it imports
+``lightzero_tpu.config``).
+"""
+from lightzero_tpu_torch.config import Config
+
+main_config = Config({'exp_name': 'data_stoch/cartpole_stochastic_muzero_seed0',
+                      'env': {'env_id': 'CartPole-v0',
+                              'stop_value': 195,
+                              'collector_env_num': 8,
+                              'evaluator_env_num': 3,
+                              'n_evaluator_episode': 3},
+                      'policy': {'type': 'stochastic_muzero',
+                                 'model': {'observation_shape': 4,
+                                           'action_space_size': 2,
+                                           'model_type': 'mlp',
+                                           'chance_space_size': 2,
+                                           'latent_state_dim': 128},
+                                 'num_simulations': 25,
+                                 'batch_size': 256,
+                                 'update_per_collect': 100,
+                                 'n_episode': 8,
+                                 'eval_freq': 100,
+                                 'ssl_loss_weight': 2}})

@@ -1,0 +1,24 @@
+"""The values of
+``zoo/box2d/lunarlander/config/lunarlander_cont_sampled_muzero_config.py``,
+copied so that the port never loads the zoo file (it imports
+``lightzero_tpu.config``).
+"""
+from lightzero_tpu_torch.config import Config
+
+main_config = Config({'exp_name': 'data_smz/lunarlander_cont_sampled_muzero_seed0',
+                      'env': {'env_id': 'LunarLanderContinuous-v3',
+                              'stop_value': 240,
+                              'collector_env_num': 8,
+                              'evaluator_env_num': 3,
+                              'n_evaluator_episode': 3},
+                      'policy': {'type': 'sampled_muzero',
+                                 'model': {'observation_shape': 8,
+                                           'action_space_size': 2,
+                                           'continuous_action_space': True,
+                                           'latent_state_dim': 256},
+                                 'num_simulations': 50,
+                                 'num_of_sampled_actions': 20,
+                                 'batch_size': 256,
+                                 'update_per_collect': 100,
+                                 'n_episode': 8,
+                                 'eval_freq': 200}})

@@ -1,0 +1,25 @@
+"""The values of
+``zoo/box2d/lunarlander/config/lunarlander_disc_sampled_muzero_config.py``,
+copied so that the port never loads the zoo file (it imports
+``lightzero_tpu.config``).
+"""
+from lightzero_tpu_torch.config import Config
+
+main_config = Config({'exp_name': 'data_smz/lunarlander_disc_sampled_muzero_seed0',
+                      'env': {'type': 'lunarlander',
+                              'stop_value': 200,
+                              'collector_env_num': 8,
+                              'evaluator_env_num': 3,
+                              'n_evaluator_episode': 3},
+                      'policy': {'type': 'sampled_muzero',
+                                 'model': {'observation_shape': 8,
+                                           'action_space_size': 4,
+                                           'continuous_action_space': False,
+                                           'model_type': 'mlp',
+                                           'latent_state_dim': 256},
+                                 'num_of_sampled_actions': 4,
+                                 'num_simulations': 50,
+                                 'batch_size': 256,
+                                 'update_per_collect': 200,
+                                 'n_episode': 8,
+                                 'eval_freq': 500}})

@@ -1,0 +1,28 @@
+"""The values of
+``zoo/box2d/lunarlander/config/lunarlander_disc_unizero_config.py``,
+copied so that the port never loads the zoo file (it imports
+``lightzero_tpu.config``).
+"""
+from lightzero_tpu_torch.config import Config
+
+main_config = Config({'exp_name': 'data_uz/lunarlander_disc_unizero_seed0',
+                      'env': {'env_id': 'LunarLander-v3',
+                              'stop_value': 240,
+                              'collector_env_num': 8,
+                              'evaluator_env_num': 3,
+                              'n_evaluator_episode': 3},
+                      'policy': {'type': 'unizero',
+                                 'model': {'observation_shape': 8,
+                                           'action_space_size': 4,
+                                           'embed_dim': 256,
+                                           'num_layers': 4,
+                                           'num_heads': 4,
+                                           'max_tokens': 16,
+                                           'support_scale': 300},
+                                 'num_simulations': 50,
+                                 'num_unroll_steps': 5,
+                                 'batch_size': 256,
+                                 'update_per_collect': 60,
+                                 'n_episode': 8,
+                                 'eval_freq': 200,
+                                 'learning_rate': 0.001}})

@@ -20,3 +20,15 @@ from lightzero_tpu_torch.entry.train_multitask_balance import train_multitask_ba
 train_muzero_multitask_segment_ddp = train_muzero_multitask
 train_unizero_multitask_segment_ddp = train_muzero_multitask
 train_unizero_multitask_balance_segment_ddp = train_multitask_balance
+
+from lightzero_tpu_torch.entry.train_muzero_with_reward_model import train_muzero_with_reward_model
+from lightzero_tpu_torch.entry.eval_offline import eval_offline
+
+# gym envs go through the host path of the shared loop, as in the JAX
+# package (the reference keeps dedicated train/eval_muzero_with_gym_env
+# entries); eval_muzero refuses a host env where the JAX one fails
+train_muzero_with_gym_env = train_muzero
+eval_muzero_with_gym_env = eval_muzero
+# the reference's multitask _eval entry: the offline sweep of a run's
+# checkpoints
+train_unizero_multitask_segment_eval = eval_offline

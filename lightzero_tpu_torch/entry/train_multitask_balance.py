@@ -46,7 +46,7 @@ from typing import Dict, Optional, Union
 import torch
 
 from lightzero_tpu_torch.buffers import GameBuffer
-from lightzero_tpu_torch.entry.train_muzero import create_env
+from lightzero_tpu_torch.entry.train_muzero import tensor_env
 from lightzero_tpu_torch.entry.train_muzero_multitask import (
     compile_task_configs,
     compute_task_weights,
@@ -93,7 +93,7 @@ def train_multitask_balance(
     task_policies = [policy.task_view(t) if is_mt else policy for t in range(num_tasks)]
     collectors, evaluators = [], []
     for ti, c in enumerate(cfgs):
-        env = create_env(c.env)
+        env = tensor_env(c.env, "train_multitask_balance")
         if c.env.get("pad_obs_to"):
             env = PadVectorObs(env, int(c.env.pad_obs_to))
         collectors.append(RolloutCollector(env, task_policies[ti],

@@ -33,13 +33,27 @@ Usage (on the card, or with ``device="cpu"``)::
 ``eval_muzero`` loads a checkpoint (or params export) and runs the
 deterministic eval.
 
+An env id that ``ENVS`` does not hold is a host env (``create_env``
+gives None): ``make_host_vec_env`` builds it as the JAX entry does
+(train_muzero.py:85-120), gymnasium's ids through ``HostVecEnv`` and the
+other families through their adapters, and the loop collects and evaluates
+through ``HostCollector`` and ``HostEvaluator`` (the evaluator's envs seeded
+from ``seed + 777``). The ids on which the JAX package fails
+(``JAX_HOST_ENV_FAULTS``: ``lunarlander``, which gymnasium does not know)
+are refused with a ``ValueError`` that quotes the failure.
+``eval_muzero`` evaluates tensor envs only: on a host env the JAX
+``eval_muzero`` hands create_env's None to its ``Evaluator`` and fails
+(``JAX_HOST_EVAL_FAULT``), and the port refuses it with a ``ValueError``.
+
 The multitask policy types are refused with a ``ValueError``: they train
 through ``train_muzero_multitask`` and ``train_multitask_balance``, and fail
-in the JAX package's ``train_muzero`` (``JAX_MULTITASK_FAULT``).
+in the JAX package's ``train_muzero`` (``JAX_MULTITASK_FAULT``). So is a
+config with ``reward_model``: it trains through
+``train_muzero_with_reward_model``, where the JAX ``train_muzero`` trains
+without the reward model's bonus and says nothing (``JAX_REWARD_MODEL_QUIRK``).
 
-Not ported yet, and refused with ``NotImplementedError``: the other envs,
-the RND reward model (``cfg.reward_model``) and the loss-landscape analysis
-(their ROADMAP slices are named in the errors).
+Not ported yet, and refused with ``NotImplementedError``: the loss-landscape
+analysis (its ROADMAP item is named in the error).
 """
 from __future__ import annotations
 
@@ -94,7 +108,7 @@ from lightzero_tpu_torch.utils.checkpoint import (
 )
 from lightzero_tpu_torch.utils.device import resolve_device
 from lightzero_tpu_torch.utils.logger import ExperimentLogger
-from lightzero_tpu_torch.workers import Evaluator, RolloutCollector
+from lightzero_tpu_torch.workers import Evaluator, HostCollector, HostEvaluator, RolloutCollector
 
 # env_id -> (env class, constructor arguments), as the JAX entry's aliases
 # and registry resolve them
@@ -154,16 +168,38 @@ JAX_MULTITASK_FAULT = (
     "train_muzero_multitask or train_multitask_balance (ROADMAP queue 3)")
 
 
-def create_env(env_cfg: Config) -> TensorEnv:
-    """The env of ``env_cfg.env_id``, with the env-config keys that match its
-    constructor's arguments (``max_episode_steps``, ``discrete_bins``, ...) and ``env_kwargs``
-    forwarded, as the JAX entry does (train_muzero.py:61-82)."""
-    env_id = env_cfg.get("env_id", env_cfg.get("type"))
+# host env ids on which the JAX package fails, with the failure: the
+# zoo's two lunarlander configs set env=dict(type="lunarlander") and no
+# env_id, which the JAX entry hands to gymnasium.make (ROADMAP queue 3)
+JAX_HOST_ENV_FAULTS = {
+    "lunarlander": "the JAX entry hands the id to gymnasium.make, which raises "
+                   "gymnasium.error.NameNotFound: Environment `lunarlander` doesn't exist. "
+                   "(set env_id='LunarLander-v3')",
+}
+# how the JAX entries that build their workers from create_env alone fail
+# on a host env: create_env gives None, which their workers reset
+JAX_HOST_EVAL_FAULT = (
+    "the JAX package's entry builds its workers on create_env's None for a host env, and they "
+    "raise AttributeError: 'NoneType' object has no attribute 'reset' (ROADMAP queue 3)")
+JAX_REWARD_MODEL_QUIRK = (
+    "the JAX package's train_muzero ignores cfg.reward_model without a word and trains "
+    "without the intrinsic bonus (ROADMAP queue 3); train it with "
+    "train_muzero_with_reward_model")
+
+
+def env_id_of(env_cfg: Config) -> str:
+    return env_cfg.get("env_id", env_cfg.get("type"))
+
+
+def create_env(env_cfg: Config) -> Optional[TensorEnv]:
+    """The tensor env of ``env_cfg.env_id``, with the env-config keys that
+    match its constructor's arguments (``max_episode_steps``, ``discrete_bins``, ...)
+    and ``env_kwargs`` forwarded, as the JAX entry does (train_muzero.py:61-82);
+    None for an id that ``ENVS`` does not hold, a host env
+    (``make_host_vec_env``)."""
+    env_id = env_id_of(env_cfg)
     if env_id not in ENVS:
-        raise NotImplementedError(
-            f"env {env_id!r} is not ported yet: the port has the envs of ENVS "
-            "(ROADMAP queue 1: host envs in slice 20)"
-        )
+        return None
     env_cls, kwargs = ENVS[env_id]
     kwargs = dict(kwargs)
     params = inspect.signature(env_cls.__init__).parameters
@@ -172,7 +208,60 @@ def create_env(env_cfg: Config) -> TensorEnv:
     return env_cls(**kwargs)
 
 
-def check_observation_shape(env: TensorEnv, pcfg: Config, policy_cls) -> None:
+def tensor_env(env_cfg: Config, entry: str) -> TensorEnv:
+    """``create_env``, for the entries that run tensor envs only: a
+    ``ValueError`` on a host env, where the JAX entry fails."""
+    env = create_env(env_cfg)
+    if env is None:
+        raise ValueError(f"{entry} runs the tensor envs of ENVS only, and "
+                         f"{env_id_of(env_cfg)!r} is a host env: {JAX_HOST_EVAL_FAULT}")
+    return env
+
+
+def make_host_vec_env(env_cfg: Config, num_envs: int, seed: int):
+    """The host env of ``env_cfg`` with ``num_envs`` envs, seeded from
+    ``seed``, by family as the JAX entry dispatches (train_muzero.py:85-120):
+    ``ALE/*`` -> ``AtariVecEnv``, ``MiniGrid-*`` or ``minigrid`` ->
+    ``MiniGridVecEnv``, ``jericho`` -> ``JerichoVecEnv``, ``dmc2gym`` ->
+    ``DMC2GymVecEnv``, ``metadrive`` -> ``MetaDriveVecEnv``, ``pooltool`` or
+    ``sum_to_three`` -> ``SumToThreeVecEnv``, any other id -> gymnasium's
+    ``HostVecEnv`` (Box2D, MuJoCo, MountainCar). ``env_kwargs`` go to the
+    adapter. The ids of ``JAX_HOST_ENV_FAULTS`` raise ``ValueError``."""
+    env_id = str(env_id_of(env_cfg) or "")
+    if env_id in JAX_HOST_ENV_FAULTS:
+        raise ValueError(f"host env {env_id!r}: {JAX_HOST_ENV_FAULTS[env_id]} (ROADMAP queue 3)")
+    kwargs = dict(env_cfg.get("env_kwargs", {}))
+    if env_id.startswith("ALE/"):
+        from lightzero_tpu_torch.envs.atari import AtariVecEnv
+
+        return AtariVecEnv(env_id, num_envs, seed=seed, env_kwargs=kwargs or None)
+    if env_id.startswith("MiniGrid-") or env_id == "minigrid":
+        from lightzero_tpu_torch.envs.minigrid_env import MiniGridVecEnv
+
+        mg_id = kwargs.pop("env_id", env_id if env_id != "minigrid" else "MiniGrid-Empty-8x8-v0")
+        return MiniGridVecEnv(mg_id, num_envs, seed=seed, **kwargs)
+    if env_id == "jericho":
+        from lightzero_tpu_torch.envs.jericho_env import JerichoVecEnv
+
+        return JerichoVecEnv(num_envs=num_envs, seed=seed, **kwargs)
+    if env_id == "dmc2gym":
+        from lightzero_tpu_torch.envs.dmc2gym_env import DMC2GymVecEnv
+
+        return DMC2GymVecEnv(num_envs=num_envs, seed=seed, **kwargs)
+    if env_id == "metadrive":
+        from lightzero_tpu_torch.envs.metadrive_env import MetaDriveVecEnv
+
+        return MetaDriveVecEnv(num_envs=num_envs, seed=seed, **kwargs)
+    if env_id in ("pooltool", "sum_to_three"):
+        from lightzero_tpu_torch.envs.pooltool_env import SumToThreeVecEnv
+
+        return SumToThreeVecEnv(num_envs=num_envs, seed=seed, **kwargs)
+    from lightzero_tpu_torch.envs.host_env import HostVecEnv
+
+    return HostVecEnv(env_id, num_envs, seed=seed, env_kwargs=kwargs or None)
+
+
+def check_observation_shape(env, pcfg: Config, policy_cls) -> None:
     """Raise ``ValueError`` where the env's observations do not fit the
     model of ``pcfg.model``: a conv model reads them as they are, an MLP
     model as a flat vector, flattened first only by a policy with
@@ -248,26 +337,33 @@ def train_muzero(
     pcfg = Config(Config(cfg).get("policy", {}))
     _check_scope(pcfg)
     if Config(cfg).get("reward_model", None):
-        raise NotImplementedError(
-            "the RND reward model (cfg.reward_model) is not ported yet (ROADMAP queue 1, "
-            "slice 20)")
+        raise ValueError(f"train_muzero does not take cfg.reward_model: {JAX_REWARD_MODEL_QUIRK}")
     policy_cls = POLICIES[pcfg.get("type", "muzero")]
     cfg = compile_config(cfg, policy_cls.default_config(), seed)
     pcfg = cfg.policy
     pcfg.seed = seed
 
+    n_collect_envs = cfg.env.get("collector_env_num", 8)
+    n_eval_envs = cfg.env.get("evaluator_env_num", 3)
     env = create_env(cfg.env)
-    check_observation_shape(env, pcfg, policy_cls)
+    if env is None:
+        # a host env: its collect and eval envs are built before the policy,
+        # so that an absent library or a failing id stops the run first
+        collect_envs = make_host_vec_env(cfg.env, n_collect_envs, seed)
+        eval_envs = make_host_vec_env(cfg.env, n_eval_envs, seed + 777)
+    check_observation_shape(env or collect_envs, pcfg, policy_cls)
     policy = policy_cls(pcfg, device=dev, seed=seed)
     state = policy.init_train_state()
     if model_path:
         state = load_checkpoint_lenient(model_path, target=state)
 
     buffer = GameBuffer(pcfg, policy)
-    n_collect_envs = cfg.env.get("collector_env_num", 8)
-    n_eval_envs = cfg.env.get("evaluator_env_num", 3)
-    collector = RolloutCollector(env, policy, n_collect_envs, seed=seed + 1, device=dev)
-    evaluator = Evaluator(env, policy, n_eval_envs, seed=seed + 2, device=dev)
+    if env is not None:
+        collector = RolloutCollector(env, policy, n_collect_envs, seed=seed + 1, device=dev)
+        evaluator = Evaluator(env, policy, n_eval_envs, seed=seed + 2, device=dev)
+    else:
+        collector = HostCollector(collect_envs, policy, device=dev)
+        evaluator = HostEvaluator(eval_envs, policy, device=dev)
     logger = ExperimentLogger(cfg.exp_name, "train")
     ckpt_dir = os.path.join(cfg.exp_name, "ckpt")
     stop_value = cfg.env.get("stop_value", float("inf"))
@@ -374,11 +470,11 @@ def train_muzero(
                 "steps_per_sec": cstats["steps_per_sec"],
                 "buffer_transitions": buffer.num_transitions,
                 "temperature": temperature,
-                "visit_entropy": cstats["visit_entropy"],
-                "searched_value": cstats["searched_value"],
-                # Sampled MuZero's telemetry
+                # the search's telemetry where the collector gives it (the
+                # host collector does not, as in JAX)
                 **{k: v for k, v in cstats.items()
-                   if k in ("visit_mean_action", "collect_mu", "collect_sigma")},
+                   if k in ("visit_mean_action", "collect_mu", "collect_sigma",
+                            "visit_entropy", "searched_value")},
             },
             collector.total_env_steps,
             prefix="collector/",
@@ -440,7 +536,8 @@ def eval_muzero(
     run the deterministic eval on ``cfg.env.evaluator_env_num`` envs until
     ``n_episodes`` episodes have ended (``entry/train_muzero.py:367``). Runs
     on ``device``: ``cuda`` unless the caller names another. Writes nothing.
-    Returns the ``Evaluator.eval`` record."""
+    Returns the ``Evaluator.eval`` record. A host env raises ``ValueError``,
+    where the JAX ``eval_muzero`` fails (``JAX_HOST_EVAL_FAULT``)."""
     if isinstance(cfg, (list, tuple)):
         cfg = cfg[0]
     dev = resolve_device(device)
@@ -450,7 +547,7 @@ def eval_muzero(
     policy_cls = POLICIES[pcfg.get("type", "muzero")]
     pcfg = deep_merge(policy_cls.default_config(), pcfg)
     pcfg.seed = seed
-    env = create_env(cfg.env)
+    env = tensor_env(cfg.env, "eval_muzero")
     check_observation_shape(env, pcfg, policy_cls)
     policy = policy_cls(pcfg, device=dev, seed=seed)
     state = policy.init_train_state()

@@ -39,7 +39,7 @@ import torch
 
 from lightzero_tpu_torch.buffers import GameBuffer
 from lightzero_tpu_torch.config import Config, compile_config
-from lightzero_tpu_torch.entry.train_muzero import POLICIES, create_env
+from lightzero_tpu_torch.entry.train_muzero import POLICIES, tensor_env
 from lightzero_tpu_torch.ops import visit_count_temperature
 from lightzero_tpu_torch.parallel.distributed import (
     all_gather_scalars,
@@ -163,7 +163,7 @@ def train_muzero_multitask(
     collectors, evaluators, buffers, stop_values = {}, {}, {}, {}
     for ti in local_tasks:
         c = cfgs[ti]
-        env = create_env(c.env)
+        env = tensor_env(c.env, "train_muzero_multitask")
         collectors[ti] = RolloutCollector(env, task_policies[ti], c.env.get("collector_env_num", 4),
                                           seed=seed + 1 + 2 * ti, device=dev)
         evaluators[ti] = Evaluator(env, task_policies[ti], c.env.get("evaluator_env_num", 2),

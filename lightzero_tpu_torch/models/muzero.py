@@ -13,8 +13,10 @@ under 'conv' (width ``num_channels``). Only ``representation`` and
 ``initial_inference`` take the task id; the dynamics carry the conditioning
 forward from the root. A task id of None skips it.
 
-Not ported yet, and refused by ``from_config``: the HarmonyDream loss
-weights (ROADMAP queue 1, slice 20).
+With ``harmony_balance`` the model holds HarmonyDream's three learnable
+loss weights, ``harmony_policy``, ``harmony_value`` and ``harmony_reward``:
+0-d parameters that start at zero (flax's top-level params of those names),
+which the policy's loss reads (``policy/muzero.py``).
 """
 from __future__ import annotations
 
@@ -63,6 +65,7 @@ class MuZeroModel(nn.Module):
         pred_hid: int = 512,
         pred_out: int = 1024,
         num_tasks: int = 0,
+        harmony_balance: bool = False,
         generator: Optional[torch.Generator] = None,
     ):
         super().__init__()
@@ -139,6 +142,11 @@ class MuZeroModel(nn.Module):
             self.task_embed = nn.Embedding(num_tasks, dim)
             with torch.no_grad():
                 self.task_embed.weight.normal_(0.0, dim ** -0.5, generator=generator)
+        self.harmony_balance = harmony_balance
+        if harmony_balance:
+            self.harmony_policy = nn.Parameter(torch.zeros(()))
+            self.harmony_value = nn.Parameter(torch.zeros(()))
+            self.harmony_reward = nn.Parameter(torch.zeros(()))
 
     def _encode_action(self, action: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
         """(B, A) one-hot, or (B, 1) a / A under 'not_one_hot' (reference
@@ -202,10 +210,6 @@ class MuZeroModel(nn.Module):
     @staticmethod
     def from_config(model_cfg: Any, generator: Optional[torch.Generator] = None) -> "MuZeroModel":
         """Build from a ``cfg.policy.model`` tree (the JAX package's key names)."""
-        if model_cfg.get("harmony_balance", False):
-            raise NotImplementedError(
-                "the HarmonyDream loss weights are not ported yet (ROADMAP queue 1, slice 20)"
-            )
         obs_shape = model_cfg.get("observation_shape", 4)
         kwargs = dict(
             observation_shape=tuple(obs_shape) if isinstance(obs_shape, list) else obs_shape,
@@ -220,6 +224,7 @@ class MuZeroModel(nn.Module):
             num_res_blocks=model_cfg.get("num_res_blocks", 1),
             downsample=model_cfg.get("downsample", True),
             num_tasks=int(model_cfg.get("num_tasks", 0)),
+            harmony_balance=bool(model_cfg.get("harmony_balance", False)),
         )
         for k in (
             "value_support_size",

@@ -229,10 +229,11 @@ class MuZeroMTPolicy(MultitaskMixin, MuZeroPolicy):
                                                  "muzero_multitask")
 
     def _sample_losses(self, model, batch, task_id=None, train_iter=None):
-        """MuZero's per-sample losses with a zero batch term, as the JAX
-        policy's (whose HarmonyDream term is not ported)."""
+        """MuZero's per-sample losses with the HarmonyDream regularizer as
+        the batch term (zero without ``harmony_balance``), as the JAX
+        policy's."""
         loss, logs, vp = super()._sample_losses(model, batch, task_id=task_id)
-        return loss, torch.zeros((), device=loss.device), logs, vp
+        return loss, self._harmony_regularizer(model), logs, vp
 
 
 class UniZeroMTPolicy(MultitaskMixin, UniZeroPolicy):

@@ -8,7 +8,12 @@ argmax).
 Training: ``forward_learn`` unrolls the model ``num_unroll_steps`` steps and
 takes one optimizer step on value, policy and reward cross-entropies, the
 optional SSL cosine consistency loss and the policy-entropy term, weighted
-by the batch's importance weights; the loss is divided by the unroll length,
+by the batch's importance weights (with ``model.harmony_balance``, the
+HarmonyDream weights instead: each of the policy, value and reward losses
+divided by exp(h) of its learnable scalar, the entropy term dropped, and
+log(exp(h) + 1) of each scalar added to the weighted mean; the variants whose
+JAX policies replace this loss, ``harmony_loss`` False, refuse the option);
+the loss is divided by the unroll length,
 the gradients are clipped by their global norm as optax does, and the
 target network is copied from the online one every ``target_update_freq``
 steps. ``forward_reanalyze`` searches with the target network to refresh
@@ -103,6 +108,9 @@ class MuZeroPolicy:
     # evaluator and buffer (``policy/multitask.py``, ``task_view``): the
     # model's task embedding conditions their searches; None elsewhere
     _collect_task_id: Optional[int] = None
+    # whether the policy's loss takes the HarmonyDream weights: the JAX
+    # variants that replace MuZero's loss ignore model.harmony_balance
+    harmony_loss = True
     # set by ``parallel.ddp.ddp_learn_step`` for one learn step: called with
     # (the model's parameters, the logs) between backward and the clip, it
     # averages the gradients and the logs over the ranks
@@ -189,6 +197,11 @@ class MuZeroPolicy:
         another."""
         self.device = resolve_device(device)
         self.cfg = cfg = deep_merge(self.default_config(), cfg or {})
+        if cfg.model.get("harmony_balance", False) and not self.harmony_loss:
+            raise ValueError(
+                f"the {cfg.get('type')} policy does not take model.harmony_balance: its JAX "
+                "policy replaces MuZero's loss, builds a model without the HarmonyDream scalars "
+                "and trains with the fixed loss weights without a word (ROADMAP queue 3)")
         scale = cfg.model.get("support_scale", 300)
         self.value_support = DiscreteSupport(-float(scale), float(scale) + 1.0, 1.0)
         self.reward_support = DiscreteSupport(-float(scale), float(scale) + 1.0, 1.0)
@@ -312,11 +325,12 @@ class MuZeroPolicy:
     def _sample_losses(self, model: nn.Module, batch: TrainBatch,
                        task_id: Optional[torch.Tensor] = None, train_iter: Optional[int] = None):
         """Per-sample loss vector before importance weighting and reduction:
-        ``(loss (B,), logs, value_priority (B,))``. (The JAX version also
-        returns the HarmonyDream regularizer, which is not ported.)
-        ``task_id`` (B,) conditions the root latent and the SSL target's
-        representation when the model has a task embedding; ``train_iter``
-        is unused here, as in the JAX version."""
+        ``(loss (B,), logs, value_priority (B,))``; the HarmonyDream
+        regularizer, which the JAX version returns beside them, is
+        ``_harmony_regularizer``. ``task_id`` (B,) conditions the root
+        latent and the SSL target's representation when the model has a
+        task embedding; ``train_iter`` is unused here, as in the JAX
+        version."""
         cfg = self.cfg
         K = self.num_unroll_steps
         tv_cat = phi_transform(self.value_support, scalar_transform(batch.target_value))
@@ -358,13 +372,23 @@ class MuZeroPolicy:
             value_loss = value_loss + cross_entropy_loss(rec.value_logits, tv_cat[:, k + 1])
             reward_loss = reward_loss + cross_entropy_loss(rec.reward_logits, tr_cat[:, k])
 
-        loss = (
-            cfg.ssl_loss_weight * consistency_loss
-            + cfg.policy_loss_weight * policy_loss
-            + cfg.value_loss_weight * value_loss
-            + cfg.reward_loss_weight * reward_loss
-            + cfg.policy_entropy_weight * policy_entropy_loss
-        )
+        if cfg.model.get("harmony_balance", False):
+            # HarmonyDream (reference muzero.py:563-575): each loss over
+            # exp of its learnable scalar
+            loss = (
+                cfg.ssl_loss_weight * consistency_loss
+                + policy_loss / torch.exp(model.harmony_policy)
+                + value_loss / torch.exp(model.harmony_value)
+                + reward_loss / torch.exp(model.harmony_reward)
+            )
+        else:
+            loss = (
+                cfg.ssl_loss_weight * consistency_loss
+                + cfg.policy_loss_weight * policy_loss
+                + cfg.value_loss_weight * value_loss
+                + cfg.reward_loss_weight * reward_loss
+                + cfg.policy_entropy_weight * policy_entropy_loss
+            )
         logs = dict(
             policy_loss=policy_loss.mean(),
             value_loss=value_loss.mean(),
@@ -377,9 +401,17 @@ class MuZeroPolicy:
         )
         return loss, {k: v.detach() for k, v in logs.items()}, value_priority
 
+    def _harmony_regularizer(self, model: nn.Module) -> torch.Tensor:
+        """HarmonyDream's log(exp(h) + 1) summed over the three scalars; a
+        0-d zero without ``harmony_balance``."""
+        if not self.cfg.model.get("harmony_balance", False):
+            return torch.zeros((), device=self.device)
+        return sum(torch.log(torch.exp(h) + 1.0) for h in (
+            model.harmony_policy, model.harmony_value, model.harmony_reward))
+
     def _loss_fn(self, model: nn.Module, batch: TrainBatch):
         loss, logs, value_priority = self._sample_losses(model, batch)
-        weighted_total_loss = torch.mean(batch.weights * loss)
+        weighted_total_loss = torch.mean(batch.weights * loss) + self._harmony_regularizer(model)
         logs["total_loss"] = weighted_total_loss.detach()
         # the total gradient is scaled by 1/K (reference muzero.py:584-585)
         return weighted_total_loss / self.num_unroll_steps, (logs, value_priority)

@@ -30,6 +30,9 @@ from lightzero_tpu_torch.search.types import RecurrentOutput
 
 
 class MuZeroRNNFullObsPolicy(MuZeroPolicy):
+    # its JAX policy replaces MuZero's loss and has no HarmonyDream term
+    harmony_loss = False
+
     @staticmethod
     def default_config() -> Config:
         cfg = MuZeroPolicy.default_config()

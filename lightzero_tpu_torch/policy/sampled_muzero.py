@@ -136,6 +136,9 @@ def _gaussian_entropy(sigma: torch.Tensor) -> torch.Tensor:
 
 
 class SampledMuZeroPolicy(MuZeroPolicy):
+    # its JAX policy replaces MuZero's loss and has no HarmonyDream term
+    harmony_loss = False
+
     @staticmethod
     def default_config() -> Config:
         cfg = MuZeroPolicy.default_config()

@@ -67,6 +67,8 @@ def _entropy(logits: torch.Tensor) -> torch.Tensor:
 
 
 class StochasticMuZeroPolicy(MuZeroPolicy):
+    # its JAX policy replaces MuZero's loss and has no HarmonyDream term
+    harmony_loss = False
     # the model reads each observation flattened (``_flat``)
     flattens_observations = True
 

@@ -98,6 +98,8 @@ def annealed(start: float, end: float, steps: int, kind: str, it: int) -> float:
 
 
 class UniZeroPolicy(MuZeroPolicy):
+    # its JAX policy replaces MuZero's loss and has no HarmonyDream term
+    harmony_loss = False
     stateful_collect = True
     # the buffer passes the stored (obs, action) history to reanalyze
     reanalyze_needs_context = True

@@ -64,6 +64,15 @@ scales, ``pos_embed`` and ``log_alpha`` keep flax's layout and name.
 
 MuZero's multitask task embedding (flax ``task_embed/embedding``, MLP and
 conv) is the port's ``task_embed.weight``, (num_tasks, width) on both sides.
+MuZero's HarmonyDream scalars (flax top-level ``harmony_policy``,
+``harmony_value``, ``harmony_reward``, MLP and conv) keep their names, 0-d on
+both sides.
+
+The RND reward model's two nets (``reward_model/rnd.py``): flax holds the
+target and the predictor as two param trees of ``_RNDNet``, each
+``MLPTorso_0``; the port's ``RNDRewardModel`` holds them as ``target.torso``
+and ``predictor.torso``. ``rnd_flax_to_state_dict`` and
+``rnd_state_dict_to_flax`` carry them across.
 
 The GRU of MuZero-RNN: flax ``GRUCell`` holds input kernels ``i{r,z,n}``
 (in, H) with ``bias``, recurrent kernels ``h{r,z}`` (H, H) without and
@@ -89,6 +98,8 @@ _PROJECTOR_LAYERS = {"proj": "proj", "proj_norms": "proj_norms", "pred": "pred"}
 _LEAVES = {"kernel": "weight", "scale": "weight", "bias": "bias"}
 # MuZero's task embedding (num_tasks > 0): flax path -> port name
 _TASK_EMBED = ("task_embed/embedding", "task_embed.weight")
+# MuZero's HarmonyDream scalars (harmony_balance): the same name on both sides
+_HARMONY = ("harmony_policy", "harmony_value", "harmony_reward")
 
 
 class _ParamMap(NamedTuple):
@@ -417,6 +428,9 @@ def flax_to_state_dict(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
         out.update(_gru_to_torch({k: flat.pop(k) for k in list(flat) if k.startswith("_gru/")}))
     if _TASK_EMBED[0] in flat:
         out[_TASK_EMBED[1]] = torch.from_numpy(np.array(flat.pop(_TASK_EMBED[0]), np.float32))
+    for name in _HARMONY:
+        if name in flat:
+            out[name] = torch.from_numpy(np.array(flat.pop(name), np.float32))
     for key, value in flat.items():
         if key.endswith("/kernel"):
             # Dense (in, out) -> (out, in); conv HWIO -> OIHW
@@ -538,6 +552,9 @@ def state_dict_to_flax(state_dict: Mapping[str, torch.Tensor]) -> Dict[str, Any]
         if name == _TASK_EMBED[1]:
             flat[_TASK_EMBED[0]] = value
             continue
+        if name in _HARMONY:
+            flat[name] = value
+            continue
         if conv:
             path = _conv_flax_path(name, value.ndim)
             if path.endswith("/kernel"):
@@ -558,6 +575,11 @@ def state_dict_to_flax(state_dict: Mapping[str, torch.Tensor]) -> Dict[str, Any]
         flat[path] = value
     if unizero:
         flat = _unizero_to_flax(state_dict)
+    return _nest(flat)
+
+
+def _nest(flat: Mapping[str, np.ndarray]) -> Dict[str, Any]:
+    """'/'-joined flax paths -> ``{"params": nested dicts}``."""
     out: Dict[str, Any] = {}
     for path, value in flat.items():
         node = out
@@ -566,3 +588,40 @@ def state_dict_to_flax(state_dict: Mapping[str, torch.Tensor]) -> Dict[str, Any]
             node = node.setdefault(p, {})
         node[leaf] = value
     return {"params": out}
+
+
+# the RND net: flax's one MLPTorso -> the port's ``torso``
+_RND_MAP = _ParamMap(torsos={"MLPTorso_0": "torso"}, norms={}, projector=False, lstm=False)
+_RND_NETS = ("target", "predictor")
+
+
+def rnd_flax_to_state_dict(target_params: Mapping[str, Any],
+                           predictor_params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """The JAX RND model's target and predictor param trees (``RNDState``'s
+    ``target_params`` and ``predictor_params``) as a state_dict of the
+    port's ``RNDRewardModel``."""
+    out: Dict[str, torch.Tensor] = {}
+    for net, params in zip(_RND_NETS, (target_params, predictor_params)):
+        for key, value in _flatten(params.get("params", params)).items():
+            if key.endswith("/kernel"):
+                value = value.T
+            out[f"{net}.{_port_name(_RND_MAP, key)}"] = torch.from_numpy(
+                np.array(value, dtype=np.float32, order="C"))
+    return out
+
+
+def rnd_state_dict_to_flax(state_dict: Mapping[str, torch.Tensor]) -> tuple:
+    """The inverse of ``rnd_flax_to_state_dict``: (target params, predictor
+    params), each ``{"params": {...}}`` in flax's layout."""
+    patterns = _flax_paths(_RND_MAP)
+    flats = {net: {} for net in _RND_NETS}
+    for name, tensor in state_dict.items():
+        net, _, rest = name.partition(".")
+        m = re.fullmatch(r"(.+)\.(\d+)\.(weight|bias)", rest)
+        template = f"{m.group(1)}.{{i}}.{m.group(3)}" if m is not None else None
+        if net not in flats or template not in patterns:
+            raise KeyError(f"no counterpart in flax for port parameter {name!r}")
+        path = patterns[template].format(i=m.group(2))
+        value = tensor.detach().cpu().numpy().astype(np.float32)
+        flats[net][path] = np.ascontiguousarray(value.T) if path.endswith("/kernel") else value
+    return tuple(_nest(flats[net]) for net in _RND_NETS)

@@ -4,3 +4,4 @@ from lightzero_tpu_torch.workers.alphazero_workers import (
     AlphaZeroBotEvaluator,
     AlphaZeroSelfPlayCollector,
 )
+from lightzero_tpu_torch.workers.host_collector import HostCollector, HostEvaluator

@@ -236,5 +236,7 @@ def test_rnd_config_is_refused(tmp_path):
 
     cfg = Config(zoo.to_dict())
     cfg.exp_name = str(tmp_path / "exp")
-    with pytest.raises(NotImplementedError, match="slice 20"):
+    # it trains through train_muzero_with_reward_model (tests/test_torch_rnd.py);
+    # train_muzero refuses it where the JAX one trains without the bonus
+    with pytest.raises(ValueError, match="ignores cfg.reward_model.*train_muzero_with_reward_model"):
         train_muzero(cfg, device="cpu")

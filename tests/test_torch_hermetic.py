@@ -2,7 +2,9 @@
 
 - every module of lightzero_tpu_torch imports with jax, flax, optax and
   lightzero_tpu made unimportable, and no source of the port or
-  chip_smoke.py names them (nor pytest or gymnasium) in an import;
+  chip_smoke.py names them (nor pytest) in an import; gymnasium and the
+  host envs' libraries are imported only inside functions (where an adapter
+  builds its env), so the host env modules import with those blocked too;
 - with no CUDA device, the entry points built without ``device=`` raise
   (the multitask policies and entries among them);
 - the kernel loader raises a clear error when nvcc is absent or fails, and
@@ -195,9 +197,54 @@ def test_multitask_and_scale_out_import_without_jax():
     assert proc.returncode == 0, proc.stderr
 
 
-def _imported_roots(path: pathlib.Path):
+# the host envs' libraries: imported where an adapter builds its env, never
+# when a module is imported
+HOST_LIBRARIES = ("gymnasium", "gym", "dm_control", "mujoco", "Box2D", "ale_py", "minigrid",
+                  "jericho", "metadrive", "pooltool", "transformers")
+# the host envs and collector, RND, eval_offline and their configs, named as
+# above, imported with the host libraries blocked too
+HOST_AND_RND_MODULES = (
+    "lightzero_tpu_torch.envs.host_env", "lightzero_tpu_torch.envs.dmc2gym_env",
+    "lightzero_tpu_torch.envs.atari", "lightzero_tpu_torch.envs.minigrid_env",
+    "lightzero_tpu_torch.envs.jericho_env", "lightzero_tpu_torch.envs.metadrive_env",
+    "lightzero_tpu_torch.envs.pooltool_env", "lightzero_tpu_torch.workers.host_collector",
+    "lightzero_tpu_torch.reward_model", "lightzero_tpu_torch.reward_model.rnd",
+    "lightzero_tpu_torch.entry.train_muzero_with_reward_model",
+    "lightzero_tpu_torch.entry.eval_offline", "lightzero_tpu_torch.entry",
+    *(f"lightzero_tpu_torch.configs.{name}" for name in (
+        "lunarlander_disc_muzero", "lunarlander_cont_sampled_efficientzero",
+        "bipedalwalker_cont_sampled_muzero", "mtcar_muzero", "mujoco_sampled_efficientzero",
+        "dmc2gym_state_smz", "dmc2gym_pixels_sez", "memory_muzero_rnd", "pendulum_disc_muzero",
+        "cartpole_stochastic_muzero", "stochastic_muzero_2048_v2", "memory250_unizero",
+        "breakout_grid_unizero_v9")),
+)
+
+
+def test_host_envs_rnd_and_eval_offline_import_without_jax_or_the_host_libraries():
+    proc = subprocess.run(
+        [sys.executable, "-c", _IMPORT_NAMED.format(forbidden=FORBIDDEN + HOST_LIBRARIES,
+                                                    modules=HOST_AND_RND_MODULES)],
+        cwd=REPO, capture_output=True, text=True, timeout=120,
+        env=dict(os.environ, PYTHONPATH=str(REPO)),
+    )
+    assert proc.returncode == 0, proc.stderr
+
+
+def _imported_roots(path: pathlib.Path, module_level: bool = False):
+    """The top-level package of each import of ``path``; with
+    ``module_level``, of the imports that run when the module is imported
+    (not those inside a function)."""
     tree = ast.parse(path.read_text(), filename=str(path))
-    for node in ast.walk(tree):
+    nodes = ast.walk(tree)
+    if module_level:
+        def outside_functions(node):
+            yield node
+            for child in ast.iter_child_nodes(node):
+                if not isinstance(child, (ast.FunctionDef, ast.AsyncFunctionDef, ast.Lambda)):
+                    yield from outside_functions(child)
+
+        nodes = outside_functions(tree)
+    for node in nodes:
         if isinstance(node, ast.Import):
             yield from (a.name.split(".")[0] for a in node.names)
         elif isinstance(node, ast.ImportFrom) and node.level == 0:
@@ -210,8 +257,10 @@ def _imported_roots(path: pathlib.Path):
     ids=lambda p: str(p.relative_to(REPO)),
 )
 def test_no_source_imports_jax_or_test_only_packages(path):
-    bad = set(_imported_roots(path)) & set(FORBIDDEN + ("pytest", "gymnasium"))
+    bad = set(_imported_roots(path)) & set(FORBIDDEN + ("pytest",))
     assert not bad, f"{path} imports {bad}"
+    eager = set(_imported_roots(path, module_level=True)) & set(HOST_LIBRARIES)
+    assert not eager, f"{path} imports {eager} when it is imported"
 
 
 @pytest.fixture
@@ -269,6 +318,30 @@ def test_multitask_policies_and_entries_without_device_raise_with_no_cuda(no_cud
     for entry in (train_muzero_multitask, train_multitask_balance):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             entry(cfgs)
+
+
+def test_host_workers_rnd_and_their_entries_without_device_raise_with_no_cuda(no_cuda, tmp_path):
+    import copy
+
+    from lightzero_tpu_torch.configs.memory_muzero_rnd import main_config
+    from lightzero_tpu_torch.entry import eval_offline, train_muzero_with_reward_model
+    from lightzero_tpu_torch.reward_model import RNDRewardModel
+    from lightzero_tpu_torch.workers import HostCollector, HostEvaluator
+
+    class Env:
+        num_envs = 2
+
+    policy = MuZeroPolicy(dict(num_simulations=2), device="cpu")
+    for cls in (HostCollector, HostEvaluator):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            cls(Env(), policy)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        RNDRewardModel(8)
+    cfg = copy.deepcopy(main_config)
+    cfg.exp_name = str(tmp_path / "exp")
+    for fn in (train_muzero_with_reward_model, eval_offline):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            fn(cfg)
 
 
 def test_alphazero_policy_without_device_raises_with_no_cuda(no_cuda):

@@ -281,8 +281,14 @@ def test_three_learn_steps_with_a_target_copy(jax_policy):
 
 
 def test_learn_step_refuses_harmony_and_reuse():
-    with pytest.raises(NotImplementedError, match="slice 20"):
-        MuZeroPolicy(dict(model=dict(harmony_balance=True)), device="cpu")
+    # HarmonyDream is ported (tests/test_torch_harmony.py); a variant whose
+    # JAX loss ignores it refuses it
+    assert MuZeroPolicy(dict(model=dict(harmony_balance=True, latent_state_dim=8)),
+                        device="cpu").model.harmony_policy.shape == ()
+    from lightzero_tpu_torch.policy import EfficientZeroPolicy
+
+    with pytest.raises(ValueError, match="harmony_balance"):
+        EfficientZeroPolicy(dict(model=dict(harmony_balance=True)), device="cpu")
     # the multitask task embedding is ported (tests/test_torch_multitask.py)
     assert MuZeroPolicy(dict(model=dict(num_tasks=2)),
                         device="cpu").model.task_embed.weight.shape == (2, 256)

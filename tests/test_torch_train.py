@@ -160,8 +160,8 @@ GOMOKU_MODEL = dict(observation_shape=(6, 6, 3), action_space_size=36, model_typ
 
 
 # the gumbel_muzero-on-a-board and gomoku cases were refused until slice
-# 17's second half was ported; each now builds its policy and takes one
-# collect. UniZero was refused until slice 18; what stays refused of it is
+# 17's second half was ported, and the harmony case until slice 20; each now
+# builds its policy and takes one collect. UniZero was refused until slice 18; what stays refused of it is
 # the LPIPS perceptual loss (item 20). The multitask types train through
 # their own entries since slice 19; train_muzero refuses them with the
 # failure they meet in the JAX package's train_muzero
@@ -175,7 +175,7 @@ GOMOKU_MODEL = dict(observation_shape=(6, 6, 3), action_space_size=36, model_typ
     (dict(policy=dict(type="sampled_muzero", env_type="board_games")), ValueError,
      "float arrays"),
     (dict(policy=dict(analysis_loss_landscape=True)), NotImplementedError, "slice 20"),
-    (dict(policy=dict(model=dict(MODEL, harmony_balance=True))), NotImplementedError, "slice 20"),
+    (dict(policy=dict(model=dict(MODEL, harmony_balance=True))), None, None),
 ], ids=["unizero", "multitask", "gumbel_board", "gomoku", "sampled_board", "landscape",
         "harmony"])
 def test_train_muzero_refuses_what_is_not_ported(tmp_path, override, error, match):
@@ -186,9 +186,15 @@ def test_train_muzero_refuses_what_is_not_ported(tmp_path, override, error, matc
         with pytest.raises(error, match=match):
             train_muzero(cfg, device="cpu")
         return
-    policy, _, stats = train_muzero(cfg, max_env_step=1, device="cpu")
-    assert policy.players == 2 and stats["env_steps"] > 0
-    assert stats["buffer"].num_transitions > 0
+    policy, state, stats = train_muzero(cfg, max_env_step=1, device="cpu")
+    assert stats["env_steps"] > 0 and stats["buffer"].num_transitions > 0
+    if cfg.policy.get("env_type") == "board_games":
+        assert policy.players == 2
+    if cfg.policy.model.get("harmony_balance"):
+        # HarmonyDream runs since slice 20: its scalars start at 0 and train
+        assert state.train_iter > 0
+        assert all(float(getattr(policy.model, k).detach()) != 0.0
+                   for k in ("harmony_policy", "harmony_value", "harmony_reward"))
 
 
 SAMPLED = ["sampled_muzero", "sampled_efficientzero"]
