@@ -250,7 +250,26 @@ Phases, each of a fixed size, in one process:
      (e) The CartPole MuZero config with harmony_balance: a learn step card
      vs CPU (compare_learn_steps) on a batch of (b)'s buffer, timed learn
      steps, and the three scalars moved. (f) eval_offline over (d)'s
-     checkpoints (ckpt_final), launches = eval searches x 50.
+     checkpoints (ckpt_final), launches = eval searches x 50;
+ 18. rest_of_item_20: (a) UniZero at the ws width (phase 15's config, its
+     buffer and target net) with the reconstruction loss and the LPIPS
+     perceptual term (LPIPS_RECON_WEIGHT, LPIPS_PERCEPTUAL_WEIGHT) on a
+     batch of 256 x 11 frames of 10x10x4: one learn step card vs CPU,
+     lpips_distance card vs CPU within LPIPS_RTOL on LPIPS_COMPARED_FRAMES
+     of them, LPIPS_TIMED_STEPS learn
+     steps timed with the term and without it, and the term's share of the
+     step's device time from two torch.profiler passes through
+     utils/profiling.torch_trace (whose Chrome trace must hold CUDA
+     kernels). (b) loss_landscape_api in 1-D at LANDSCAPE_POINTS points on
+     that policy and batch, card vs CPU on one direction, the models'
+     parameters bit-unchanged. (c) MuZeroAgent on the bundled
+     gym_cartpole_v0 config at full width, episodes cut at
+     AGENT_EPISODE_STEPS: train (an eval, one collect round cut like phase
+     7's, AGENT_LEARN_STEPS learn steps; launches = (collect + eval
+     searches) x 25), deploy with replay (launches = env steps x 25; a
+     replay per episode, episode_return the sum of its rewards). (d)
+     augment_batch with injected draws and the analysis metrics card vs
+     CPU, and the gated Atari config's ImportError.
 
 The last lines are the card's name and power limit, one JSON object with a
 record per kernel, and {"ok": true, "device": {...}}; that last line is printed
@@ -377,6 +396,13 @@ from lightzero_tpu_torch.search.fused_traverse import (
     kernel_route,
 )
 from lightzero_tpu_torch.reward_model import RNDRewardModel
+from lightzero_tpu_torch.agent import MuZeroAgent
+from lightzero_tpu_torch.configs.atari_muzero import main_config as atari_config
+from lightzero_tpu_torch.loss_landscape import loss_landscape_api, random_direction
+from lightzero_tpu_torch.models import analysis
+from lightzero_tpu_torch.ops.augment import augment_batch
+from lightzero_tpu_torch.ops.lpips import lpips_distance
+from lightzero_tpu_torch.utils.profiling import torch_trace
 from lightzero_tpu_torch.workers import (
     AlphaZeroBotEvaluator,
     AlphaZeroSelfPlayCollector,
@@ -566,7 +592,7 @@ MT_ENTRY_MODULES = tuple(importlib.import_module(f"lightzero_tpu_torch.entry.{na
 CAGRAD_W_ATOL = 1e-3
 # phase 17: the host path's card-vs-CPU eval steps, the gymnasium configs'
 # episode cut, RND's card-vs-CPU tolerance, and the HarmonyDream scalars
-HOST_COMPARED_STEPS = 8
+HOST_COMPARED_STEPS = 4  # 8 until phase 18 came
 HOST_EPISODE_STEPS = 32
 # phase 17: the batched steps of the RND run's collect round: 3 memory
 # episodes of 12 steps an env, 288 transitions for the batch of 256 (the
@@ -574,6 +600,20 @@ HOST_EPISODE_STEPS = 32
 RND_COLLECT_STEPS = 36
 RND_RTOL = 1e-5
 HARMONY_SCALARS = ("harmony_policy", "harmony_value", "harmony_reward")
+# phase 18: the reconstruction and perceptual weights of the LPIPS learn
+# steps (breakout_grid_unizero_v7-v9's latent_recon_loss_weight, and the
+# perceptual term at the same weight), their timed steps, the landscape's
+# points, the Agent's learn steps a collect round and its deploy episodes
+LPIPS_RECON_WEIGHT = 0.5
+LPIPS_PERCEPTUAL_WEIGHT = 0.5
+LPIPS_TIMED_STEPS = 3
+LPIPS_RTOL = 1e-4
+LANDSCAPE_POINTS = 5
+AGENT_LEARN_STEPS = 10
+AGENT_EPISODE_STEPS = 8
+LPIPS_COMPARED_FRAMES = 512
+AGENT_DEPLOY_EPISODES = 3
+ANALYSIS_RTOL = 1e-4
 # train_muzero's module (the entry package binds the function's name), whose
 # env factories phase 17 points at its stand-in
 TRAIN_MUZERO_MODULE = importlib.import_module("lightzero_tpu_torch.entry.train_muzero")
@@ -2647,13 +2687,16 @@ def phase_unizero(card: str, l2_ns: float) -> tuple:
             cfg.env.max_steps = train_steps
             cfg.policy.train_start_after_envsteps = 0
         cfg.policy.num_simulations = SHORT_TRAIN_SIMS
-        train, problems, *_ = short_train(cfg, card, label, cfg.policy.num_simulations,
-                                          timed_steps=UZ_TIMED_LEARN_STEPS)
+        train, problems, _, state, buffer = short_train(cfg, card, label,
+                                                        cfg.policy.num_simulations,
+                                                        timed_steps=UZ_TIMED_LEARN_STEPS)
         train.update(episodes_truncated_at=train_steps)
         emit(train)
         if problems:
             raise AssertionError(f"{label} train failed: {problems}")
-        records[label] = dict(eval=ev, card_vs_cpu=agreement, train=train)
+        # the run's buffer and target net feed phase 18's LPIPS learn steps
+        records[label] = dict(eval=ev, card_vs_cpu=agreement, train=train, buffer=buffer,
+                              target_model=state.target_model)
     wall = time.perf_counter() - t0
     emit(dict(phase="unizero_summary", wall_s=wall, card=card, **{
         f"{label}_{key}": value for label, rec in records.items() for key, value in (
@@ -3408,6 +3451,246 @@ def phase_host(card: str, tensor_eval_s: float, tensor_collect_sps: list) -> tup
     return records, wall
 
 
+def timed_forward_learn(policy, batch, n: int) -> list:
+    """ms of each of n learn steps on one batch (CUDA events), from a fresh
+    optimizer over the policy's model."""
+    state = policy.init_train_state()
+    out = []
+    for _ in range(n):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        state, logs, _ = policy.forward_learn(state, batch)
+        end.record()
+        torch.cuda.synchronize()
+        out.append(start.elapsed_time(end))
+        if not math.isfinite(float(logs["total_loss"])):
+            raise AssertionError(f"non-finite LPIPS learn-step loss {logs}")
+    return out
+
+
+def lpips_learn_on_card(card: str, uz: dict, tmp: str) -> tuple:
+    """(a) UniZero at the ws width with the reconstruction loss and the
+    LPIPS term on a batch of phase 15's buffer (256 x 11 frames of 10x10x4):
+    one learn step card vs CPU, lpips_distance card vs CPU on the first
+    LPIPS_COMPARED_FRAMES frames, the learn step timed with and without
+    the term, and the term's share of the step's device time from two
+    torch.profiler passes (torch_trace), whose Chrome trace must hold CUDA
+    kernels. (record, policy, batch)"""
+    cfg = deep_merge(uz_ws_config.policy, dict(latent_recon_loss_weight=LPIPS_RECON_WEIGHT,
+                                               perceptual_loss_weight=LPIPS_PERCEPTUAL_WEIGHT))
+    policy = UniZeroPolicy(cfg, device="cuda", seed=MAIN_SEED)
+    randomize_heads(policy.model, MAIN_SEED + 18)
+    batch, _ = uz["buffer"].sample(int(cfg.batch_size), uz["target_model"])
+    agreement, agree = learn_step_card_vs_cpu(policy, batch)
+    frames = batch.obs.reshape((-1,) + tuple(batch.obs.shape[2:]))
+    compared = frames[:LPIPS_COMPARED_FRAMES]
+    other = torch.roll(compared, 1, dims=0)
+    on_card = policy.lpips(compared, other)
+    on_cpu = lpips_distance(compared.cpu(), other.cpu())
+    lpips_err = float(((on_card.cpu() - on_cpu).abs() / on_cpu.abs().clamp(min=1e-6)).max())
+    timed = UniZeroPolicy(cfg, model=copy.deepcopy(policy.model), device="cuda")
+    plain = UniZeroPolicy(deep_merge(cfg, dict(perceptual_loss_weight=0.0)),
+                          model=copy.deepcopy(policy.model), device="cuda")
+    with_ms = timed_forward_learn(timed, batch, LPIPS_TIMED_STEPS)
+    without_ms = timed_forward_learn(plain, batch, LPIPS_TIMED_STEPS)
+    busy = {}
+    for label, p in (("with", timed), ("without", plain)):
+        state = p.init_train_state()
+        with torch_trace(os.path.join(tmp, f"trace_{label}")) as prof:
+            p.forward_learn(state, batch)
+        busy[label] = device_busy(prof)["busy_us"]
+    with open(os.path.join(tmp, "trace_with", "trace.json")) as f:
+        trace_kernels = sum(1 for e in json.load(f)["traceEvents"] if e.get("cat") == "kernel")
+    rec = dict(phase="lpips_learn", config="breakout_grid_unizero_ws+lpips",
+               latent_recon_loss_weight=LPIPS_RECON_WEIGHT,
+               perceptual_loss_weight=LPIPS_PERCEPTUAL_WEIGHT, batch=int(cfg.batch_size),
+               frames=int(frames.shape[0]), frame_shape=list(frames.shape[1:]),
+               lpips_compared_frames=int(compared.shape[0]),
+               card_vs_cpu=agreement, lpips_max_rel_err=lpips_err,
+               lpips_mean=float(on_cpu.mean()),
+               learn_step_ms_with_lpips=with_ms, learn_step_ms_without_lpips=without_ms,
+               learn_step_ms_median_with_lpips=float(np.median(with_ms)),
+               learn_step_ms_median_without_lpips=float(np.median(without_ms)),
+               device_busy_us_with_lpips=busy["with"], device_busy_us_without_lpips=busy["without"],
+               lpips_device_share=1.0 - busy["without"] / busy["with"],
+               trace_kernel_events=trace_kernels, card=card)
+    emit(rec)
+    if not agree:
+        raise AssertionError(f"LPIPS learn steps card vs CPU disagree: {agreement}")
+    if not lpips_err <= LPIPS_RTOL or not bool(torch.isfinite(on_cpu).all()):
+        raise AssertionError(f"lpips_distance card vs CPU {lpips_err} > {LPIPS_RTOL}")
+    if trace_kernels == 0:
+        raise AssertionError("torch_trace's Chrome trace holds no CUDA kernel")
+    return rec, policy, batch
+
+
+def landscape_on_card(policy, batch, card: str, tmp: str) -> dict:
+    """(b) loss_landscape_api in 1-D at LANDSCAPE_POINTS points on the LPIPS
+    policy and batch, on the card and on the CPU, on one direction drawn on
+    the CPU from a seeded generator: the surfaces within LEARN_LOG_RTOL of
+    each other, each model's parameters bit-unchanged."""
+    direction = random_direction(copy.deepcopy(policy.model).cpu(),
+                                 torch.Generator().manual_seed(MAIN_SEED))
+    out, walls = {}, {}
+    for dev in ("cuda", "cpu"):
+        p = type(policy)(policy.cfg, model=copy.deepcopy(policy.model), device=dev)
+        before = {k: v.clone() for k, v in p.model.state_dict().items()}
+        d = {k: v.to(dev) for k, v in direction.items()}
+        t0 = time.perf_counter()
+        res = loss_landscape_api(p, p.model, batch_to(batch, p.device), os.path.join(tmp, dev),
+                                 mode="1d", span=1.0, steps=LANDSCAPE_POINTS, render=dev == "cuda",
+                                 directions=(d, d))
+        walls[dev] = time.perf_counter() - t0
+        after = p.model.state_dict()
+        if not all(torch.equal(after[k], v) for k, v in before.items()):
+            raise AssertionError(f"loss_landscape_api changed the {dev} model's parameters")
+        out[dev] = res
+    err = float(np.max(np.abs(out["cuda"]["loss"] - out["cpu"]["loss"])
+                       / np.maximum(np.abs(out["cpu"]["loss"]), 1e-6)))
+    rec = dict(phase="loss_landscape", points=LANDSCAPE_POINTS, alphas=out["cpu"]["alphas"].tolist(),
+               loss_card=out["cuda"]["loss"].tolist(), loss_cpu=out["cpu"]["loss"].tolist(),
+               max_rel_err=err, wall_s_card=walls["cuda"], wall_s_cpu=walls["cpu"],
+               ms_per_point_card=1e3 * walls["cuda"] / LANDSCAPE_POINTS,
+               rendered=[os.path.basename(x) for x in out["cuda"]["rendered"]], card=card)
+    emit(rec)
+    if not err <= LEARN_LOG_RTOL or not np.isfinite(out["cuda"]["loss"]).all():
+        raise AssertionError(f"landscape card vs CPU {err} > {LEARN_LOG_RTOL}: {rec}")
+    if np.ptp(out["cuda"]["loss"]) <= 0:
+        raise AssertionError("the landscape is flat: the direction did not move the loss")
+    return rec
+
+
+def agent_on_card(card: str, tmp: str) -> dict:
+    """(c) MuZeroAgent on the bundled gym_cartpole_v0 config at its full
+    width (latent 128, 25 simulations, batch 256), on the card by default:
+    train (an eval at iter 0, one collect round of SHORT_COLLECT_STEPS
+    batched steps over twice the config's envs, AGENT_LEARN_STEPS learn
+    steps), then deploy with replay, its CartPole episodes cut at
+    AGENT_EPISODE_STEPS. Launches = (collect + eval searches)
+    x 25 for train and deploy's env steps x 25; one replay per ended
+    episode, its arrays of one length, episode_return their sum."""
+    agent = MuZeroAgent("gym_cartpole_v0", exp_name=os.path.join(tmp, "agent"))
+    agent.cfg.policy.update_per_collect = AGENT_LEARN_STEPS
+    # the collect round halved as short_train halves it: SHORT_COLLECT_STEPS
+    # batched steps over twice the config's envs; with episodes cut at
+    # AGENT_EPISODE_STEPS every env ends one in the round, so the buffer
+    # holds the batch of 256
+    agent.cfg.env.collector_env_num *= 2
+    agent.cfg.env.max_episode_steps = AGENT_EPISODE_STEPS
+    sims = int(agent.cfg.policy.num_simulations)
+    n_envs = int(agent.cfg.env.collector_env_num)
+    TRAIN_MUZERO_MODULE.RolloutCollector = functools.partial(
+        RolloutCollector, rollout_length=SHORT_COLLECT_STEPS)
+    fused_traverse.launches = 0
+    t0 = time.perf_counter()
+    try:
+        stats = agent.train(max_env_step=1)
+    finally:
+        TRAIN_MUZERO_MODULE.RolloutCollector = RolloutCollector
+    torch.cuda.synchronize()
+    train_wall = time.perf_counter() - t0
+    train_launches = fused_traverse.launches
+    expected_train = (stats["env_steps"] // n_envs + stats["eval_env_steps"]) * sims
+    replay_dir = os.path.join(tmp, "replays")
+    fused_traverse.launches = 0
+    t0 = time.perf_counter()
+    res = agent.deploy(n_episodes=AGENT_DEPLOY_EPISODES, enable_save_replay=True,
+                       replay_path=replay_dir)
+    torch.cuda.synchronize()
+    deploy_wall = time.perf_counter() - t0
+    deploy_launches = fused_traverse.launches
+    problems = []
+    lengths = []
+    for i, ret in enumerate(res["episode_returns"]):
+        rep = np.load(os.path.join(replay_dir, f"episode_{i}.npz"))
+        T = len(rep["rewards"])
+        lengths.append(T)
+        if not (T > 0 and rep["obs"].shape[0] == T == rep["actions"].shape[0]):
+            problems.append(f"replay {i}: lengths {rep['obs'].shape} {rep['actions'].shape} {T}")
+        if not abs(float(rep["episode_return"]) - float(rep["rewards"].sum())) <= 1e-6 * max(T, 1):
+            problems.append(f"replay {i}: episode_return is not the sum of its rewards")
+        if float(rep["episode_return"]) != ret:
+            problems.append(f"replay {i}: episode_return {float(rep['episode_return'])} != {ret}")
+    replays = sorted(os.listdir(replay_dir))
+    rec = dict(phase="agent", config="agent.BUNDLED_CONFIGS muzero gym_cartpole_v0",
+               train_iter=stats["train_iter"], env_steps=stats["env_steps"],
+               eval_searches=stats["eval_env_steps"], train_launches=train_launches,
+               expected_train_launches=expected_train, train_wall_s=train_wall,
+               deploy_env_steps=res["env_steps"], deploy_launches=deploy_launches,
+               expected_deploy_launches=res["env_steps"] * sims, deploy_wall_s=deploy_wall,
+               deploy_returns=res["episode_returns"], replay_files=len(replays),
+               replay_lengths=lengths, card=card)
+    emit(rec)
+    if stats["train_iter"] != AGENT_LEARN_STEPS:
+        problems.append(f"train_iter {stats['train_iter']} != {AGENT_LEARN_STEPS}")
+    if train_launches != expected_train or deploy_launches != res["env_steps"] * sims:
+        problems.append("launches differ from their formulas")
+    if len(replays) != len(res["episode_returns"]) or len(replays) < AGENT_DEPLOY_EPISODES:
+        problems.append(f"{len(replays)} replay files for {len(res['episode_returns'])} episodes")
+    if problems:
+        raise AssertionError(f"Agent on the card: {problems}")
+    return rec
+
+
+def small_checks_on_card(policy, batch, card: str, tmp: str) -> dict:
+    """(d) augment_batch with injected draws, the analysis metrics on the
+    batch's latents, card vs CPU; the gated Atari config ends in the
+    adapter's ImportError on this machine (ale_py absent)."""
+    frames = batch.obs[:, 0]
+    rng = np.random.default_rng(MAIN_SEED)
+    shifts = torch.from_numpy(rng.integers(0, 9, (frames.shape[0], 2)))
+    noise = torch.from_numpy(rng.standard_normal(frames.shape[0]).astype(np.float32))
+    aug = {dev: augment_batch(frames.to(dev), shifts=shifts, noise=noise).cpu()
+           for dev in ("cuda", "cpu")}
+    aug_err = float((aug["cuda"] - aug["cpu"]).abs().max())
+    with torch.no_grad():
+        latent = policy.model.train_forward(batch.obs, batch.actions)["obs_embeddings"][:, 0]
+    metrics = {}
+    for dev in ("cuda", "cpu"):
+        x = latent.to(dev)
+        metrics[dev] = dict(dormant_ratio=float(analysis.dormant_ratio(x)),
+                            effective_rank=float(analysis.effective_rank(x)),
+                            average_weight_magnitude=float(analysis.average_weight_magnitude(
+                                {k: v.to(dev) for k, v in policy.model.named_parameters()})),
+                            **{k: float(v) for k, v in analysis.latent_norm_stats(x).items()})
+    metric_err = max(abs(metrics["cuda"][k] - v) / max(abs(v), 1e-6)
+                     for k, v in metrics["cpu"].items())
+    try:
+        cfg = copy.deepcopy(atari_config)
+        cfg.exp_name = os.path.join(tmp, "atari_muzero")
+        train_muzero(cfg, max_env_step=1)
+        gated = "ran"
+    except ImportError as e:
+        gated = f"ImportError: {e}"
+    rec = dict(phase="small_checks", augment_max_abs_err=aug_err, metrics=metrics,
+               metrics_max_rel_err=metric_err, atari_config=gated, card=card)
+    emit(rec)
+    if aug_err > 1e-6 or metric_err > ANALYSIS_RTOL or not gated.startswith("ImportError"):
+        raise AssertionError(f"phase 18 small checks failed: {rec}")
+    return rec
+
+
+def phase_rest_of_item_20(card: str, uz: dict) -> tuple:
+    """Phase 18: LPIPS in UniZero's learn step, the loss landscape, the
+    Agent API with replay capture, augment, the analysis metrics and
+    torch_trace on the card."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        lpips, policy, batch = lpips_learn_on_card(card, uz, tmp)
+        landscape = landscape_on_card(policy, batch, card, tmp)
+        agent = agent_on_card(card, tmp)
+        small = small_checks_on_card(policy, batch, card, tmp)
+    wall = time.perf_counter() - t0
+    emit(dict(phase="rest_of_item_20_summary", wall_s=wall, card=card,
+              lpips_learn_step_ms=lpips["learn_step_ms_median_with_lpips"],
+              plain_learn_step_ms=lpips["learn_step_ms_median_without_lpips"],
+              lpips_device_share=lpips["lpips_device_share"],
+              landscape_ms_per_point=landscape["ms_per_point_card"],
+              agent_train_wall_s=agent["train_wall_s"], agent_deploy_wall_s=agent["deploy_wall_s"]))
+    return dict(lpips=lpips, landscape=landscape, agent=agent, small=small), wall
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs on a GPU", file=sys.stderr)
@@ -3449,6 +3732,7 @@ def main() -> int:
     cases += mt_cases
     host, host_wall = phase_host(card, main_rec["wall_per_env_step_s"],
                                  train["collect_steps_per_s"])
+    rest, rest_wall = phase_rest_of_item_20(card, uz["unizero"])
 
     main_case = next(c for c in cases if (c["B"], c["A"], c["N"], c["tie_break"]) == (3, 2, 26, "noise"))
     kernels = [dict(
@@ -3521,6 +3805,11 @@ def main() -> int:
            for name, rec in host["gymnasium"].items() if rec["ran"]},
         launches_rnd_memory=host["rnd"]["launches"],
         launches_eval_offline=host["eval_offline"]["launches"],
+        # phase 18: the Agent's training run and its deploy (CartPole MuZero,
+        # A=2, prefetch route); the LPIPS learn steps and the landscape
+        # search nothing
+        launches_agent_train=rest["agent"]["train_launches"],
+        launches_agent_deploy=rest["agent"]["deploy_launches"],
         max_abs_err=max(c["max_abs_err"] for c in cases),
         ms=main_case["ms"],
         # launch to launch through the wrapper, the host's dispatch included:
@@ -3596,7 +3885,14 @@ def main() -> int:
               host_wall_s=host_wall,
               host_standin_eval_s_per_env_step=host["standin"]["host_eval_s_per_env_step"],
               rnd_learn_step_ms=host["rnd"]["learn_step_ms_median"],
-              harmony_learn_step_ms=host["harmony"]["learn_step_ms_median"]))
+              harmony_learn_step_ms=host["harmony"]["learn_step_ms_median"],
+              rest_of_item_20_wall_s=rest_wall,
+              lpips_learn_step_ms=rest["lpips"]["learn_step_ms_median_with_lpips"],
+              unizero_ws_learn_step_ms_without_lpips=rest["lpips"][
+                  "learn_step_ms_median_without_lpips"],
+              landscape_ms_per_point=rest["landscape"]["ms_per_point_card"],
+              agent_train_wall_s=rest["agent"]["train_wall_s"],
+              agent_deploy_wall_s=rest["agent"]["deploy_wall_s"]))
     faulthandler.cancel_dump_traceback_later()
     signal.alarm(0)
     print(card, flush=True)

@@ -85,6 +85,7 @@ class GameBuffer:
         self._episodes: List[EpisodeRecord] = []
         self._priorities: List[np.ndarray] = []
         self._total_transitions = 0
+        self._pushed_transitions = 0  # every transition pushed, evicted or not
         self.capacity = int(cfg.replay_buffer_size)
         self.alpha = float(cfg.priority_prob_alpha)
         self.beta = float(cfg.priority_prob_beta)
@@ -125,6 +126,7 @@ class GameBuffer:
             self._episodes.append(ep)
             self._priorities.append(np.maximum(p, 1e-6))
             self._total_transitions += T
+            self._pushed_transitions += T
         self._evict()
         self._flat_dirty = True
 

@@ -32,3 +32,15 @@ eval_muzero_with_gym_env = eval_muzero
 # the reference's multitask _eval entry: the offline sweep of a run's
 # checkpoints
 train_unizero_multitask_segment_eval = eval_offline
+
+
+def train_unizero_with_loss_landscape(cfg, *args, **kwargs):
+    """The shared loop with its post-training loss-landscape analysis
+    (reference lzero/entry/train_unizero_with_loss_landscape.py), as the
+    JAX package's entry/__init__.py defines it: sets
+    ``policy.analysis_loss_landscape`` on ``cfg`` (the main config of a
+    [main, create] pair) and calls ``train_muzero``."""
+    if isinstance(cfg, (list, tuple)):
+        cfg = cfg[0]
+    cfg["policy"]["analysis_loss_landscape"] = True
+    return train_muzero(cfg, *args, **kwargs)

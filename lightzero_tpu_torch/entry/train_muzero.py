@@ -52,8 +52,12 @@ config with ``reward_model``: it trains through
 ``train_muzero_with_reward_model``, where the JAX ``train_muzero`` trains
 without the reward model's bonus and says nothing (``JAX_REWARD_MODEL_QUIRK``).
 
-Not ported yet, and refused with ``NotImplementedError``: the loss-landscape
-analysis (its ROADMAP item is named in the error).
+With ``policy.analysis_loss_landscape`` the run ends with the loss
+landscape around the trained params (``loss_landscape_api`` on one batch
+sampled with the target model, ``policy.loss_landscape_mode``, "1d" by
+default) under ``<exp_name>/loss_landscape``, as the JAX entry does
+(train_muzero.py:346-357); ``entry.train_unizero_with_loss_landscape``
+sets the flag.
 """
 from __future__ import annotations
 
@@ -309,10 +313,6 @@ def _check_scope(pcfg: Config) -> None:
         raise ValueError(
             f"the {policy_type} policy does not run on board games: "
             f"{JAX_BOARD_FAULTS[policy_type]} (ROADMAP queue 3)")
-    if pcfg.get("analysis_loss_landscape", False):
-        raise NotImplementedError(
-            "the loss-landscape analysis is not ported yet (ROADMAP queue 1, slice 20)"
-        )
 
 
 def train_muzero(
@@ -513,6 +513,16 @@ def train_muzero(
                 json.dump(dict(last_ckpt=name, train_iter=train_iter,
                                env_steps=int(collector.total_env_steps)), f)
 
+    # post-training loss-landscape analysis (reference
+    # train_unizero_with_loss_landscape's final phase)
+    if pcfg.get("analysis_loss_landscape", False) and buffer.num_transitions >= batch_size:
+        from lightzero_tpu_torch.loss_landscape import loss_landscape_api
+
+        batch, _ = buffer.sample(batch_size, state.target_model)
+        loss_landscape_api(policy, state.model, batch,
+                           os.path.join(cfg.exp_name, "loss_landscape"),
+                           mode=str(pcfg.get("loss_landscape_mode", "1d")))
+        logger.info(f"loss_landscape: surface saved under {cfg.exp_name}/loss_landscape")
     save_checkpoint(state, os.path.join(ckpt_dir, "ckpt_final"))
     logger.close()
     return policy, state, dict(

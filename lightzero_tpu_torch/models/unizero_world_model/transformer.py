@@ -25,6 +25,13 @@ Deliberate differences from the JAX module:
   slots, the tokens are written in order, so the latest position holds each
   slot; XLA leaves the order of a scatter's duplicate indices unspecified.
 
+Attention maps: the JAX module sows each layer's softmaxed attention of
+the full-sequence (training) forward into flax's "intermediates"
+collection. Here ``capture_attention(module)`` turns on the same capture
+for the block it wraps: each ``SelfAttention`` under ``module`` appends its
+(B, H, T, T) attention, detached, to the list the context yields, layer by
+layer in call order. Off (the default) it costs one attribute test a layer.
+
 Other flax behaviour kept: ``nn.gelu`` is the tanh approximation; LayerNorms
 use eps 1e-6; Dense kernels (in, out) become Linear weights (out, in) in
 ``utils/params_import.py``, while the LoRA factors keep flax's orientation.
@@ -33,10 +40,11 @@ Module names follow flax's (``blocks.i`` for ``Block_i``, ``norm.i`` for
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 import re
-from typing import Dict, List, NamedTuple, Optional, Tuple
+from typing import Dict, Iterator, List, NamedTuple, Optional, Tuple
 
 import torch
 from torch import nn
@@ -223,6 +231,7 @@ class SelfAttention(nn.Module):
         D = cfg.embed_dim
         self.qkv = _dense(cfg, D, 3 * D, False, generator)
         self.out_proj = _dense(cfg, D, D, False, generator)
+        self.captured: Optional[List[torch.Tensor]] = None  # see capture_attention
 
     def forward(self, x: torch.Tensor, rope: Tuple[torch.Tensor, torch.Tensor],
                 mask: Tuple[torch.Tensor, torch.Tensor], cache: Optional[KVCache] = None):
@@ -244,8 +253,26 @@ class SelfAttention(nn.Module):
         bias, nonempty = mask
         att = torch.einsum("bhqd,bhkd->bhqk", q, k) / math.sqrt(Dh) + bias
         att = torch.softmax(att, dim=-1) * nonempty
+        if self.captured is not None and cache is None:
+            self.captured.append(att.detach())
         y = torch.einsum("bhqk,bhkd->bhqd", att, v).transpose(1, 2).reshape(B, T, D)
         return self.out_proj(y), new_kv
+
+
+@contextlib.contextmanager
+def capture_attention(module: nn.Module) -> Iterator[List[torch.Tensor]]:
+    """Within the block, every full-sequence forward of a ``SelfAttention``
+    under ``module`` appends its softmaxed (B, H, T, T) attention to the
+    yielded list (flax's ``sow("intermediates", "attention", att)``)."""
+    layers = [m for m in module.modules() if isinstance(m, SelfAttention)]
+    captured: List[torch.Tensor] = []
+    for layer in layers:
+        layer.captured = captured
+    try:
+        yield captured
+    finally:
+        for layer in layers:
+            layer.captured = None
 
 
 class Block(nn.Module):

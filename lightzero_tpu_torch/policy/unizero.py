@@ -18,8 +18,10 @@ Training: one pass over the interleaved sequence gives the value, policy and
 reward cross-entropies and the next-latent loss (``predict_latent_loss``:
 MSE or the SimNorm groups' KL), the policy-entropy term, with the adaptive
 temperature ``log_alpha`` (its own Adam) against a target entropy annealed
-by ``train_iter``; the optional reconstruction loss through the decoder;
-the drift correction, passes that feed the model's own predicted
+by ``train_iter``; the optional reconstruction loss through the decoder,
+with the LPIPS perceptual term (``ops/lpips.py``, a frozen VGG trunk that
+the policy holds) on image observations when ``perceptual_loss_weight`` >
+0; the drift correction, passes that feed the model's own predicted
 embeddings back as obs tokens, to ``drift_correction_depth``. The learn
 step accumulates gradients over ``accumulation_steps`` micro-batches, skips
 a step whose loss or gradients are not finite (params, optimizer state and
@@ -42,8 +44,7 @@ its searches, its bootstrap values and its reanalyze prefill on its task;
 switches the CurriculumLoRA stage in place and rebuilds the optimizer over
 the new stage's trainable parameters.
 
-Refused with ``NotImplementedError``: ``perceptual_loss_weight > 0`` (the
-LPIPS term, ROADMAP queue 1, item 20); another ``optim_type`` than AdamW (no
+Refused with ``NotImplementedError``: another ``optim_type`` than AdamW (no
 UniZero config sets one).
 """
 from __future__ import annotations
@@ -68,6 +69,7 @@ from lightzero_tpu_torch.ops import (
     phi_transform,
     scalar_transform,
 )
+from lightzero_tpu_torch.ops.lpips import LPIPS
 from lightzero_tpu_torch.policy.muzero import MuZeroPolicy, TrainBatch, TrainState
 from lightzero_tpu_torch.search.puct import batch_puct_search
 from lightzero_tpu_torch.search.types import RecurrentOutput, RootOutput
@@ -146,10 +148,12 @@ class UniZeroPolicy(MuZeroPolicy):
 
     def __init__(self, cfg=None, model=None, device=None, seed: int = 0):
         super().__init__(cfg, model=model, device=device, seed=seed)
-        if float(self.cfg.get("perceptual_loss_weight", 0.0)) > 0:
-            raise NotImplementedError(
-                "the LPIPS perceptual loss (perceptual_loss_weight > 0, ops/lpips.py) is not "
-                "ported yet (ROADMAP queue 1, item 20)")
+        # the frozen LPIPS trunk of the perceptual term: the policy's, not
+        # the model's, so that it is in no optimizer and no state dict
+        self.lpips = None
+        if (float(self.cfg.get("perceptual_loss_weight", 0.0)) > 0
+                and float(self.cfg.get("latent_recon_loss_weight", 0.0)) > 0):
+            self.lpips = LPIPS(self.device)
 
     def _build_model(self, model_cfg: Config, generator: torch.Generator) -> nn.Module:
         if float(self.cfg.get("latent_recon_loss_weight", 0.0)) > 0:
@@ -367,8 +371,12 @@ class UniZeroPolicy(MuZeroPolicy):
         if recon_w > 0:
             B, K1 = batch.obs.shape[:2]
             recon = model.decode_obs(out["obs_embeddings"].reshape(B * K1, -1))
-            latent_recon_loss = torch.mean(
-                (recon - batch.obs.reshape((B * K1,) + batch.obs.shape[2:])) ** 2)
+            obs_flat = batch.obs.reshape((B * K1,) + batch.obs.shape[2:])
+            latent_recon_loss = torch.mean((recon - obs_flat) ** 2)
+            pw = float(cfg.get("perceptual_loss_weight", 0.0))
+            if pw > 0 and recon.ndim == 4:  # image observations only: NHWC, as in JAX
+                latent_recon_loss = latent_recon_loss + (pw / recon_w) * torch.mean(
+                    self.lpips(torch.clamp(recon, 0.0, 1.0), torch.clamp(obs_flat, 0.0, 1.0)))
 
         dc_w = float(cfg.get("drift_correction_weight", 0.0))
         dc_depth = int(cfg.get("drift_correction_depth", 1))

@@ -230,6 +230,34 @@ def test_host_envs_rnd_and_eval_offline_import_without_jax_or_the_host_libraries
     assert proc.returncode == 0, proc.stderr
 
 
+# the rest of the JAX package (slice 21): the Agent API, the loss landscape,
+# LPIPS, the analysis, visualisation and text-encoder modules, augment,
+# profiling, the logger and the gated configs, named as above, imported with
+# the host libraries, matplotlib and tensorboard blocked too
+REST_MODULES = (
+    "lightzero_tpu_torch.agent", "lightzero_tpu_torch.agent.agent",
+    "lightzero_tpu_torch.agent.configs", "lightzero_tpu_torch.loss_landscape",
+    "lightzero_tpu_torch.loss_landscape.core", "lightzero_tpu_torch.loss_landscape.plots",
+    "lightzero_tpu_torch.ops.lpips", "lightzero_tpu_torch.ops.augment",
+    "lightzero_tpu_torch.models.analysis", "lightzero_tpu_torch.models.visualize",
+    "lightzero_tpu_torch.models.text_encoders", "lightzero_tpu_torch.utils.profiling",
+    "lightzero_tpu_torch.utils.logger", "lightzero_tpu_torch.workers.evaluator",
+    *(f"lightzero_tpu_torch.configs.{name}" for name in (
+        "atari_muzero", "atari_unizero_moe", "minigrid_muzero_rnd", "jericho_unizero",
+        "metadrive_sampled_efficientzero", "sum_to_three_vector_obs_sez")),
+)
+
+
+def test_the_rest_of_the_jax_package_imports_without_jax_or_optional_libraries():
+    blocked = FORBIDDEN + HOST_LIBRARIES + ("matplotlib", "tensorboard", "wandb", "sklearn")
+    proc = subprocess.run(
+        [sys.executable, "-c", _IMPORT_NAMED.format(forbidden=blocked, modules=REST_MODULES)],
+        cwd=REPO, capture_output=True, text=True, timeout=120,
+        env=dict(os.environ, PYTHONPATH=str(REPO)),
+    )
+    assert proc.returncode == 0, proc.stderr
+
+
 def _imported_roots(path: pathlib.Path, module_level: bool = False):
     """The top-level package of each import of ``path``; with
     ``module_level``, of the imports that run when the module is imported
@@ -342,6 +370,18 @@ def test_host_workers_rnd_and_their_entries_without_device_raise_with_no_cuda(no
     for fn in (train_muzero_with_reward_model, eval_offline):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             fn(cfg)
+
+
+def test_agent_and_lpips_without_device_raise_with_no_cuda(no_cuda):
+    from lightzero_tpu_torch.agent import AlphaZeroAgent, MuZeroAgent, UniZeroAgent
+    from lightzero_tpu_torch.ops.lpips import LPIPS
+
+    for cls, env_id in ((MuZeroAgent, "gym_cartpole_v0"), (UniZeroAgent, "gym_cartpole_v0"),
+                        (AlphaZeroAgent, "tictactoe_play_with_bot")):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            cls(env_id)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        LPIPS()
 
 
 def test_alphazero_policy_without_device_raises_with_no_cuda(no_cuda):

@@ -160,21 +160,21 @@ GOMOKU_MODEL = dict(observation_shape=(6, 6, 3), action_space_size=36, model_typ
 
 
 # the gumbel_muzero-on-a-board and gomoku cases were refused until slice
-# 17's second half was ported, and the harmony case until slice 20; each now
-# builds its policy and takes one collect. UniZero was refused until slice 18; what stays refused of it is
-# the LPIPS perceptual loss (item 20). The multitask types train through
-# their own entries since slice 19; train_muzero refuses them with the
-# failure they meet in the JAX package's train_muzero
+# 17's second half was ported, the harmony case until slice 20, and UniZero
+# with the LPIPS perceptual loss and the loss-landscape analysis until slice
+# 21; each now builds its policy and takes one collect. The multitask types
+# train through their own entries since slice 19; train_muzero refuses them
+# with the failure they meet in the JAX package's train_muzero
 @pytest.mark.parametrize("override,error,match", [
     (dict(policy=dict(type="unizero", latent_recon_loss_weight=0.1, perceptual_loss_weight=1.0)),
-     NotImplementedError, "item 20"),
+     None, None),
     (dict(policy=dict(type="muzero_multitask")), ValueError, "AttributeError"),
     (dict(policy=dict(type="gumbel_muzero", env_type="board_games")), None, None),
     (dict(env=dict(env_id="gomoku", env_kwargs=dict(board_size=6, n_in_row=4)),
           policy=dict(env_type="board_games", model=GOMOKU_MODEL)), None, None),
     (dict(policy=dict(type="sampled_muzero", env_type="board_games")), ValueError,
      "float arrays"),
-    (dict(policy=dict(analysis_loss_landscape=True)), NotImplementedError, "slice 20"),
+    (dict(policy=dict(analysis_loss_landscape=True)), None, None),
     (dict(policy=dict(model=dict(MODEL, harmony_balance=True))), None, None),
 ], ids=["unizero", "multitask", "gumbel_board", "gomoku", "sampled_board", "landscape",
         "harmony"])
@@ -190,6 +190,12 @@ def test_train_muzero_refuses_what_is_not_ported(tmp_path, override, error, matc
     assert stats["env_steps"] > 0 and stats["buffer"].num_transitions > 0
     if cfg.policy.get("env_type") == "board_games":
         assert policy.players == 2
+    if cfg.policy.get("perceptual_loss_weight"):
+        assert policy.lpips is not None  # built, and idle on vector observations
+    if cfg.policy.get("analysis_loss_landscape"):
+        # the surface after training, as JAX writes it (slice 21)
+        surface = np.load(os.path.join(cfg.exp_name, "loss_landscape", "loss_surface_1d.npz"))
+        assert surface["loss"].shape == (11,) and np.isfinite(surface["loss"]).all()
     if cfg.policy.model.get("harmony_balance"):
         # HarmonyDream runs since slice 20: its scalars start at 0 and train
         assert state.train_iter > 0

@@ -188,13 +188,17 @@ def as_port(b):
     return TrainBatch(**{k: torch.from_numpy(v) for k, v in b.items()})
 
 
-def adam_scale_seen(jax_policy, params, batch, it, seen=None):
+def adam_scale_seen(jax_policy, params, batch, it, seen=None, grad_fn=None):
     """tests/test_torch_efficientzero.py's per-step Adam scale: adds one step
     to ``seen`` = (second-moment EMA of the gradient Adam sees, steps, least
     sqrt(v_t) so far) and returns it with the least scale as
     ``assert_params_close`` takes it, (scale squared, 1). Adam sees the
-    clipped gradient alone: AdamW decays after Adam's scaling."""
-    grads = jax.grad(lambda p: jax_policy._loss_fn(p, batch, jnp.asarray(it))[0])(params)
+    clipped gradient alone: AdamW decays after Adam's scaling. ``grad_fn(params,
+    batch, it)`` (a jitted gradient, say) replaces the eager ``jax.grad``."""
+    if grad_fn is None:
+        grads = jax.grad(lambda p: jax_policy._loss_fn(p, batch, jnp.asarray(it))[0])(params)
+    else:
+        grads = grad_fn(params, batch, jnp.asarray(it))
     clip = min(1.0, float(jax_policy.cfg.grad_clip_value) / float(optax.global_norm(grads)))
     sq = {k: (clip * g) ** 2 for k, g in flat(grads).items()}
     b2 = 0.999

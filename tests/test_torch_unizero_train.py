@@ -160,16 +160,22 @@ def test_entry_aliases():
     assert entry.eval_unizero is entry.eval_muzero
 
 
+# the lpips case was refused until slice 21: the perceptual term is built
+# and, on CartPole's vector observations, left out of the loss as in JAX
 @pytest.mark.parametrize("override,error,match", [
     (dict(type="unizero_multitask"), ValueError, "train_muzero_multitask"),
     (dict(type="sampled_unizero_multitask"), ValueError, "train_muzero_multitask"),
-    (dict(perceptual_loss_weight=0.5, latent_recon_loss_weight=0.1), NotImplementedError,
-     "item 20"),
+    (dict(perceptual_loss_weight=0.5, latent_recon_loss_weight=0.1), None, None),
     (dict(optim_type="Adam"), NotImplementedError, "AdamW"),
 ], ids=["multitask", "sampled_multitask", "lpips", "adam"])
 def test_train_unizero_refuses_what_is_not_ported(tmp_path, override, error, match):
     cfg = shrunk("cartpole_unizero", tmp_path / "exp")
     cfg.policy.update(override)
+    if error is None:
+        policy, state, stats = entry.train_unizero(cfg, device="cpu", max_train_iter=1)
+        assert policy.lpips is not None and stats["train_iter"] >= 1
+        assert all(torch.isfinite(p).all() for p in state.model.parameters())
+        return
     with pytest.raises(error, match=match):
         entry.train_unizero(cfg, device="cpu")
 
