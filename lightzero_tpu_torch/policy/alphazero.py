@@ -32,6 +32,7 @@ from lightzero_tpu_torch.ops.action import sample_from_visit_counts
 from lightzero_tpu_torch.policy.muzero import clip_by_global_norm_
 from lightzero_tpu_torch.search.puct import batch_puct_search
 from lightzero_tpu_torch.search.types import RecurrentOutput, RootOutput, SearchConfig
+from lightzero_tpu_torch.utils import profiling
 from lightzero_tpu_torch.utils.device import resolve_device
 
 
@@ -160,6 +161,7 @@ class AlphaZeroPolicy:
         sampled from the visit counts at ``temperature``, or their argmax
         without root noise when ``deterministic``. ``noise`` (B, A)
         replaces the Dirichlet draw (for tests)."""
+        profiling.new_request()
         obs, legal, root = self._root(env_state)
         return self._search_and_act(obs, root, legal, env_state.to_play, temperature,
                                     deterministic, noise)

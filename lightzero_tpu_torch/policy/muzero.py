@@ -47,6 +47,7 @@ from lightzero_tpu_torch.ops import (
 from lightzero_tpu_torch.ops.action import sample_from_visit_counts
 from lightzero_tpu_torch.search.puct import batch_puct_search
 from lightzero_tpu_torch.search.types import RecurrentOutput, RootOutput, SearchConfig
+from lightzero_tpu_torch.utils import profiling
 from lightzero_tpu_torch.utils.device import resolve_device
 
 
@@ -459,11 +460,13 @@ class MuZeroPolicy:
         """Search from the observations' roots and act (``forward_collect``,
         ``forward_eval``). ``noise`` (B, A) replaces the Dirichlet draw (for
         tests)."""
+        profiling.new_request()
         g = self.generator
         obs = obs.to(self.device, torch.float32)
         legal_mask = legal_mask.to(self.device)
-        out0 = self._initial(self.model, obs)
-        pred_value = inverse_scalar_transform(out0.value_logits, self.value_support)
+        with profiling.span("model.initial"):
+            out0 = self._initial(self.model, obs)
+            pred_value = inverse_scalar_transform(out0.value_logits, self.value_support)
         if bool(self.cfg.get("collect_with_pure_policy", False)):
             # no-search mode (reference muzero.py:800-812): act from the
             # softmax policy over legal actions
@@ -513,15 +516,17 @@ class MuZeroPolicy:
             generator=g,
             device=self.device,
         )
-        actions, dist_entropy = sample_from_visit_counts(
-            search_out.visit_counts, temperature, deterministic=deterministic, generator=g
-        )
-        if not deterministic and epsilon > 0:
-            # epsilon-greedy over legal actions (collect_epsilon, muzero.py:772)
-            B = legal_mask.shape[0]
-            rand_action = torch.multinomial(legal_mask.to(torch.float32), 1, generator=g).squeeze(-1)
-            explore = torch.rand(B, generator=g, device=self.device) < epsilon
-            actions = torch.where(explore, rand_action, actions)
+        with profiling.span("policy.act"):
+            actions, dist_entropy = sample_from_visit_counts(
+                search_out.visit_counts, temperature, deterministic=deterministic, generator=g
+            )
+            if not deterministic and epsilon > 0:
+                # epsilon-greedy over legal actions (collect_epsilon, muzero.py:772)
+                B = legal_mask.shape[0]
+                rand_action = torch.multinomial(legal_mask.to(torch.float32), 1,
+                                                generator=g).squeeze(-1)
+                explore = torch.rand(B, generator=g, device=self.device) < epsilon
+                actions = torch.where(explore, rand_action, actions)
         return dict(
             action=actions,
             visit_counts=search_out.visit_counts,
@@ -564,6 +569,7 @@ class MuZeroPolicy:
         uniforms, the policy's own generator by default; ``noise`` (B, A)
         replaces the Dirichlet draw (for tests). ``true_action`` with
         ``reuse_value`` selects ReZero's reuse search (muzero.py:493-533)."""
+        profiling.new_request()
         obs = obs.to(self.device, torch.float32)
         out0 = self._initial(target_model, obs)
         root = RootOutput(

@@ -27,6 +27,7 @@ from lightzero_tpu_torch.config import Config
 from lightzero_tpu_torch.ops import inverse_scalar_transform
 from lightzero_tpu_torch.policy.muzero import MuZeroPolicy
 from lightzero_tpu_torch.search.types import RootOutput
+from lightzero_tpu_torch.utils import profiling
 
 CollectState = Dict[str, torch.Tensor]
 
@@ -77,6 +78,7 @@ class MuZeroContextPolicy(MuZeroPolicy):
         """One search from the context's root latent: (the outputs of
         ``_forward_collect``, the next context). ``noise`` (B, A) replaces
         the Dirichlet draw (for tests)."""
+        profiling.new_request()
         model = self.model
         obs = obs.to(self.device, torch.float32)
         legal_mask = legal_mask.to(self.device)

@@ -17,6 +17,7 @@ import torch
 from lightzero_tpu_torch.config import Config
 from lightzero_tpu_torch.policy.alphazero import AlphaZeroPolicy
 from lightzero_tpu_torch.search.types import RecurrentOutput
+from lightzero_tpu_torch.utils import profiling
 
 
 def gumbel_top_k_mask(logits: torch.Tensor, legal: torch.Tensor, k: int,
@@ -63,6 +64,7 @@ class SampledAlphaZeroPolicy(AlphaZeroPolicy):
         """AlphaZero's collect step on the root's sampled subset.
         ``root_gumbel`` (B, A) and ``sim_gumbel`` (num_simulations, B, A)
         replace the subsets' Gumbel draws (for tests)."""
+        profiling.new_request()
         obs, legal, root = self._root(env_state)
         g = root_gumbel.to(self.device) if root_gumbel is not None else self._draw_gumbel(
             root.prior_logits)

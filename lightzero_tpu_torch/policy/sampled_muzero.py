@@ -47,6 +47,7 @@ from lightzero_tpu_torch.ops.action import sample_from_visit_counts
 from lightzero_tpu_torch.policy.muzero import MuZeroPolicy, TrainBatch, negative_cosine_similarity
 from lightzero_tpu_torch.search.puct import batch_puct_search
 from lightzero_tpu_torch.search.types import RecurrentOutput, RootOutput
+from lightzero_tpu_torch.utils import profiling
 
 _LOG_EPS = 1e-6
 _REANALYZE_REFUSED = (
@@ -225,6 +226,7 @@ class SampledMuZeroPolicy(MuZeroPolicy):
         policy. ``noise`` (B, K) replaces the root's Dirichlet draw,
         ``root_draws`` the root's candidate draws and ``sim_draws``
         (num_simulations, ...) those of each simulation (for tests)."""
+        profiling.new_request()
         g, dev = self.generator, self.device
         obs = obs.to(dev, torch.float32)
         out0 = self.model.initial_inference(obs)

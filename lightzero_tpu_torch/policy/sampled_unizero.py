@@ -51,6 +51,7 @@ from lightzero_tpu_torch.policy.sampled_muzero import (
 from lightzero_tpu_torch.policy.unizero import UniZeroPolicy, predict_latent_loss
 from lightzero_tpu_torch.search.puct import batch_puct_search
 from lightzero_tpu_torch.search.types import RecurrentOutput, RootOutput
+from lightzero_tpu_torch.utils import profiling
 
 _REANALYZE_REFUSED = (
     "reanalyze is not ported for Sampled UniZero: the JAX policy's reanalyze searches "
@@ -123,6 +124,7 @@ class SampledUniZeroPolicy(UniZeroPolicy):
         candidate, and append it to the context. ``epsilon`` is unused, as in
         the JAX policy. ``noise`` (B, K), ``root_draws`` and ``sim_draws``
         (num_simulations, ...) replace the policy's draws (for tests)."""
+        profiling.new_request()
         dev = self.device
         model = self.model
         obs = obs.to(dev, torch.float32)

@@ -49,6 +49,7 @@ from lightzero_tpu_torch.ops.action import sample_from_visit_counts
 from lightzero_tpu_torch.policy.muzero import MuZeroPolicy, TrainBatch
 from lightzero_tpu_torch.search.puct import batch_puct_search
 from lightzero_tpu_torch.search.types import RecurrentOutput, RootOutput
+from lightzero_tpu_torch.utils import profiling
 
 _CONV_REFUSED = (
     "the Stochastic MuZero policy flattens observations before its model, as the JAX "
@@ -162,6 +163,7 @@ class StochasticMuZeroPolicy(MuZeroPolicy):
         (B, tree_width), the root's Dirichlet draw, and ``chance_noise``
         (num_simulations, N + 1, B, tree_width), the chance nodes' Gumbel
         draws, replace the search's own draws (for tests)."""
+        profiling.new_request()
         g = self.generator
         obs = obs.to(self.device, torch.float32)
         legal_mask = legal_mask.to(self.device)

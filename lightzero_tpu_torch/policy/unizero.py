@@ -73,6 +73,7 @@ from lightzero_tpu_torch.ops.lpips import LPIPS
 from lightzero_tpu_torch.policy.muzero import MuZeroPolicy, TrainBatch, TrainState
 from lightzero_tpu_torch.search.puct import batch_puct_search
 from lightzero_tpu_torch.search.types import RecurrentOutput, RootOutput
+from lightzero_tpu_torch.utils import profiling
 
 
 def predict_latent_loss(pred: torch.Tensor, target: torch.Tensor, mask: torch.Tensor,
@@ -266,6 +267,7 @@ class UniZeroPolicy(MuZeroPolicy):
         """Search from the context with the observation appended and act;
         the next context is this one with the chosen action appended.
         ``noise`` (B, A) replaces the Dirichlet draw (for tests)."""
+        profiling.new_request()
         obs = obs.to(self.device, torch.float32)
         root, cache = self._root(self.model, obs, collect_state)
         out = self._search_and_act(root, legal_mask.to(self.device), to_play, temperature,
@@ -304,6 +306,7 @@ class UniZeroPolicy(MuZeroPolicy):
         if true_action is not None:
             raise NotImplementedError("UniZero's reanalyze has no reuse search (the JAX policy "
                                       "ignores true_action and reuse_value)")
+        profiling.new_request()
         dev = self.device
         obs = obs.to(dev, torch.float32)
         if obs_hist is not None:
@@ -448,56 +451,64 @@ class UniZeroPolicy(MuZeroPolicy):
         return [cut(batch, i) for i in range(steps)]
 
     def forward_learn(self, state: TrainState, batch):
-        """One UniZero learn step: ``(state, logs, value_priority (B,))``."""
+        """One UniZero learn step: ``(state, logs, value_priority (B,))``.
+        Its spans: ``learn.forward`` and ``learn.backward`` once a
+        micro-batch, then ``learn.readback`` and ``learn.optimizer``."""
+        profiling.new_request()
         cfg = self.cfg
         model = state.model
-        # every parameter's, not only the optimizer's: under CurriculumLoRA
-        # the frozen ones get gradients too, which the logged norm and the
-        # non-finite guard read
-        model.zero_grad(set_to_none=True)
         steps = int(cfg.get("accumulation_steps", 1))
         micro = self._micro_batches(batch, steps) if steps > 1 else [batch]
+        named = dict(model.named_parameters())
         logs_m, prio_m = [], []
-        for mb in micro:
-            loss, (lg, vp) = self._loss_fn(model, mb, state.train_iter)
-            (loss / len(micro)).backward()
+        for i, mb in enumerate(micro):
+            with profiling.span("learn.forward"):
+                if i == 0:
+                    # every parameter's, not only the optimizer's: under
+                    # CurriculumLoRA the frozen ones get gradients too, which
+                    # the logged norm and the non-finite guard read
+                    model.zero_grad(set_to_none=True)
+                loss, (lg, vp) = self._loss_fn(model, mb, state.train_iter)
+            with profiling.span("learn.backward"):
+                (loss / len(micro)).backward()
+                for p in named.values():
+                    if p.grad is None:
+                        p.grad = torch.zeros_like(p)
             logs_m.append(lg)
             prio_m.append(vp)
         logs = {k: torch.stack([lg[k] for lg in logs_m]).mean() for k in logs_m[0]}
         value_priority = torch.cat(prio_m)
-        named = dict(model.named_parameters())
-        for p in named.values():
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
         if self.grad_sync is not None:
             # a non-finite loss or gradient on any rank makes the averages
             # non-finite on every rank, so all of them skip the step together
             self.grad_sync(list(named.values()), logs)
-        # the norm is non-finite where any gradient is: one read-back
-        grad_norm = torch.nn.utils.get_total_norm([p.grad for p in named.values()])
-        finite = bool(torch.isfinite(logs["total_loss"]) & torch.isfinite(grad_norm))
-        logs["nonfinite_loss"] = torch.tensor(float(not finite), device=self.device)
+        with profiling.span("learn.readback"):
+            # the norm is non-finite where any gradient is: one read-back
+            grad_norm = torch.nn.utils.get_total_norm([p.grad for p in named.values()])
+            finite = bool(torch.isfinite(logs["total_loss"]) & torch.isfinite(grad_norm))
+            logs["nonfinite_loss"] = torch.tensor(float(not finite), device=self.device)
         if not finite:
             for p in named.values():
                 p.grad.zero_()
             grad_norm = torch.zeros_like(grad_norm)
         logs["grad_norm"] = grad_norm
         logs["cur_lr"] = state.lr_scheduler.get_last_lr()[0]
-        if finite:
-            # clip the model groups' gradients (not log_alpha's) as optax does
-            model_grads = [p.grad for grp in state.optimizer.param_groups
-                           if not grp.get("alpha", False) for p in grp["params"]]
-            norm = torch.nn.utils.get_total_norm(model_grads)
-            scale = torch.where(norm < float(cfg.grad_clip_value), 1.0,
-                                float(cfg.grad_clip_value) / norm)
-            for g in model_grads:
-                g.mul_(scale)
-            state.optimizer.step()
-            state.lr_scheduler.step()
-            self._after_step(model, logs, state.train_iter)
-        train_iter = state.train_iter + 1
-        if train_iter % int(cfg.target_update_freq) == 0:
-            state.target_model.load_state_dict(model.state_dict())
+        with profiling.span("learn.optimizer"):
+            if finite:
+                # clip the model groups' gradients (not log_alpha's) as optax does
+                model_grads = [p.grad for grp in state.optimizer.param_groups
+                               if not grp.get("alpha", False) for p in grp["params"]]
+                norm = torch.nn.utils.get_total_norm(model_grads)
+                scale = torch.where(norm < float(cfg.grad_clip_value), 1.0,
+                                    float(cfg.grad_clip_value) / norm)
+                for g in model_grads:
+                    g.mul_(scale)
+                state.optimizer.step()
+                state.lr_scheduler.step()
+                self._after_step(model, logs, state.train_iter)
+            train_iter = state.train_iter + 1
+            if train_iter % int(cfg.target_update_freq) == 0:
+                state.target_model.load_state_dict(model.state_dict())
         return state._replace(train_iter=train_iter), logs, value_priority
 
     @torch.no_grad()

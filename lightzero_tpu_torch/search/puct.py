@@ -64,6 +64,7 @@ from lightzero_tpu_torch.search.types import (
     SearchOutput,
 )
 from lightzero_tpu_torch.utils.device import resolve_device
+from lightzero_tpu_torch.utils.profiling import span
 
 # the widest action space whose child Q values the generic descent adds in
 # order, one action after another
@@ -680,35 +681,40 @@ def batch_puct_search(
     (search_with_reuse, mcts_ctree.py:368-465)."""
     _check_scope(true_action, reuse_value)
     dev = resolve_device(device)
-    root = RootOutput(
-        prior_logits=root.prior_logits.to(dev),
-        value=root.value.to(dev),
-        embedding=map_embedding(lambda e: e.to(dev), root.embedding),
-    )
-    legal_mask = legal_mask.to(dev)
-    B, A = legal_mask.shape
-    N = cfg.num_simulations + 1
-    if to_play is None:
-        to_play = torch.full((B,), -1, dtype=torch.int32, device=dev)
-    to_play = to_play.to(dev)
-    if reuse_value is not None:
-        reuse_value = reuse_value.to(dev)
+    with span("puct.roots"):
+        root = RootOutput(
+            prior_logits=root.prior_logits.to(dev),
+            value=root.value.to(dev),
+            embedding=map_embedding(lambda e: e.to(dev), root.embedding),
+        )
+        legal_mask = legal_mask.to(dev)
+        B, A = legal_mask.shape
+        N = cfg.num_simulations + 1
+        if to_play is None:
+            to_play = torch.full((B,), -1, dtype=torch.int32, device=dev)
+        to_play = to_play.to(dev)
+        if reuse_value is not None:
+            reuse_value = reuse_value.to(dev)
 
-    tree = init_tree(B, N, A, root.embedding, dtype=root.prior_logits.dtype, device=dev)
-    tree = prepare_roots(cfg, tree, root, legal_mask, to_play, with_noise, noise, generator)
-    bidx = torch.arange(B, device=dev)
+        tree = init_tree(B, N, A, root.embedding, dtype=root.prior_logits.dtype, device=dev)
+        tree = prepare_roots(cfg, tree, root, legal_mask, to_play, with_noise, noise, generator)
+        bidx = torch.arange(B, device=dev)
     for sim in range(cfg.num_simulations):
-        st = _traverse(cfg, tree, to_play, generator,
-                       None if chance_noise is None else chance_noise[sim], true_action,
-                       reuse_value)
-        parent_embedding = map_embedding(lambda e: e[bidx, st.parent], tree.embedding)
-        out = recurrent_fn(st.last_action, parent_embedding)
-        tree = _expand_and_backup(cfg, tree, st, sim, out, value_override=reuse_value)
+        with span("puct.select"):
+            st = _traverse(cfg, tree, to_play, generator,
+                           None if chance_noise is None else chance_noise[sim], true_action,
+                           reuse_value)
+            parent_embedding = map_embedding(lambda e: e[bidx, st.parent], tree.embedding)
+        with span("model.recurrent"):
+            out = recurrent_fn(st.last_action, parent_embedding)
+        with span("puct.backup"):
+            tree = _expand_and_backup(cfg, tree, st, sim, out, value_override=reuse_value)
 
-    return SearchOutput(
-        visit_counts=root_visit_counts(tree),
-        root_value=root_value(tree),
-        root_children_values=root_children_values(tree, cfg.discount),
-        improved_policy=None,
-        tree=tree,
-    )
+    with span("puct.result"):
+        return SearchOutput(
+            visit_counts=root_visit_counts(tree),
+            root_value=root_value(tree),
+            root_children_values=root_children_values(tree, cfg.discount),
+            improved_policy=None,
+            tree=tree,
+        )

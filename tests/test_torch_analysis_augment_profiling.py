@@ -8,15 +8,14 @@ the logger's TensorBoard sink (utils/logger.py), against their JAX modules.
 - ``dormant_ratio`` equal; ``effective_rank`` 1e-5 relative (two SVDs);
   ``average_weight_magnitude`` of a model against the flax params, and
   ``latent_norm_stats``, 1e-6 relative.
-- ``PhaseTimer`` as JAX's; ``buffer_metrics`` of the port's buffer equal
-  to JAX's on the same episodes; ``torch_trace`` writes a Chrome trace of
-  the ops it saw.
+- ``buffer_metrics`` of the port's buffer equal to JAX's on the same
+  episodes; ``torch_trace`` writes a Chrome trace of the ops it saw (the
+  spans: tests/test_torch_tracing.py).
 - The logger writes TensorBoard scalar events under log/serial: a file
   version record, then one record a value with its tag, step and value,
   each record with its two checksums.
 """
 import json
-import time
 
 import jax
 import jax.numpy as jnp
@@ -107,16 +106,6 @@ def test_analysis_metrics_match_jax():
     np.testing.assert_allclose(float(analysis.average_weight_magnitude(port.model)), exp, rtol=1e-6)
     np.testing.assert_allclose(float(analysis.average_weight_magnitude(
         dict(port.model.named_parameters()))), exp, rtol=1e-6)
-
-
-def test_phase_timer_as_jax():
-    for timer in (profiling.PhaseTimer(), jax_profiling.PhaseTimer()):
-        for _ in range(2):
-            with timer.phase("collect"):
-                time.sleep(0.001)
-        snap = timer.snapshot()
-        assert sorted(snap) == ["collect_time_avg", "collect_time_total"]
-        assert snap["collect_time_total"] >= 0.002 and timer.snapshot() == {}
 
 
 def test_buffer_metrics_match_jax():
