@@ -19,7 +19,14 @@ Phases, each of a fixed size, in one process:
      host time left out) and its time launch to launch through the wrapper
      (host time included), its time per depth level, and a latency figure:
      (deepest descent + 1) x one dependent L2 load, timed with
-     csrc/latency_probe.cu, which also gives the floor of one launch;
+     csrc/latency_probe.cu, which also gives the floor of one launch. Then
+     the backup kernel (csrc/fused_backup.cu) against its plain version on
+     the arguments of captured backups, every tree tensor bitwise: the
+     search cell's shape (B=2,048, A=6, 6x6x64 embeddings) at
+     BACKUP_CELL_SIMS, timed as the descent is, with its bound from the
+     bytes it moves; one simulation of each other CHECK_SEARCHES search
+     (terminal stops, A=18, A=37, Gumbel's logits, ReZero's reused value,
+     Stochastic MuZero's chance nodes);
   4. the main path: the Evaluator plays CartPole with the CartPole MuZero config
      at full width (25 simulations, 3 envs) until each env ends an episode,
      with the launch counters read around it; then a small batch searched on
@@ -387,6 +394,9 @@ from lightzero_tpu_torch.policy import (
 )
 from lightzero_tpu_torch.policy.alphazero import AZTrainBatch
 from lightzero_tpu_torch.search import gumbel, puct
+from lightzero_tpu_torch.search.fused_backup import fused_backup, fused_backup_reference
+from lightzero_tpu_torch.search.fused_backup_checks import CHECK_SEARCHES, check_search
+from lightzero_tpu_torch.search.tree import map_embedding
 from lightzero_tpu_torch.search.fused_traverse import (
     SYNTHETIC_SEED,
     SYNTHETIC_SHAPES,
@@ -450,6 +460,11 @@ BENCH_SEARCHES = 5
 # simulations of the bench search whose descent inputs phase 3 reruns
 CAPTURED_SIMS = (1, 25, 50)
 EDGE_SHAPES = [(256, 4, 26), (256, 18, 26)]
+# the backup kernel's cases: the simulations of the search cell's shape
+# whose backup inputs are rerun kernel against plain and timed, and the one
+# simulation of every other CHECK_SEARCHES search
+BACKUP_CELL_SIMS = (1, 25, 49)
+BACKUP_OTHER_SIM = 10
 # train phase: learn steps of the CartPole run (100, where the target net is
 # copied: the run's depth was halved from 200 when phase 11 came, to keep the
 # script within half the run limit on slower hosts), learn steps timed after
@@ -784,7 +799,7 @@ def warm_profiler() -> float:
 def phase_build() -> dict:
     """Every source at once, one compiler each (nvcc for the kernels, g++
     for the replay buffer's core); the profiler is warmed up meanwhile."""
-    sources = ["fused_traverse", "latency_probe", "replay_core"]
+    sources = ["fused_traverse", "fused_backup", "latency_probe", "replay_core"]
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
         # map submits every compile before it returns
@@ -877,6 +892,116 @@ def phase_kernel_vs_plain(l2_ns: float) -> list:
             cases.append(traverse_case(B, A, N, first, l2_ns, label="edge values",
                                        inputs=edge_inputs(B, A, N, first, seed=200 + i)))
     check_cases(cases)
+    return cases
+
+
+def captured_backups(name: str, sims: tuple) -> dict:
+    """One run of CHECK_SEARCHES' search `name` on the card through the
+    backup kernel, keeping the arguments of the backups of simulations
+    `sims`, each tensor cloned."""
+    seen = {}
+    orig = puct._expand_and_backup
+
+    def clone(x):
+        return None if x is None else map_embedding(torch.clone, x)
+
+    def capture(cfg, tree, st, sim, out, *args, **kwargs):
+        if sim in sims:
+            seen[sim] = (cfg, puct.Tree(*(clone(v) for v in tree)),
+                         type(st)(*(clone(v) for v in st)), type(out)(*(clone(v) for v in out)),
+                         args, kwargs)
+        return orig(cfg, tree, st, sim, out, *args, **kwargs)
+
+    search, args, kwargs = check_search(name, "cuda")
+    # Gumbel's search calls the function it imported from puct
+    puct._expand_and_backup = gumbel._expand_and_backup = capture
+    try:
+        search(*args, **kwargs)
+    finally:
+        puct._expand_and_backup = gumbel._expand_and_backup = orig
+    torch.cuda.synchronize()
+    return seen
+
+
+def backup_case(name: str, sim: int, captured: tuple, timed: bool) -> dict:
+    """The backup kernel and its plain version on the card on the same
+    captured inputs, each on its own copy of the tree: every tree tensor and
+    vmin, vmax compared bitwise. Timed: the kernel's device time from graph
+    replays, launch to launch through the wrapper, the plain version, and
+    the bound."""
+    cfg, tree, st, out, args, kwargs = captured
+    B, N, A = tree.num_trees, tree.num_nodes, tree.num_actions
+    P = st.path.shape[1]
+
+    def copy_of_tree():
+        return puct.Tree(*(map_embedding(torch.clone, v) for v in tree))
+
+    got = fused_backup(cfg, copy_of_tree(), st, sim, out, *args, **kwargs)
+    exp = fused_backup_reference(cfg, copy_of_tree(), st, sim, out, *args, **kwargs)
+    torch.cuda.synchronize()
+    mismatches = 0
+    for field in puct.Tree._fields:
+        pairs = []
+        map_embedding(lambda g, e: pairs.append((g, e)), getattr(got, field), getattr(exp, field))
+        mismatches += sum(int((g != e).sum()) for g, e in pairs)
+    rec = dict(phase="backup_vs_plain", kernel="fused_backup", search=name, simulation=sim,
+               B=B, A=A, N=N, P=P, mismatches=mismatches)
+    if timed:
+        scratch = copy_of_tree()
+        rec["ms"] = graph_ms(lambda: fused_backup(cfg, scratch, st, sim, out, *args, **kwargs))
+        rec["wrapper_ms"] = cuda_ms(
+            lambda: fused_backup(cfg, scratch, st, sim, out, *args, **kwargs), reps=200)
+        rec["plain_ms"] = cuda_ms(
+            lambda: fused_backup_reference(cfg, scratch, st, sim, out, *args, **kwargs), reps=20)
+        # the least the card could take: each input byte read once and each
+        # output byte written once. Per tree: the slots of the path tables
+        # that the kernel reads (int64 node, three f32 stats; slots 0 to the
+        # descent's depth, whole 32-byte sectors), the descent's scalars, the
+        # leaf's outputs, the two MinMax stats in and out; per expanding tree
+        # the new row (prior, legal, four scalars, the child link) and its
+        # embedding row read and written; per path node its value sum and
+        # visit count read and written
+        expand = ~st.leaf_is_terminal_node
+        n_expand = int(expand.sum())
+        path_nodes = int((st.depth + 1 + expand.long()).sum())
+        emb = tree.embedding
+        row_bytes = (emb[0, 0].numel() * emb.element_size()
+                     if isinstance(emb, torch.Tensor) else 0)
+
+        def path_sectors(elt: int) -> int:
+            first = torch.arange(B, device=st.depth.device) * (P * elt)
+            last = first + (st.depth + 1) * elt - 1
+            return int((last // 32 - first // 32 + 1).sum()) * 32
+
+        bytes_moved = (path_sectors(8) + 3 * path_sectors(4) + B * (3 * 8 + 4 + 1)
+                       + B * (2 * 4 + A * 4) + B * 16
+                       + n_expand * (A * 5 + 4 * 3 + 1 + 4 + 2 * row_bytes) + path_nodes * 16)
+        # per tree: the doubling rounds (3 operations a slot a round), the
+        # softmax (max, exp, sum, divide a row entry), and the contribution,
+        # node value and q of every path node
+        rounds = max(1, math.ceil(math.log2(P)))
+        ops = B * (3 * P * rounds + 4 * A) + 8 * path_nodes
+        bound_s = max(bytes_moved / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S)
+        rec.update(bound_ms=bound_s * 1e3, bytes=bytes_moved, ops=ops,
+                   bound_by="bytes" if bytes_moved / HBM_BYTES_PER_S >= ops / FP32_OPS_PER_S
+                   else "operations", expanding_trees=n_expand)
+    emit(rec)
+    return rec
+
+
+def phase_backup_vs_plain() -> list:
+    """The backup kernel against its plain version on captured inputs: the
+    search cell's shape (B=2,048, A=6, 6x6x64 embeddings) at
+    BACKUP_CELL_SIMS, timed; one simulation of every other CHECK_SEARCHES
+    search (terminal stops, A=18, A=37, and each of the kernel's options)."""
+    cases = []
+    for name, *_ in CHECK_SEARCHES:
+        sims = BACKUP_CELL_SIMS if name == "cell" else (BACKUP_OTHER_SIM,)
+        for sim, captured in sorted(captured_backups(name, sims).items()):
+            cases.append(backup_case(name, sim, captured, timed=name == "cell"))
+    bad = [c for c in cases if c["mismatches"]]
+    if bad or len(cases) != len(BACKUP_CELL_SIMS) + len(CHECK_SEARCHES) - 1:
+        raise AssertionError(f"fused_backup disagrees with its plain version: {bad or cases}")
     return cases
 
 
@@ -1008,6 +1133,15 @@ def check_cases(cases: list) -> None:
         raise AssertionError(f"fused_traverse disagrees with its plain version: {bad}")
 
 
+def check_backup_launches(rec: dict, sims: int, label: str) -> None:
+    """A one-player float32 search on the card backs up through the backup
+    kernel once a simulation: ``sims`` launches for each of the eval's
+    searches, one an env step."""
+    if rec["backup_launches"] != rec["env_steps"] * sims:
+        raise AssertionError(f"{label}: backup launches {rec['backup_launches']} != env steps "
+                             f"{rec['env_steps']} x {sims}")
+
+
 def phase_main_path(card: str) -> dict:
     policy = MuZeroPolicy(main_config.policy, device="cuda", seed=MAIN_SEED)
     randomize_heads(policy.model, MAIN_SEED + 1)
@@ -1018,6 +1152,7 @@ def phase_main_path(card: str) -> dict:
     if rec["launches"] != rec["env_steps"] * sims:
         raise AssertionError(f"traverse launches {rec['launches']} != env steps "
                              f"{rec['env_steps']} x {sims}")
+    check_backup_launches(rec, sims, "main path")
     search_card_vs_cpu(policy, "muzero")
     return rec
 
@@ -1351,20 +1486,22 @@ def phase_train(card: str) -> dict:
 
 def eval_episodes(policy, card: str, label: str, env=None, returns_range=(0, math.inf)) -> dict:
     """The Evaluator on 3 envs (CartPole unless ``env`` is given) until each
-    ends an episode, the launch counter read around it; each return must be
-    finite and within ``returns_range`` (CartPole's: 1 to 200)."""
+    ends an episode, the descent's and the backup's launch counters read
+    around it; each return must be finite and within ``returns_range``
+    (CartPole's: 1 to 200)."""
     cartpole = env is None
     env = CartPoleEnv() if cartpole else env
     evaluator = Evaluator(env, policy, num_envs=3, seed=MAIN_SEED, device="cuda")
     fused_traverse.launches = 0
+    fused_backup.launches = 0
     t0 = time.perf_counter()
     result = evaluator.eval(max_steps=200)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     steps, returns = result["env_steps"], result["episode_returns"]
     rec = dict(phase=f"{label}_eval", num_envs=3, episode_returns=returns, env_steps=steps,
-               launches=fused_traverse.launches, wall_s=wall, wall_per_env_step_s=wall / steps,
-               card=card)
+               launches=fused_traverse.launches, backup_launches=fused_backup.launches,
+               wall_s=wall, wall_per_env_step_s=wall / steps, card=card)
     low, high = (1, 200) if cartpole else returns_range
     if len(returns) < 3 or not all(math.isfinite(r) and low <= r <= high for r in returns):
         raise AssertionError(f"{label}: implausible returns {returns}")
@@ -1452,6 +1589,7 @@ def phase_efficientzero(card: str, l2_ns: float) -> tuple:
     if ev["launches"] != ev["env_steps"] * sims:
         raise AssertionError(f"efficientzero: traverse launches {ev['launches']} != env steps "
                              f"{ev['env_steps']} x {sims}")
+    check_backup_launches(ev, sims, "efficientzero")
     agreement = search_card_vs_cpu(policy, "efficientzero")
 
     obs = torch.from_numpy(
@@ -1517,6 +1655,8 @@ def phase_gumbel(card: str) -> dict:
     emit(ev)
     if ev["launches"] != 0:
         raise AssertionError(f"gumbel_muzero: the eval launched the pUCT kernel {ev['launches']} times")
+    # Gumbel's search expands and backs up through puct's _expand_and_backup
+    check_backup_launches(ev, sims, "gumbel_muzero")
 
     # a second eval, every descent timed on the host between two device
     # syncs (the descent reads back a flag per level): the descent's share
@@ -1673,6 +1813,8 @@ def phase_stochastic(card: str) -> dict:
     if ev["launches"] != 0:
         raise AssertionError(f"stochastic_muzero: the eval launched the pUCT kernel "
                              f"{ev['launches']} times")
+    # its backups mark chance nodes through the backup kernel
+    check_backup_launches(ev, sims, "stochastic_muzero")
 
     descent, restore = timed_descents(puct, "_generic_traverse")
     try:
@@ -3708,6 +3850,7 @@ def main() -> int:
     l2_ns = phase_latency_probe(card)["l2_dependent_load_ns"]
     phase_division_check(card)
     cases = phase_kernel_vs_plain(l2_ns)
+    backup_cases = phase_backup_vs_plain()
     main_rec = phase_main_path(card)
     bench, captures = phase_bench_shape(card)
     cases += phase_captured(captures, l2_ns)
@@ -3735,6 +3878,7 @@ def main() -> int:
     rest, rest_wall = phase_rest_of_item_20(card, uz["unizero"])
 
     main_case = next(c for c in cases if (c["B"], c["A"], c["N"], c["tie_break"]) == (3, 2, 26, "noise"))
+    cell_backup = next(c for c in backup_cases if (c["search"], c["simulation"]) == ("cell", 25))
     kernels = [dict(
         name="fused_traverse",
         route="cuda",
@@ -3820,6 +3964,25 @@ def main() -> int:
         bound_by=main_case["bound_by"],
         library_ms=None,
         shape=dict(B=3, A=2, N=26, tie_break="noise"),
+    ), dict(
+        name="fused_backup",
+        route="cuda",
+        source="lightzero_tpu_torch/csrc/fused_backup.cu",
+        replaces=None,
+        # the main path's eval (CartPole MuZero), once a simulation
+        launches=main_rec["backup_launches"],
+        # the evals of EfficientZero (phase 7), Gumbel MuZero (phase 8, the
+        # prior_is_logits flag) and Stochastic MuZero (phase 9, is_chance)
+        launches_efficientzero=ez["eval"]["backup_launches"],
+        launches_gumbel_muzero=gmz["eval"]["backup_launches"],
+        launches_stochastic_muzero=smz["eval"]["backup_launches"],
+        ms=cell_backup["ms"],
+        wrapper_ms=cell_backup["wrapper_ms"],
+        plain_ms=cell_backup["plain_ms"],
+        bound_ms=cell_backup["bound_ms"],
+        bound_by=cell_backup["bound_by"],
+        library_ms=None,
+        shape=dict(B=2048, A=6, N=51, embedding=[6, 6, 64], simulation=25),
     )]
     emit(dict(phase="done", wall_s=time.perf_counter() - t_start,
               build_s=build["seconds"], bench_sims_per_s=bench["sims_per_s_kernel"],

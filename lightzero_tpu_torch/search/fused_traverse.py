@@ -182,15 +182,21 @@ def kernel_route(A: int) -> str:
     return "prefetch" if fn(A) else "row read"
 
 
-def _check(name: str, x: torch.Tensor, shape: Tuple[int, ...], device: torch.device):
+def _check(name: str, x: Optional[torch.Tensor], shape: Tuple[int, ...],
+           device: torch.device, dtype: torch.dtype = torch.float32) -> Optional[int]:
+    """The address of a kernel's input or output once it is on ``device``
+    with ``dtype`` and ``shape``, contiguous; None for an absent one."""
+    if x is None:
+        return None
     if x.device != device:
         raise ValueError(f"{name} is on {x.device}, expected {device}")
-    if x.dtype != torch.float32:
-        raise ValueError(f"{name} has dtype {x.dtype}, expected torch.float32")
+    if x.dtype != dtype:
+        raise ValueError(f"{name} has dtype {x.dtype}, expected {dtype}")
     if tuple(x.shape) != shape:
         raise ValueError(f"{name} has shape {tuple(x.shape)}, expected {shape}")
     if not x.is_contiguous():
         raise ValueError(f"{name} is not contiguous")
+    return x.data_ptr()
 
 
 def fused_traverse(
@@ -227,8 +233,7 @@ def fused_traverse(
     _check("vmin", vmin, (B,), dev)
     _check("vmax", vmax, (B,), dev)
     _check("root_stats", root_stats, (B, 4), dev)
-    if noise_u is not None:
-        _check("noise_u", noise_u, (D, B, A), dev)
+    _check("noise_u", noise_u, (D, B, A), dev)
     if D < 1:
         raise ValueError(f"max_depth must be at least 1, got {D}")
     lib = _library()

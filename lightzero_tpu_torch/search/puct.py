@@ -17,6 +17,14 @@ every tree per step, with the done flags read back to the host once per
 level where the JAX loop is a ``while_loop`` on the device. The JAX package
 routes them the same way (puct.py:372-378).
 
+The expand and backup, once a simulation, goes through ``fused_backup`` for
+one-player searches over float32 trees: the CUDA kernel
+``csrc/fused_backup.cu`` on the card (one launch where its plain version
+``fused_backup_reference`` makes about 110 device ops at the Atari
+search's shape), the plain version on the CPU. Two-player searches keep
+the plain version, whose backup flips signs by the path's players. The JAX
+package's backup is plain jnp in either case (puct.py:544-708).
+
 Two players (board games, ``players == 2``): the reference decides one- or
 two-player semantics at run time from the root's ``to_play``
 (cnode.cpp cbatch_traverse; ptree_mz.py:525): -1, a board game played
@@ -47,6 +55,11 @@ from typing import Any, Callable, NamedTuple, Optional
 
 import torch
 
+from lightzero_tpu_torch.search.fused_backup import (
+    fused_backup,
+    fused_backup_reference,
+    kernel_takes,
+)
 from lightzero_tpu_torch.search.fused_traverse import _sum_in_order, fused_traverse
 from lightzero_tpu_torch.search.tree import (
     Tree,
@@ -496,120 +509,15 @@ def _expand_and_backup(
     value_override: Optional[torch.Tensor] = None,
 ) -> Tree:
     """Expand the leaves (node sim + 1) and back the values up the paths
-    (puct.py:544-708). Updates the tree tensors in place; a
-    recurrent output with ``is_chance`` marks the new row's node kind.
-    ``prior_is_logits``: the new row keeps the raw logits, illegal actions
-    at -1e9, instead of their softmax (Gumbel trees, puct.py:572-574).
-    ``value_override`` (B,) is backed up as the leaf value where the reuse
-    descent set ``reuse_hit`` (puct.py:637-638)."""
-    B, N, A = tree.num_trees, tree.num_nodes, tree.num_actions
-    dev = tree.value_sum.device
-    dtype = tree.value_sum.dtype
-    new_idx = sim + 1
-    bidx = torch.arange(B, device=dev)
-
-    legal_mask = (
-        out.legal_mask
-        if out.legal_mask is not None
-        else torch.ones((B, A), dtype=torch.bool, device=dev)
-    )
-    terminal = (
-        out.terminal if out.terminal is not None else torch.zeros((B,), dtype=torch.bool, device=dev)
-    )
-    # trees that stopped at an existing terminal node do NOT expand
-    do_expand = ~st.leaf_is_terminal_node
-
-    # --- expand (Node.expand, ptree_mz.py:46-69) ---
-    logits = out.prior_logits.to(dtype)
-    if prior_is_logits:
-        prior = torch.where(legal_mask, logits, -1e9)
-    else:
-        prior = torch.softmax(torch.where(legal_mask, logits, -torch.inf), dim=-1)
-        prior = torch.where(legal_mask, prior, 0.0)
-
-    def row_write(arr, new_row):
-        m = do_expand.reshape((B,) + (1,) * (arr.dim() - 2))
-        arr[:, new_idx] = torch.where(m, new_row.to(arr.dtype), arr[:, new_idx])
-        return arr
-
-    link = tree.children[bidx, st.parent, st.last_action]
-    tree.children[bidx, st.parent, st.last_action] = torch.where(
-        do_expand, torch.full_like(link, new_idx), link
-    )
-    row_write(tree.prior, prior)
-    row_write(tree.legal, legal_mask)
-    row_write(tree.reward, out.reward)
-    row_write(tree.raw_value, out.value)
-    row_write(tree.to_play, st.virtual_to_play)
-    row_write(tree.terminal, terminal)
-    if out.is_chance is not None:
-        row_write(tree.is_chance, out.is_chance)
-    map_embedding(row_write, tree.embedding, out.embedding)
-
-    # --- backup ---
-    # the recorded path plus the new leaf for expanding trees; trees stopped
-    # at a terminal node already have the leaf at path[depth]
-    leaf_pos = torch.where(do_expand, st.depth + 1, st.depth)
-    P = st.path.shape[1]
-    pos = torch.arange(P, device=dev)[None, :]
-    exp_mask = (pos == leaf_pos[:, None]) & do_expand[:, None]  # (B, P)
-    path = torch.where(exp_mask, new_idx, st.path)
-    node_r = torch.where(exp_mask, out.reward.to(dtype)[:, None], st.path_reward)
-    pre_vsum = torch.where(exp_mask, 0.0, st.path_vsum)
-    pre_visit = torch.where(exp_mask, 0.0, st.path_visit)
-    valid = pos < (leaf_pos + 1)[:, None]  # (B, P)
-    value = out.value.to(dtype)
-    if value_override is not None:
-        value = torch.where(st.reuse_hit, value_override.to(dtype), value)
-    two_p = cfg.players == 2
-    if two_p:
-        # one-player semantics where the leaf has no player (bot mode,
-        # puct.py:642-648); else the rewards and values of the nodes of the
-        # leaf's player change sign on their way up
-        leaf_to_play = st.virtual_to_play
-        one_p = (leaf_to_play == -1)[:, None]  # (B, 1)
-        same = torch.where(exp_mask, leaf_to_play[:, None], st.path_to_play) == leaf_to_play[:, None]
-        node_r_signed = torch.where(same & ~one_p, -node_r, node_r)
-    else:
-        node_r_signed = node_r
-
-    # bootstrap recurrence (right to left): contrib at the leaf is its value,
-    # contrib_i = r_{i+1} + g * contrib_{i+1}. A suffix composition of affine
-    # maps g_i(x) = a_i x + b_i (identity past the leaf), composed by
-    # doubling in log2(P) steps (puct.py:650-677 uses an associative scan).
-    r_next = torch.cat([node_r_signed[:, 1:], torch.zeros((B, 1), dtype=dtype, device=dev)],
-                       dim=1)
-    valid_next = torch.cat(
-        [valid[:, 1:], torch.zeros((B, 1), dtype=torch.bool, device=dev)], dim=1
-    )
-    a_sfx = torch.where(valid_next, torch.tensor(cfg.discount, dtype=dtype, device=dev), 1.0)
-    b_sfx = torch.where(valid_next, r_next, 0.0)
-    k = 1
-    while k < P:
-        # (A, B)[i] <- (A[i] * A[i+k], A[i] * B[i+k] + B[i]); identity past P
-        a_far = torch.cat([a_sfx[:, k:], torch.ones((B, k), dtype=dtype, device=dev)], dim=1)
-        b_far = torch.cat([b_sfx[:, k:], torch.zeros((B, k), dtype=dtype, device=dev)], dim=1)
-        a_sfx, b_sfx = a_sfx * a_far, a_sfx * b_far + b_sfx
-        k *= 2
-    contrib = a_sfx * value[:, None] + b_sfx
-    if two_p:
-        contrib = torch.where(same | one_p, contrib, -contrib)
-    contrib = torch.where(valid, contrib, 0.0)
-
-    # each path node appears once per path, so the scatter-add has a single
-    # term per node (invalid positions add 0 to node 0)
-    safe_path = torch.where(valid, path, 0)
-    tree.value_sum.scatter_add_(1, safe_path, contrib)
-    tree.visit_count.scatter_add_(1, safe_path, valid.to(tree.visit_count.dtype))
-
-    # post-backup node values from the recorded pre-backup stats
-    node_value = (pre_vsum + contrib) / (pre_visit + 1.0)
-    if two_p:
-        node_value = torch.where(one_p, node_value, -node_value)
-    q = node_r + cfg.discount * node_value
-    vmin = torch.minimum(tree.vmin, torch.min(torch.where(valid, q, torch.inf), dim=1).values)
-    vmax = torch.maximum(tree.vmax, torch.max(torch.where(valid, q, -torch.inf), dim=1).values)
-    return tree._replace(vmin=vmin, vmax=vmax)
+    (puct.py:544-708): ``fused_backup_reference`` says what it computes.
+    Updates the tree tensors in place and returns the tree with its new
+    vmin and vmax. One-player searches over float32 trees take
+    ``fused_backup`` (the kernel on the card, the plain version on the CPU)
+    where ``kernel_takes`` says so; two-player searches, whose backup flips
+    signs by the path's players, and other dtypes take the plain version."""
+    if kernel_takes(cfg, tree):
+        return fused_backup(cfg, tree, st, sim, out, prior_is_logits, value_override)
+    return fused_backup_reference(cfg, tree, st, sim, out, prior_is_logits, value_override)
 
 
 def prepare_roots(
