@@ -123,6 +123,7 @@ class UniZeroModel(nn.Module):
         moe_in_transformer: bool = False,
         num_experts: int = 4,
         num_experts_per_tok: int = 1,
+        n_shared_experts: int = 0,
         num_tasks: int = 0,
         lora_r: int = 0,
         curriculum_stage_num: int = 1,
@@ -145,8 +146,8 @@ class UniZeroModel(nn.Module):
             num_layers=num_layers, num_heads=num_heads, embed_dim=D, max_tokens=max_tokens,
             context_window=context_window, moe_in_transformer=moe_in_transformer,
             num_experts=num_experts, num_experts_per_tok=num_experts_per_tok,
-            num_tasks=num_tasks, lora_r=lora_r, curriculum_stage_num=curriculum_stage_num,
-            curriculum_stage=curriculum_stage,
+            n_shared_experts=n_shared_experts, num_tasks=num_tasks, lora_r=lora_r,
+            curriculum_stage_num=curriculum_stage_num, curriculum_stage=curriculum_stage,
         )
         if obs_type == "vector":
             self.encoder = MLPTorso(int(observation_shape), (D,), D, norm_type=norm_type,
@@ -360,6 +361,7 @@ class UniZeroModel(nn.Module):
             moe_in_transformer=bool(pick("moe_in_transformer", False)),
             num_experts=int(pick("num_experts", 4)),
             num_experts_per_tok=int(pick("num_experts_per_tok", 1)),
+            n_shared_experts=int(pick("n_shared_experts", 0)),
             latent_norm=str(wm.get("final_norm_option_in_encoder",
                                    model_cfg.get("final_norm_option_in_encoder",
                                                  model_cfg.get("latent_norm", "SimNorm")))),

@@ -67,6 +67,9 @@ class TransformerConfig:
     moe_in_transformer: bool = False
     num_experts: int = 4
     num_experts_per_tok: int = 1
+    # SwiGLUs beside the routed experts that every token passes through (0
+    # or 1; the JAX config has none)
+    n_shared_experts: int = 0
     # a learned per-task embedding added to every token (multitask)
     num_tasks: int = 0
     # CurriculumLoRA: adapters of rank lora_r for stages 1..stage_num-1
@@ -289,7 +292,8 @@ class Block(nn.Module):
         if cfg.moe_in_transformer:
             from lightzero_tpu_torch.models.unizero_world_model.moe import MoELayer
 
-            self.moe = MoELayer(D, cfg.num_experts, cfg.num_experts_per_tok, generator)
+            self.moe = MoELayer(D, cfg.num_experts, cfg.num_experts_per_tok,
+                                cfg.n_shared_experts, generator)
         else:
             self.ff_up = _dense(cfg, D, 4 * D, True, generator)
             self.ff_down = _dense(cfg, 4 * D, D, True, generator)

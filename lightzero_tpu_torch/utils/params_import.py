@@ -60,7 +60,9 @@ and the names ``qkv``, ``out_proj``, ``ff_up``, ``ff_down``, ``gate``,
 are. A Dense or conv ``kernel``, a LayerNorm ``scale`` and an Embed
 ``embedding`` become ``weight`` (transposed as above; an embedding table is
 (num, D) on both sides); the attention's 3-D kernels, the LoRA factors and
-scales, ``pos_embed`` and ``log_alpha`` keep flax's layout and name.
+scales, ``pos_embed`` and ``log_alpha`` keep flax's layout and name. An
+MoE with a shared expert (the port's ``moe.shared``, which the JAX
+``MoELayer`` does not have) is refused with a ValueError, either way.
 
 MuZero's multitask task embedding (flax ``task_embed/embedding``, MLP and
 conv) is the port's ``task_embed.weight``, (num_tasks, width) on both sides.
@@ -388,7 +390,18 @@ def _unizero_flax_path(name: str, ndim: int) -> str:
     return "/".join(parts + ["scale" if ndim == 1 else "kernel"])
 
 
+def _refuse_shared_experts(keys, sep: str) -> None:
+    """A ValueError for an MoE with a shared expert: the JAX ``MoELayer``
+    has none, so such a model maps neither way."""
+    shared = [k for k in keys if any(a in ("moe", "MoELayer_0") and b.startswith("shared")
+                                     for a, b in zip(k.split(sep), k.split(sep)[1:]))]
+    if shared:
+        raise ValueError(f"{shared[0]!r} is a shared expert of the MoE, which the JAX package's "
+                         "MoELayer does not have: the model cannot be mapped to or from flax")
+
+
 def _unizero_to_state_dict(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+    _refuse_shared_experts(flat, "/")
     out = {}
     for key, value in flat.items():
         if key.endswith("/kernel"):
@@ -400,6 +413,7 @@ def _unizero_to_state_dict(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Tenso
 
 
 def _unizero_to_flax(state_dict: Mapping[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+    _refuse_shared_experts(state_dict, ".")
     flat = {}
     for name, tensor in state_dict.items():
         value = tensor.detach().cpu().numpy().astype(np.float32)

@@ -13,6 +13,12 @@ no allocation, no device op, no host sync. ``new_request()``, called on
 entry by the policies' ``_forward_collect`` and ``forward_learn``, gives
 the spans of one call a shared id. ``summary()`` sums the record by name.
 
+Counters. ``count(name, value)`` keeps a device tensor under ``name`` in
+``counters`` while a profile is active (the MoE layers' per-expert token
+counts, ``moe.tokens_per_expert``), as it is: no read-back, which is left
+to whoever reads ``counters`` after the profile. Outside a profile it is
+one check.
+
 ``torch_trace`` takes the place of the JAX module's ``jax_trace``: it
 records the host's ops and, where the work runs on the card, the device's
 kernels, and writes a Chrome trace (open it in ``chrome://tracing`` or
@@ -52,6 +58,9 @@ class _Thread(threading.local):
 
 # the spans recorded while a profile was active, in the order they closed
 record: List[Span] = []
+# the counters' device tensors recorded while a profile was active, by name,
+# in the order they were recorded
+counters: Dict[str, List[torch.Tensor]] = {}
 _local = _Thread()
 _requests = itertools.count(1)
 _OFF = contextlib.nullcontext()
@@ -100,6 +109,13 @@ def span(name: str):
     return _Span(name) if _on() else _OFF
 
 
+def count(name: str, value: torch.Tensor) -> None:
+    """Keep ``value`` under ``name`` in ``counters`` while a profile is
+    active (a no-op outside one)."""
+    if _on():
+        counters.setdefault(name, []).append(value.detach())
+
+
 def summary(spans: Optional[List[Span]] = None) -> Dict[str, Dict[str, float]]:
     """Each span name's ``count``, ``total_s`` and ``self_s`` (the duration
     less what its child spans on the same thread cover) over ``spans``,
@@ -132,8 +148,9 @@ def torch_trace(log_dir: str):
     """Record a ``torch.profiler`` trace of the block and write it as
     ``<log_dir>/trace.json``: the host's ops, the program's spans, and the
     card's kernels where CUDA is available; and the spans as
-    ``<log_dir>/spans.json`` (``summary`` and the raw ``spans``). The
-    record is cleared on entry. Yields the profiler, whose
+    ``<log_dir>/spans.json`` (``summary``, the raw ``spans`` and the
+    ``counters`` as lists). The record and the counters are cleared on
+    entry. Yields the profiler, whose
     ``key_averages()`` sum the time by op::
 
         with torch_trace(f"{exp}/log/profile"):
@@ -145,13 +162,15 @@ def torch_trace(log_dir: str):
         activities.append(torch.profiler.ProfilerActivity.CUDA)
     os.makedirs(log_dir, exist_ok=True)
     record.clear()
+    counters.clear()
     with torch.profiler.profile(activities=activities) as prof:
         yield prof
         if cuda:
             torch.cuda.synchronize()
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
     with open(os.path.join(log_dir, "spans.json"), "w") as f:
-        json.dump(dict(summary=summary(), spans=[s._asdict() for s in record]), f)
+        json.dump(dict(summary=summary(), spans=[s._asdict() for s in record],
+                       counters={k: [v.tolist() for v in vs] for k, vs in counters.items()}), f)
 
 
 def buffer_metrics(buffer) -> Dict[str, float]:
