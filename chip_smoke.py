@@ -26,7 +26,11 @@ Phases, each of a fixed size, in one process:
      BACKUP_CELL_SIMS, timed as the descent is, with its bound from the
      bytes it moves; one simulation of each other CHECK_SEARCHES search
      (terminal stops, A=18, A=37, Gumbel's logits, ReZero's reused value,
-     Stochastic MuZero's chance nodes);
+     Stochastic MuZero's chance nodes). Then the channel-norm kernel pair
+     (csrc/channel_norm.cu) against its plain version at the benchmark
+     cells' shapes (CHANNEL_NORM_SHAPES): the output and the gradients'
+     gaps, the forward's and the backward's device times beside their
+     bounds, the plain version's and F.layer_norm + relu's (library_ms);
   4. the main path: the Evaluator plays CartPole with the CartPole MuZero config
      at full width (25 simulations, 3 envs) until each env ends an episode,
      with the launch counters read around it; then a small batch searched on
@@ -160,7 +164,9 @@ Phases, each of a fixed size, in one process:
      mode, mirror augmentation; seeded weights): the Evaluator against the rule bot on 3 envs with its generic
      descent timed, 4 positions searched on the card and on the CPU, a short
      train_muzero run at C4_TRAIN_SIMS simulations with mirror-augmented
-     batches; no launch. (The committed Connect4 params are an orbax
+     batches; no descent launch. The eval's and one more learn step's
+     channel-norm launches each equal the conv networks' sites x calls (one
+     a site forward, two more backward). (The committed Connect4 params are an orbax
      checkpoint, zstd-compressed OCDBT, which the card's machine cannot read
      without JAX: tests/connect4_params_eval.py plays them on the CPU.)
  14. big_boards: Go, Gomoku and Chess at the zoo configs' full width, every
@@ -309,6 +315,7 @@ import torch
 import torch.distributed as dist
 
 from lightzero_tpu_torch import _build
+from lightzero_tpu_torch.models import channel_norm as cn
 from lightzero_tpu_torch.configs.cartpole_efficientzero import main_config as ez_config
 from lightzero_tpu_torch.configs.cartpole_gumbel_muzero import main_config as gumbel_config
 from lightzero_tpu_torch.configs.cartpole_muzero import main_config
@@ -375,7 +382,14 @@ from lightzero_tpu_torch.models import (
     StochasticMuZeroModel,
     UniZeroModel,
 )
-from lightzero_tpu_torch.models.common import lecun_normal_
+from lightzero_tpu_torch.models.common import (
+    LAYER_NORM_EPS,
+    DynamicsNetworkConv,
+    MLPTorso,
+    PredictionNetworkConv,
+    RepresentationNetworkConv,
+    lecun_normal_,
+)
 from lightzero_tpu_torch.models.sampled_muzero import SampledHeads
 from lightzero_tpu_torch.policy import (
     AlphaZeroPolicy,
@@ -465,6 +479,28 @@ EDGE_SHAPES = [(256, 4, 26), (256, 18, 26)]
 # simulation of every other CHECK_SEARCHES search
 BACKUP_CELL_SIMS = (1, 25, 49)
 BACKUP_OTHER_SIM = 10
+# the channel-norm kernel's cases (label, NHWC map shape, residual): the
+# shapes the benchmark's cells give it. The search's leaf maps (2,048 roots,
+# 6x6x64 latents, 16-channel heads) and its first 48x48x32 map of the root;
+# the encoder of UniZero's and of the MoE cell's learner (704 and 5,632
+# frames of 64x64: 32x32x32, then 16x16x64 maps); MuZero's learner (256 rows
+# x 6 frames of 96x96: 48x48x32). Maps under the card's 50 MB L2 stay in it
+# from one timed launch to the next, as in the search they were just written
+CHANNEL_NORM_SHAPES = (
+    ("search.transition", (2048, 6, 6, 64), True),
+    ("search.head", (2048, 6, 6, 16), False),
+    ("search.initial", (2048, 48, 48, 32), False),
+    ("unizero_learn.encoder", (704, 32, 32, 32), False),
+    ("moe_learn.encoder", (5632, 32, 32, 32), False),
+    ("moe_learn.encoder_res", (5632, 16, 16, 64), True),
+    ("muzero_learn.encoder", (1536, 48, 48, 32), True),
+)
+L2_BYTES = 50 * 2 ** 20
+# the kernel's gradients against the plain formula in float64 given the
+# kernel's output, each gap over the tensor's largest entry: a few float32
+# steps; dgamma and dbeta are sums over every row, which the kernel takes in
+# double (the output is held to aten's bitwise)
+CHANNEL_NORM_TOL = dict(dx=2e-5, dw=1e-6, db=1e-6)
 # train phase: learn steps of the CartPole run (100, where the target net is
 # copied: the run's depth was halved from 200 when phase 11 came, to keep the
 # script within half the run limit on slower hosts), learn steps timed after
@@ -799,7 +835,7 @@ def warm_profiler() -> float:
 def phase_build() -> dict:
     """Every source at once, one compiler each (nvcc for the kernels, g++
     for the replay buffer's core); the profiler is warmed up meanwhile."""
-    sources = ["fused_traverse", "fused_backup", "latency_probe", "replay_core"]
+    sources = ["fused_traverse", "fused_backup", "channel_norm", "latency_probe", "replay_core"]
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
         # map submits every compile before it returns
@@ -1003,6 +1039,127 @@ def phase_backup_vs_plain() -> list:
     if bad or len(cases) != len(BACKUP_CELL_SIMS) + len(CHECK_SEARCHES) - 1:
         raise AssertionError(f"fused_backup disagrees with its plain version: {bad or cases}")
     return cases
+
+
+def scaled_gap(a: torch.Tensor, b: torch.Tensor) -> float:
+    """max |a - b| over max |b|."""
+    return float((a.double() - b.double()).abs().max() / b.double().abs().max().clamp_min(1e-30))
+
+
+def channel_norm_case(label: str, shape: tuple, residual: bool) -> dict:
+    """The channel-norm kernel pair against its plain version on seeded
+    inputs: the output bitwise aten's (``y_mismatches``), the gradients
+    against the plain backward formula in float64 given the kernel's output
+    and statistics (the residual's gradient bitwise). Timed: the
+    forward as the search runs it (no statistics saved) and the backward
+    kernel pair, each from graph replays; the forward launch to launch
+    through the wrapper; the plain version (F.layer_norm, the add, relu) and
+    F.layer_norm + relu alone (``library_ms``); the plain backward through
+    autograd; each bound: its compulsory bytes over the HBM rate."""
+    g = torch.Generator(device="cuda").manual_seed(0)
+    C = shape[-1]
+    x = torch.randn(shape, generator=g, device="cuda") * 2.0 + 0.5
+    res = torch.randn(shape, generator=g, device="cuda") if residual else None
+    dy = torch.randn(shape, generator=g, device="cuda")
+    norm = torch.nn.LayerNorm(C, eps=LAYER_NORM_EPS).cuda()
+    with torch.no_grad():
+        norm.weight.copy_(1.0 + 0.1 * torch.randn(C, generator=g, device="cuda"))
+        norm.bias.copy_(0.1 * torch.randn(C, generator=g, device="cuda"))
+    rows = x.numel() // C
+    rec = dict(phase="channel_norm", kernel="channel_norm", label=label, shape=list(shape),
+               residual=residual)
+    w, b = norm.weight.detach(), norm.bias.detach()
+    f64 = torch.float64
+    with torch.no_grad():
+        plain = cn.channel_norm_reference(x, norm, res)
+        y, _, stats = cn._forward(x, w, b, res, norm.eps, save=True)
+        dx, dw, db, dres = cn._backward(dy, x, y, stats, w, residual)
+        mean, rstd = (t.reshape(shape[:-1]).to(f64) for t in stats)
+        want = cn.channel_norm_backward_reference(dy.to(f64), x.to(f64), y.to(f64), mean, rstd,
+                                                  w.to(f64))
+    rec["gaps"] = dict(dx=scaled_gap(dx, want[0]), dw=scaled_gap(dw, want[1]),
+                       db=scaled_gap(db, want[2]))
+    rec["y_mismatches"] = int((y != plain).sum())
+    rec["dres_equal"] = (not residual) or bool(torch.equal(dres, want[3].float()))
+    del plain, dx, dw, db, dres, want
+    with torch.no_grad():
+        rec["ms"] = graph_ms(lambda: cn.channel_norm(x, norm, res), reps=10)
+        rec["wrapper_ms"] = cuda_ms(lambda: cn.channel_norm(x, norm, res), reps=50)
+        rec["plain_ms"] = graph_ms(lambda: cn.channel_norm_reference(x, norm, res), reps=10)
+        rec["library_ms"] = graph_ms(
+            lambda: torch.relu(torch.nn.functional.layer_norm(x, (C,), w, b, norm.eps)), reps=10)
+        y, _, stats = cn._forward(x, w, b, res, norm.eps, save=True)
+        rec["backward_ms"] = graph_ms(lambda: cn._backward(dy, x, y, stats, w, residual),
+                                      reps=10)
+    xi = x.clone().requires_grad_()
+    ri = res.clone().requires_grad_() if residual else None
+    yr = cn.channel_norm_reference(xi, norm, ri)
+    leaves = [xi, norm.weight, norm.bias] + ([ri] if residual else [])
+    rec["plain_backward_ms"] = cuda_ms(
+        lambda: torch.autograd.grad(yr, leaves, dy, retain_graph=True), reps=10)
+    fwd_bytes = 4 * (rows * C * (3 if residual else 2) + 2 * C)
+    bwd_bytes = 4 * (rows * C * (5 if residual else 4) + 3 * C)
+    rec.update(bytes=fwd_bytes, backward_bytes=bwd_bytes,
+               bound_ms=fwd_bytes / HBM_BYTES_PER_S * 1e3,
+               backward_bound_ms=bwd_bytes / HBM_BYTES_PER_S * 1e3,
+               l2_resident=fwd_bytes < L2_BYTES)
+    rec["roofline_pct"] = 100.0 * rec["bound_ms"] / rec["ms"]
+    rec["backward_roofline_pct"] = 100.0 * rec["backward_bound_ms"] / rec["backward_ms"]
+    emit(rec)
+    del x, res, dy, xi, ri, yr, y, stats
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_channel_norm() -> list:
+    """The channel-norm kernel pair against its plain version at the
+    benchmark cells' shapes (CHANNEL_NORM_SHAPES), timed beside its bound."""
+    cases = [channel_norm_case(*case) for case in CHANNEL_NORM_SHAPES]
+    bad = [c for c in cases if c["y_mismatches"] or not c["dres_equal"]
+           or any(c["gaps"][k] > tol for k, tol in CHANNEL_NORM_TOL.items())]
+    if bad:
+        raise AssertionError(f"channel_norm disagrees with its plain version: {bad}")
+    return cases
+
+
+CONV_NETWORKS = (RepresentationNetworkConv, DynamicsNetworkConv, PredictionNetworkConv)
+
+
+def conv_norm_sites(net: torch.nn.Module) -> int:
+    """A conv network's channel-norm sites: its nn.LayerNorm modules outside
+    the heads' MLPs, each run once a forward through channel_norm."""
+    in_mlp = {id(m) for sub in net.modules() if isinstance(sub, MLPTorso) for m in sub.modules()}
+    return sum(isinstance(m, torch.nn.LayerNorm) and id(m) not in in_mlp for m in net.modules())
+
+
+@contextlib.contextmanager
+def counted_norm_launches(device: str = "cuda"):
+    """channel_norm's launch counter zeroed, and the launches that the conv
+    networks' calls on ``device`` should make counted beside it: one a site
+    for the forward, two more for the backward where the call's output
+    carries a gradient (every such output reaches the loss). Yields a dict
+    whose "launches" and "expected" are final on exit."""
+    counts = dict(expected=0, launches=None)
+
+    def hook(module, args, output):
+        if isinstance(module, CONV_NETWORKS) and next(module.parameters()).device.type == device:
+            outs = output if isinstance(output, tuple) else (output,)
+            grad = any(isinstance(t, torch.Tensor) and t.requires_grad for t in outs)
+            counts["expected"] += conv_norm_sites(module) * (3 if grad else 1)
+
+    cn.channel_norm.launches = 0
+    handle = torch.nn.modules.module.register_module_forward_hook(hook)
+    try:
+        yield counts
+    finally:
+        handle.remove()
+        counts["launches"] = cn.channel_norm.launches
+
+
+def check_norm_launches(counts: dict, what: str) -> None:
+    if counts["launches"] != counts["expected"] or not counts["expected"]:
+        raise AssertionError(f"{what}: channel_norm launched {counts['launches']} times, the "
+                             f"conv networks' sites x calls give {counts['expected']}")
 
 
 def phase_captured(captures: dict, l2_ns: float, search: str = "bench search") -> list:
@@ -2445,20 +2602,26 @@ def phase_alphazero(card: str) -> tuple:
 def phase_connect4(card: str) -> tuple:
     """Connect4 MuZero, the fine-tune config at full width with seeded
     weights: bot-mode searches (to_play -1 under players 2) take the
-    generic descent, as in the JAX package, so none launches the kernel."""
+    generic descent, as in the JAX package, so none launches the kernel.
+    The channel-norm kernel's launches in the eval and in one learn step
+    are held to the conv networks' sites x calls."""
     t0 = time.perf_counter()
     policy = MuZeroPolicy(connect4_config.policy, device="cuda", seed=MAIN_SEED)
     randomize_heads(policy.model, MAIN_SEED + 51)
     sims = policy.search_cfg.num_simulations
     descent, restore = timed_descents(puct, "_generic_traverse")
     try:
-        ev = eval_episodes(policy, card, "connect4_muzero",
-                           env=Connect4Env(battle_mode="play_with_bot_mode"),
-                           returns_range=(-1.0, 1.0))
+        with counted_norm_launches() as norm_eval:
+            ev = eval_episodes(policy, card, "connect4_muzero",
+                               env=Connect4Env(battle_mode="play_with_bot_mode"),
+                               returns_range=(-1.0, 1.0))
     finally:
         restore()
-    ev = descent_record(dict(ev, config="connect4_muzero_ft", num_simulations=sims), descent)
+    ev = descent_record(dict(ev, config="connect4_muzero_ft", num_simulations=sims,
+                             norm_launches=norm_eval["launches"],
+                             norm_expected=norm_eval["expected"]), descent)
     emit(ev)
+    check_norm_launches(norm_eval, "connect4_muzero eval")
     if ev["launches"] != 0 or descent["calls"] != ev["env_steps"] * sims:
         raise AssertionError(f"connect4_muzero eval: {ev['launches']} launches, "
                              f"{descent['calls']} descents for {ev['env_steps']} steps x {sims}")
@@ -2468,13 +2631,20 @@ def phase_connect4(card: str) -> tuple:
     cfg = copy.deepcopy(connect4_config)
     cfg.policy.num_simulations = C4_TRAIN_SIMS
     cfg.env.evaluator_env_num = cfg.env.n_evaluator_episode = C4_TRAIN_EVAL_EPISODES
-    train, problems, _, _, buffer = short_train(cfg, card, "connect4_muzero", 0)
-    train.update(mirror_augmentation=buffer.mirror_augmentation)
+    train, problems, trained, state, buffer = short_train(cfg, card, "connect4_muzero", 0)
+    # one more learn step, its channel-norm launches held to the sites'
+    batch, _ = buffer.sample(int(trained.cfg.batch_size), state.target_model)
+    with counted_norm_launches() as norm_learn:
+        trained.forward_learn(state, batch)
+    train.update(mirror_augmentation=buffer.mirror_augmentation,
+                 norm_launches_learn=norm_learn["launches"],
+                 norm_expected_learn=norm_learn["expected"])
     emit(train)
     if not buffer.mirror_augmentation:
         problems.append("the buffer does not mirror")
     if problems:
         raise AssertionError(f"connect4_muzero train failed: {problems}")
+    check_norm_launches(norm_learn, "connect4_muzero learn step")
     return dict(eval=ev, card_vs_cpu=agreement, train=train), time.perf_counter() - t0
 
 
@@ -3851,6 +4021,7 @@ def main() -> int:
     phase_division_check(card)
     cases = phase_kernel_vs_plain(l2_ns)
     backup_cases = phase_backup_vs_plain()
+    norm_cases = phase_channel_norm()
     main_rec = phase_main_path(card)
     bench, captures = phase_bench_shape(card)
     cases += phase_captured(captures, l2_ns)
@@ -3879,6 +4050,7 @@ def main() -> int:
 
     main_case = next(c for c in cases if (c["B"], c["A"], c["N"], c["tie_break"]) == (3, 2, 26, "noise"))
     cell_backup = next(c for c in backup_cases if (c["search"], c["simulation"]) == ("cell", 25))
+    moe_norm = next(c for c in norm_cases if c["label"] == "moe_learn.encoder")
     kernels = [dict(
         name="fused_traverse",
         route="cuda",
@@ -3983,6 +4155,27 @@ def main() -> int:
         bound_by=cell_backup["bound_by"],
         library_ms=None,
         shape=dict(B=2048, A=6, N=51, embedding=[6, 6, 64], simulation=25),
+    ), dict(
+        name="channel_norm",
+        route="cuda",
+        source="lightzero_tpu_torch/csrc/channel_norm.cu",
+        replaces=None,
+        # Connect4 MuZero's eval (phase 13), a forward a site a network
+        # call, and one of its learn steps, with three a site where the
+        # call's output is back-propagated; each equals sites x calls
+        launches=c4["eval"]["norm_launches"],
+        launches_connect4_muzero_learn_step=c4["train"]["norm_launches_learn"],
+        max_gaps={k: max(c["gaps"][k] for c in norm_cases) for k in CHANNEL_NORM_TOL},
+        ms=moe_norm["ms"],
+        wrapper_ms=moe_norm["wrapper_ms"],
+        plain_ms=moe_norm["plain_ms"],
+        bound_ms=moe_norm["bound_ms"],
+        bound_by="bytes",
+        library_ms=moe_norm["library_ms"],
+        backward_ms=moe_norm["backward_ms"],
+        backward_bound_ms=moe_norm["backward_bound_ms"],
+        plain_backward_ms=moe_norm["plain_backward_ms"],
+        shape=dict(map=moe_norm["shape"], residual=False),
     )]
     emit(dict(phase="done", wall_s=time.perf_counter() - t_start,
               build_s=build["seconds"], bench_sims_per_s=bench["sims_per_s_kernel"],

@@ -12,6 +12,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 from torch import nn
 
+from lightzero_tpu_torch.models.channel_norm import channel_norm
 from lightzero_tpu_torch.models.common import ConvNHWC, MLPTorso, ResBlock, _layer_norm
 
 
@@ -44,7 +45,7 @@ class AlphaZeroModel(nn.Module):
 
     def forward(self, obs: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """obs (B, H, W, C) -> (policy logits (B, A), value (B,) in [-1, 1])."""
-        x = torch.relu(self.norm[0](self.conv[0](obs)))
+        x = channel_norm(self.conv[0](obs), self.norm[0])
         for block in self.res:
             x = block(x)
         flat = x.reshape(x.shape[0], -1)

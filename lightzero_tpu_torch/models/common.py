@@ -24,11 +24,14 @@ that is (0, 1), where torch's ``padding=1`` would pad (1, 1), so the port
 pads explicitly (``same_padding``). ``nn.avg_pool`` is VALID:
 ``avg_pool2d(2, 2)`` without padding.
 
-The convolutions, LayerNorms and average pools here are
-``torch.nn.functional.conv2d``, ``layer_norm`` and ``avg_pool2d``: in the
-JAX package they are flax ``nn.Conv``, ``nn.LayerNorm`` and ``nn.avg_pool``,
-compiled by XLA outside any Pallas kernel, so nothing of the conv stack is a
-TPU kernel to port, as a plain matrix product is not.
+The convolutions and average pools here are ``torch.nn.functional.conv2d``
+and ``avg_pool2d``: in the JAX package they are flax ``nn.Conv`` and
+``nn.avg_pool``, compiled by XLA outside any Pallas kernel, so nothing of the
+conv stack is a TPU kernel to port, as a plain matrix product is not. Each
+LayerNorm of the conv stack, with the relu after it and the residual add
+before that relu, is one ``channel_norm`` call (``models/channel_norm.py``):
+a hand-written CUDA kernel on the card, ``F.layer_norm`` and ``torch.relu``
+on the CPU. The ``nn.LayerNorm`` modules hold its parameters.
 """
 from __future__ import annotations
 
@@ -38,6 +41,8 @@ from typing import Any, NamedTuple, Optional, Sequence, Tuple
 import torch
 from torch import nn
 from torch.nn import functional as F
+
+from lightzero_tpu_torch.models.channel_norm import channel_norm
 
 LAYER_NORM_EPS = 1e-6
 
@@ -332,9 +337,8 @@ class ResBlock(nn.Module):
         self.norm = nn.ModuleList(_layer_norm(channels) for _ in range(2))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = torch.relu(self.norm[0](self.conv[0](x)))
-        y = self.norm[1](self.conv[1](y))
-        return torch.relu(x + y)
+        y = channel_norm(self.conv[0](x), self.norm[0])
+        return channel_norm(self.conv[1](y), self.norm[1], residual=x)
 
 
 class DownSample(nn.Module):
@@ -355,10 +359,10 @@ class DownSample(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         n = self.num_resblocks
-        x = torch.relu(self.norm[0](self.conv[0](x)))
+        x = channel_norm(self.conv[0](x), self.norm[0])
         for blk in self.res[:n]:
             x = blk(x)
-        x = torch.relu(self.norm[1](self.conv[1](x)))
+        x = channel_norm(self.conv[1](x), self.norm[1])
         for blk in self.res[n:2 * n]:
             x = blk(x)
         x = avg_pool_nhwc(x)
@@ -397,7 +401,7 @@ class RepresentationNetworkConv(nn.Module):
         if hasattr(self, "downsample"):
             x = self.downsample(obs)
         else:
-            x = torch.relu(self.norm[0](self.conv[0](obs)))
+            x = channel_norm(self.conv[0](obs), self.norm[0])
         for blk in self.res:
             x = blk(x)
         return x
@@ -410,7 +414,7 @@ def conv_transition(conv: ConvNHWC, norm: nn.LayerNorm, blocks, latent: torch.Te
     the res blocks: the state path of every conv dynamics (flax
     ``DynamicsNetworkConv`` and the models' bare ``_dyn_conv``,
     ``_dyn_norm``, ``_dyn_blocks``)."""
-    x = torch.relu(norm(conv(torch.cat([latent, planes], dim=-1))) + latent)
+    x = channel_norm(conv(torch.cat([latent, planes], dim=-1)), norm, residual=latent)
     for blk in blocks:
         x = blk(x)
     return x
@@ -419,7 +423,7 @@ def conv_transition(conv: ConvNHWC, norm: nn.LayerNorm, blocks, latent: torch.Te
 def conv_reduce(conv: ConvNHWC, norm: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
     """conv1x1 -> LN -> relu -> flatten in (h, w, c) order: what the heads'
     MLPs and EfficientZero's LSTM read."""
-    r = torch.relu(norm(conv(x)))
+    r = channel_norm(conv(x), norm)
     return r.reshape(r.shape[0], -1)
 
 

@@ -30,6 +30,7 @@ from typing import Any, NamedTuple, Optional
 import torch
 from torch import nn
 
+from lightzero_tpu_torch.models.channel_norm import channel_norm
 from lightzero_tpu_torch.models.common import (
     LAYER_NORM_EPS,
     ConvNHWC,
@@ -190,7 +191,7 @@ class StochasticMuZeroModel(nn.Module):
         """Consecutive observations, (B, 2 obs_dim) or, conv, (B, H, W, 2 C)
         -> (logits, the straight-through one-hot of their argmax)."""
         if self.model_type == "conv":
-            x = torch.relu(self.chance_norm(self.chance_conv(obs_pair)))
+            x = channel_norm(self.chance_conv(obs_pair), self.chance_norm)
             logits = self.chance_head(x.reshape(x.shape[0], -1))
         else:
             logits = self.chance_encoder(obs_pair)

@@ -13,11 +13,12 @@ no allocation, no device op, no host sync. ``new_request()``, called on
 entry by the policies' ``_forward_collect`` and ``forward_learn``, gives
 the spans of one call a shared id. ``summary()`` sums the record by name.
 
-Counters. ``count(name, value)`` keeps a device tensor under ``name`` in
-``counters`` while a profile is active (the MoE layers' per-expert token
-counts, ``moe.tokens_per_expert``), as it is: no read-back, which is left
-to whoever reads ``counters`` after the profile. Outside a profile it is
-one check.
+Counters. ``count(name, value)`` keeps a device tensor or a host number
+under ``name`` in ``counters`` while a profile is active (the MoE layers'
+per-expert token counts, ``moe.tokens_per_expert``; the bytes of each
+channel-norm launch, ``channel_norm.bytes``), as it is: no read-back, which
+is left to whoever reads ``counters`` after the profile. Outside a profile
+it is one check.
 
 ``torch_trace`` takes the place of the JAX module's ``jax_trace``: it
 records the host's ops and, where the work runs on the card, the device's
@@ -32,7 +33,7 @@ import json
 import os
 import threading
 import time
-from typing import Dict, List, NamedTuple, Optional
+from typing import Dict, List, NamedTuple, Optional, Union
 
 import torch
 
@@ -58,9 +59,9 @@ class _Thread(threading.local):
 
 # the spans recorded while a profile was active, in the order they closed
 record: List[Span] = []
-# the counters' device tensors recorded while a profile was active, by name,
-# in the order they were recorded
-counters: Dict[str, List[torch.Tensor]] = {}
+# the counters' device tensors and host numbers recorded while a profile was
+# active, by name, in the order they were recorded
+counters: Dict[str, List[Union[torch.Tensor, float]]] = {}
 _local = _Thread()
 _requests = itertools.count(1)
 _OFF = contextlib.nullcontext()
@@ -109,11 +110,12 @@ def span(name: str):
     return _Span(name) if _on() else _OFF
 
 
-def count(name: str, value: torch.Tensor) -> None:
+def count(name: str, value: Union[torch.Tensor, float]) -> None:
     """Keep ``value`` under ``name`` in ``counters`` while a profile is
     active (a no-op outside one)."""
     if _on():
-        counters.setdefault(name, []).append(value.detach())
+        counters.setdefault(name, []).append(
+            value.detach() if isinstance(value, torch.Tensor) else value)
 
 
 def summary(spans: Optional[List[Span]] = None) -> Dict[str, Dict[str, float]]:
@@ -170,7 +172,8 @@ def torch_trace(log_dir: str):
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
     with open(os.path.join(log_dir, "spans.json"), "w") as f:
         json.dump(dict(summary=summary(), spans=[s._asdict() for s in record],
-                       counters={k: [v.tolist() for v in vs] for k, vs in counters.items()}), f)
+                       counters={k: [v.tolist() if isinstance(v, torch.Tensor) else v for v in vs]
+                                 for k, vs in counters.items()}), f)
 
 
 def buffer_metrics(buffer) -> Dict[str, float]:
