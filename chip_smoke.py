@@ -295,7 +295,6 @@ from __future__ import annotations
 import concurrent.futures
 import contextlib
 import copy
-import ctypes
 import dataclasses
 import faulthandler
 import functools
@@ -435,6 +434,10 @@ from lightzero_tpu_torch.workers import (
     HostEvaluator,
     RolloutCollector,
 )
+from port_bench.flops import descent_bytes_ops
+
+# the descent's and the backup's launchers, as ``_build.launches`` counts them
+DESCENT, BACKUP = "fused_traverse_launch", "fused_backup_launch"
 
 # phases 9 and 10 took the script to 259 s on one host and to 371 s on a
 # slower one (every phase 1.4-1.9x slower there), 29 s short of the 400 s
@@ -451,11 +454,6 @@ WATCHDOG_S = 600
 # tensor cores; the bound of a kernel is the larger of bytes/rate, ops/rate
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
-# operations the descent does per tree and depth level (log, sqrt, the
-# mean-Q divisions) and per action and level (child value, pUCT score,
-# normalisation, clip, argmax; a second scoring pass for the noise tie-break)
-OPS_PER_LEVEL = 16
-OPS_PER_ACTION = {True: 30, False: 52}
 # kernel vs plain: path, action, depth, parent, leaf and flags exact; the
 # recorded stats are copies of table entries and must agree to 1e-6
 STATS_RTOL = STATS_ATOL = 1e-6
@@ -747,10 +745,6 @@ def phase_latency_probe(card: str) -> dict:
     And the floor of a launch: the same kernel with no loads, timed in a
     CUDA graph as the descent is."""
     steps = 20000
-    lib = _build.load("latency_probe")
-    fn = lib.latency_probe_launch
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
     stride, lines = 32, (4 << 20) // 128
     order = np.random.default_rng(0).permutation(lines)
     nxt = np.zeros(lines * stride, np.int32)
@@ -759,9 +753,7 @@ def phase_latency_probe(card: str) -> dict:
     out = torch.empty(1, dtype=torch.int32, device="cuda")
 
     def run(n):
-        rc = fn(nxt.data_ptr(), n, out.data_ptr(), torch.cuda.current_stream().cuda_stream)
-        if rc != 0:
-            raise RuntimeError(f"latency probe launch failed with CUDA error {rc}")
+        _build.launch("latency_probe_launch", nxt.device, nxt.data_ptr(), n, out.data_ptr())
 
     run(lines)  # brings the buffer into L2
     ms = cuda_ms(lambda: run(steps), reps=3, warmup=1)
@@ -888,18 +880,10 @@ def traverse_case(B: int, A: int, N: int, first: bool, l2_ns: float, seed: int =
     # host-bound at 50-150 ms a call (4 calls until phase 17 came)
     plain_ms = cuda_ms(lambda: fused_traverse_reference(*args, **kw), reps=1, warmup=0)
 
-    # the least the card could take: the rows each descent visits (depth+1
-    # distinct rows), the per-tree inputs and noise rows it reads, its outputs
-    D = N + 1
+    # the least the card could take, as the benchmark counts it
     depth = exp[0][:, 3].double()
     deepest = int(depth.max())
-    C = 7 * A + 2
-    bytes_moved = 4 * (
-        float((depth + 1).sum()) * C + B * (1 + 1 + 4)
-        + (0 if first else (D - 1) * B * A) + B * (8 + 5 * D)
-    )
-    # what these trees need: depth+1 levels and the scoring of the stop row
-    ops = float((depth + 2).sum()) * (OPS_PER_LEVEL + OPS_PER_ACTION[first] * A)
+    bytes_moved, ops = descent_bytes_ops(float(depth.sum()), B, A, N, first)
     bound_s = max(bytes_moved / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S)
     rec = dict(
         phase="kernel_vs_plain", kernel="fused_traverse", tables=label, B=B, A=A, N=N,
@@ -1147,13 +1131,16 @@ def counted_norm_launches(device: str = "cuda"):
             grad = any(isinstance(t, torch.Tensor) and t.requires_grad for t in outs)
             counts["expected"] += conv_norm_sites(module) * (3 if grad else 1)
 
-    cn.channel_norm.launches = 0
+    for entry in ("channel_norm_forward", "channel_norm_backward"):
+        _build.launches[entry] = 0
     handle = torch.nn.modules.module.register_module_forward_hook(hook)
     try:
         yield counts
     finally:
         handle.remove()
-        counts["launches"] = cn.channel_norm.launches
+        # the backward's entry point launches two kernels
+        counts["launches"] = (_build.launches["channel_norm_forward"]
+                              + 2 * _build.launches["channel_norm_backward"])
 
 
 def check_norm_launches(counts: dict, what: str) -> None:
@@ -1249,13 +1236,8 @@ def fast_division(a: np.ndarray, b: np.ndarray) -> tuple:
     fast = torch.empty_like(a)
     exact = torch.empty_like(a)
     in_range = torch.empty(n, dtype=torch.int32, device="cuda")
-    fn = _build.load("fused_traverse").fused_traverse_check_div
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    rc = fn(a.data_ptr(), b.data_ptr(), fast.data_ptr(), exact.data_ptr(),
-            in_range.data_ptr(), n, torch.cuda.current_stream().cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"division check launch failed with CUDA error {rc}")
+    _build.launch("fused_traverse_check_div", a.device, a.data_ptr(), b.data_ptr(),
+                  fast.data_ptr(), exact.data_ptr(), in_range.data_ptr(), n)
     torch.cuda.synchronize()
     return fast.cpu().numpy(), exact.cpu().numpy(), in_range.cpu().numpy().astype(bool)
 
@@ -1560,13 +1542,13 @@ def phase_train(card: str) -> dict:
     n_envs = cfg.env.collector_env_num
     with tempfile.TemporaryDirectory() as tmp:
         cfg.exp_name = os.path.join(tmp, "cartpole_muzero")
-        fused_traverse.launches = 0
+        _build.launches[DESCENT] = 0
         t0 = time.perf_counter()
         policy, state, stats = train_muzero(cfg, seed=MAIN_SEED, device="cuda",
                                             max_train_iter=TRAIN_ITERS)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = fused_traverse.launches
+        launches = _build.launches[DESCENT]
         with open(os.path.join(cfg.exp_name, "log", "train.jsonl")) as f:
             records = [json.loads(line) for line in f]
     trained_iter = state.train_iter
@@ -1587,10 +1569,10 @@ def phase_train(card: str) -> dict:
 
     # one sample with reanalyze: one search over its roots
     buffer.reanalyze_ratio = 0.25
-    before = fused_traverse.launches
+    before = _build.launches[DESCENT]
     buffer.sample(batch_size, state.target_model)
     torch.cuda.synchronize()
-    reanalyze_launches = fused_traverse.launches - before
+    reanalyze_launches = _build.launches[DESCENT] - before
     buffer.reanalyze_ratio = 0.0
 
     state, step_ms, sample_s, timed_losses = time_learn_steps(
@@ -1649,15 +1631,15 @@ def eval_episodes(policy, card: str, label: str, env=None, returns_range=(0, mat
     cartpole = env is None
     env = CartPoleEnv() if cartpole else env
     evaluator = Evaluator(env, policy, num_envs=3, seed=MAIN_SEED, device="cuda")
-    fused_traverse.launches = 0
-    fused_backup.launches = 0
+    _build.launches[DESCENT] = 0
+    _build.launches[BACKUP] = 0
     t0 = time.perf_counter()
     result = evaluator.eval(max_steps=200)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     steps, returns = result["env_steps"], result["episode_returns"]
     rec = dict(phase=f"{label}_eval", num_envs=3, episode_returns=returns, env_steps=steps,
-               launches=fused_traverse.launches, backup_launches=fused_backup.launches,
+               launches=_build.launches[DESCENT], backup_launches=_build.launches[BACKUP],
                wall_s=wall, wall_per_env_step_s=wall / steps, card=card)
     low, high = (1, 200) if cartpole else returns_range
     if len(returns) < 3 or not all(math.isfinite(r) and low <= r <= high for r in returns):
@@ -1692,7 +1674,7 @@ def short_train(cfg, card: str, label: str, launches_per_search: int,
     n_envs = cfg.env.collector_env_num
     with tempfile.TemporaryDirectory() as tmp:
         cfg.exp_name = os.path.join(tmp, label)
-        fused_traverse.launches = 0
+        _build.launches[DESCENT] = 0
         t0 = time.perf_counter()
         try:
             policy, state, stats = train_muzero(cfg, seed=MAIN_SEED,
@@ -1701,7 +1683,7 @@ def short_train(cfg, card: str, label: str, launches_per_search: int,
             TRAIN_MUZERO_MODULE.RolloutCollector = RolloutCollector
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = fused_traverse.launches
+        launches = _build.launches[DESCENT]
         with open(os.path.join(cfg.exp_name, "log", "train.jsonl")) as f:
             records = [json.loads(line) for line in f]
         with open(os.path.join(cfg.exp_name, "log", "train.txt")) as f:
@@ -1838,10 +1820,10 @@ def phase_gumbel(card: str) -> dict:
     # reanalyze searches with the pUCT search, through the kernel
     sims = SHORT_TRAIN_SIMS
     buffer.reanalyze_ratio = 0.25
-    before = fused_traverse.launches
+    before = _build.launches[DESCENT]
     buffer.sample(int(policy.cfg.batch_size), state.target_model)
     torch.cuda.synchronize()
-    train["reanalyze_launches"] = fused_traverse.launches - before
+    train["reanalyze_launches"] = _build.launches[DESCENT] - before
     buffer.reanalyze_ratio = 0.0
     emit(train)
     if train["reanalyze_launches"] != sims:
@@ -2076,14 +2058,14 @@ def watch_reanalyze(sims: int):
             expected_descents = sims * sum(max(g) - 1 for g in groups)
         else:
             expected_launches, expected_descents = sims * math.ceil(sum(lengths) / G), 0
-        launches, descended = fused_traverse.launches, descents[0]
+        launches, descended = _build.launches[DESCENT], descents[0]
         t0 = time.perf_counter()
         n = reanalyze(self, target_model, reanalyze_batch_size, partition, reuse_search)
         torch.cuda.synchronize()
         calls.append(dict(
             reuse_search=reuse_search, batch=G, episodes=len(lengths),
             longest_episode=max(lengths), transitions=n, expected_transitions=sum(lengths),
-            launches=fused_traverse.launches - launches, expected_launches=expected_launches,
+            launches=_build.launches[DESCENT] - launches, expected_launches=expected_launches,
             generic_descents=descents[0] - descended, expected_generic_descents=expected_descents,
             wall_s=time.perf_counter() - t0))
         return n
@@ -2119,7 +2101,7 @@ def reuse_search_card_vs_cpu(policy) -> dict:
     cpu_policy = type(policy)(policy.cfg, model=copy.deepcopy(policy.model).cpu(), device="cpu")
     search_cfg = policy.search_cfg
     outs = []
-    launches = fused_traverse.launches
+    launches = _build.launches[DESCENT]
     try:
         for p in (policy, cpu_policy):
             p.search_cfg = dataclasses.replace(search_cfg, tie_break="first")
@@ -2130,7 +2112,7 @@ def reuse_search_card_vs_cpu(policy) -> dict:
             outs.append((visits.cpu(), values.cpu()))
     finally:
         policy.search_cfg = search_cfg
-    launches = fused_traverse.launches - launches
+    launches = _build.launches[DESCENT] - launches
     (card_visits, card_values), (cpu_visits, cpu_values) = outs
     err = float((card_values - cpu_values).abs().max())
     rec = dict(phase="rezero_reuse_card_vs_cpu", batch=B, tie_break="first",
@@ -2512,7 +2494,7 @@ def phase_alphazero(card: str) -> tuple:
     simulator and the players alternate, so every search takes the generic
     descent and none launches the kernel."""
     t0 = time.perf_counter()
-    fused_traverse.launches = 0
+    _build.launches[DESCENT] = 0
     policy = AlphaZeroPolicy(ttt_az_config.policy, TicTacToeEnv("self_play_mode"), device="cuda",
                              seed=MAIN_SEED)
     randomize_heads(policy.model, MAIN_SEED + 41)
@@ -2578,7 +2560,7 @@ def phase_alphazero(card: str) -> tuple:
         step_ms.append(start.elapsed_time(end))
         timed_losses.append(float(logs["total_loss"]))
     params_finite = all(bool(torch.isfinite(p).all()) for p in state.model.parameters())
-    launches = fused_traverse.launches
+    launches = _build.launches[DESCENT]
     train = dict(phase="tictactoe_alphazero_train", train_iter=stats["train_iter"],
                  env_steps=stats["env_steps"], replay=len(stats["replay"]),
                  logged_total_losses=losses, wall_s=train_wall,
@@ -2673,7 +2655,7 @@ def az_board_run(card: str, label: str, config, policy_cls, descent_name: str,
     self-play collect of 8 games (more where the replay holds less than a
     batch) and SHORT_TRAIN_ITERS learn steps; one learn step card vs CPU; the median of
     TIMED_LEARN_STEPS learn steps. No search launches the kernel."""
-    fused_traverse.launches = 0
+    _build.launches[DESCENT] = 0
     sp_env = build_env(config.env, "self_play_mode")
     policy = policy_cls(config.policy, sp_env, device="cuda", seed=MAIN_SEED)
     randomize_heads(policy.model, MAIN_SEED + 61)
@@ -2739,7 +2721,7 @@ def az_board_run(card: str, label: str, config, policy_cls, descent_name: str,
         torch.cuda.synchronize()
         step_ms.append(start.elapsed_time(end))
         timed_losses.append(float(logs["total_loss"]))
-    launches = fused_traverse.launches
+    launches = _build.launches[DESCENT]
     train = dict(phase=f"{label}_train", train_iter=stats["train_iter"],
                  env_steps=stats["env_steps"], replay=len(stats["replay"]),
                  logged_total_losses=losses, collect_steps_per_s=collect_sps, wall_s=train_wall,
@@ -2767,7 +2749,7 @@ def chess_on_card(card: str) -> dict:
     actions, 50 simulations): the eval against the rule bot on 5 envs, games
     cut at CHESS_MAX_MOVES plies, its descents timed; perft to depth 2 from
     the start position and Kiwipete with the card's legal_mask_full."""
-    fused_traverse.launches = 0
+    _build.launches[DESCENT] = 0
     cfg = az_board_config(chess_az_config, CHESS_MAX_MOVES)
     bot_env = build_env(cfg.env, "play_with_bot_mode")
     policy = AlphaZeroPolicy(cfg.policy, build_env(cfg.env, "self_play_mode"), device="cuda",
@@ -2786,7 +2768,7 @@ def chess_on_card(card: str) -> dict:
                              episode_returns=res["episode_returns"], env_steps=res["env_steps"],
                              max_moves=CHESS_MAX_MOVES, wall_s=res["duration"],
                              wall_per_env_step_s=res["duration"] / res["env_steps"],
-                             launches=fused_traverse.launches, card=card), descent)
+                             launches=_build.launches[DESCENT], card=card), descent)
     emit(ev)
     if (len(res["episode_returns"]) != 5 or descent["calls"] != res["env_steps"] * sims
             or ev["launches"] != 0):
@@ -3074,12 +3056,12 @@ def mt_run(label: str, entry_fn, cfgs: list, card: str) -> tuple:
             c.exp_name = os.path.join(tmp, label)
             c.env.max_episode_steps = MT_EPISODE_STEPS
             c.policy.update_per_collect = SHORT_TRAIN_ITERS
-        fused_traverse.launches = 0
+        _build.launches[DESCENT] = 0
         t0 = time.perf_counter()
         policy, state, stats = entry_fn(cfgs, seed=MAIN_SEED, max_train_iter=SHORT_TRAIN_ITERS)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = fused_traverse.launches
+        launches = _build.launches[DESCENT]
         with open(os.path.join(tmp, label, "log", "train.jsonl")) as f:
             losses = [json.loads(line)["learner/total_loss"] for line in f
                       if "learner/total_loss" in line]
@@ -3575,7 +3557,7 @@ def rnd_run(card: str, tmp: str) -> tuple:
     cfg = copy.deepcopy(rnd_config)
     cfg.exp_name = os.path.join(tmp, "memory_muzero_rnd")
     cfg.policy.update_per_collect = SHORT_TRAIN_ITERS
-    fused_traverse.launches = 0
+    _build.launches[DESCENT] = 0
     t0 = time.perf_counter()
     RND_ENTRY_MODULE.RolloutCollector = functools.partial(RolloutCollector,
                                                           rollout_length=RND_COLLECT_STEPS)
@@ -3587,7 +3569,7 @@ def rnd_run(card: str, tmp: str) -> tuple:
         RND_ENTRY_MODULE.RolloutCollector = RolloutCollector
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = fused_traverse.launches
+    launches = _build.launches[DESCENT]
     sims = policy.search_cfg.num_simulations
     n_envs = cfg.env.collector_env_num
     collect_searches = stats["env_steps"] // n_envs
@@ -3647,7 +3629,7 @@ def eval_offline_on_card(cfg, card: str) -> dict:
         return res
 
     Evaluator.eval = counted
-    fused_traverse.launches = 0
+    _build.launches[DESCENT] = 0
     try:
         res = eval_offline(cfg, seed=MAIN_SEED, n_episodes=4)
     finally:
@@ -3655,7 +3637,7 @@ def eval_offline_on_card(cfg, card: str) -> dict:
     torch.cuda.synchronize()
     sims = int(cfg.policy.num_simulations)
     rec = dict(phase="eval_offline", results=res["results"], best_ckpt=res["best_ckpt"],
-               eval_searches=sum(steps), launches=fused_traverse.launches,
+               eval_searches=sum(steps), launches=_build.launches[DESCENT],
                expected_launches=sum(steps) * sims, card=card)
     emit(rec)
     if list(res["results"]) != ["ckpt_final"] or not all(
@@ -3894,7 +3876,7 @@ def agent_on_card(card: str, tmp: str) -> dict:
     n_envs = int(agent.cfg.env.collector_env_num)
     TRAIN_MUZERO_MODULE.RolloutCollector = functools.partial(
         RolloutCollector, rollout_length=SHORT_COLLECT_STEPS)
-    fused_traverse.launches = 0
+    _build.launches[DESCENT] = 0
     t0 = time.perf_counter()
     try:
         stats = agent.train(max_env_step=1)
@@ -3902,16 +3884,16 @@ def agent_on_card(card: str, tmp: str) -> dict:
         TRAIN_MUZERO_MODULE.RolloutCollector = RolloutCollector
     torch.cuda.synchronize()
     train_wall = time.perf_counter() - t0
-    train_launches = fused_traverse.launches
+    train_launches = _build.launches[DESCENT]
     expected_train = (stats["env_steps"] // n_envs + stats["eval_env_steps"]) * sims
     replay_dir = os.path.join(tmp, "replays")
-    fused_traverse.launches = 0
+    _build.launches[DESCENT] = 0
     t0 = time.perf_counter()
     res = agent.deploy(n_episodes=AGENT_DEPLOY_EPISODES, enable_save_replay=True,
                        replay_path=replay_dir)
     torch.cuda.synchronize()
     deploy_wall = time.perf_counter() - t0
-    deploy_launches = fused_traverse.launches
+    deploy_launches = _build.launches[DESCENT]
     problems = []
     lengths = []
     for i, ret in enumerate(res["episode_returns"]):

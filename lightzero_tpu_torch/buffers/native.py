@@ -1,41 +1,22 @@
 """ctypes binding of the native replay core (``csrc/replay_core.cpp``), the
 counterpart of ``lightzero_tpu/buffers/native/__init__.py``.
 
-The library is built with g++ at first use by ``_build.py``. Where the JAX
-loader answers ``available() == False`` when the build fails and its buffer
-quietly takes the Python path, this one raises ``BuildError``: the Python
-path is chosen only by ``use_native_replay=False``.
+The library is built with g++ at first use, and its two entry points'
+types declared, by ``_build.py``. Where the JAX loader answers
+``available() == False`` when the build fails and its buffer quietly takes
+the Python path, this one raises ``BuildError``: the Python path is chosen
+only by ``use_native_replay=False``.
 """
 from __future__ import annotations
-
-import ctypes
 
 import numpy as np
 
 from lightzero_tpu_torch import _build
 
-_I64 = np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS")
-_F64 = np.ctypeslib.ndpointer(np.float64, flags="C_CONTIGUOUS")
-_F32 = np.ctypeslib.ndpointer(np.float32, flags="C_CONTIGUOUS")
-_U8 = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")
 
-
-def library() -> ctypes.CDLL:
+def library():
     """The replay core, built and bound on first use."""
-    lib = _build.load("replay_core")
-    if lib.sample_prioritized.argtypes is None:
-        lib.sample_prioritized.argtypes = [
-            _F64, ctypes.c_int64, ctypes.c_double, ctypes.c_double,
-            ctypes.c_int64, ctypes.c_uint64, _I64, _F32,
-        ]
-        lib.sample_prioritized.restype = None
-        lib.assemble_unroll.argtypes = [
-            _I64, _I64, _I64, _U8, _F32, ctypes.c_int64, ctypes.c_int64,
-            ctypes.c_int64, ctypes.c_double,
-            _I64, _U8, _I64, _U8, _F32, _F32, _I64, _U8, _F32,
-        ]
-        lib.assemble_unroll.restype = None
-    return lib
+    return _build.load("replay_core")
 
 
 def sample_prioritized(priorities: np.ndarray, alpha: float, beta: float, batch: int, seed: int):
@@ -46,7 +27,7 @@ def sample_prioritized(priorities: np.ndarray, alpha: float, beta: float, batch:
         raise ValueError(f"priorities must be a non-empty vector, got shape {priorities.shape}")
     idx = np.empty(batch, np.int64)
     w = np.empty(batch, np.float32)
-    library().sample_prioritized(
+    _build.entry("sample_prioritized")(
         priorities, len(priorities), alpha, beta, batch, seed & 0xFFFFFFFFFFFFFFFF, idx, w
     )
     return idx, w
@@ -77,7 +58,7 @@ def assemble_unroll(ep_start, ep_len, pos, truncated, flat_rewards, K: int, td: 
         boot_valid=np.empty((B, K + 1), np.uint8),
         boot_disc=np.empty((B, K + 1), np.float32),
     )
-    library().assemble_unroll(
+    _build.entry("assemble_unroll")(
         ep_start, ep_len, pos, truncated, flat_rewards, B, K, td, gamma,
         out["obs_idx"], out["obs_valid"], out["action_idx"], out["action_pad"], out["mask"],
         out["reward_sum"], out["boot_idx"], out["boot_valid"], out["boot_disc"],

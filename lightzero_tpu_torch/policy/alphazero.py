@@ -29,7 +29,7 @@ from torch import nn
 from lightzero_tpu_torch.config import Config, deep_merge
 from lightzero_tpu_torch.models.alphazero import AlphaZeroModel
 from lightzero_tpu_torch.ops.action import sample_from_visit_counts
-from lightzero_tpu_torch.policy.muzero import clip_by_global_norm_
+from lightzero_tpu_torch.policy.muzero import clip_by_global_norm_, zero_missing_grads_
 from lightzero_tpu_torch.search.puct import batch_puct_search
 from lightzero_tpu_torch.search.types import RecurrentOutput, RootOutput, SearchConfig
 from lightzero_tpu_torch.utils import profiling
@@ -218,9 +218,7 @@ class AlphaZeroPolicy:
         """The optimizer's step on the gradients the parameters hold, clipped
         by their global norm first; returns the norm before clipping."""
         params = list(state.model.parameters())
-        for p in params:
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
+        zero_missing_grads_(params)
         norm = clip_by_global_norm_([p.grad for p in params], float(self.cfg.grad_clip_value))
         state.optimizer.step()
         return norm

@@ -190,24 +190,14 @@ class MultitaskMixin:
             p.grad = g
         logs["grad_norm"] = torch.nn.utils.get_total_norm(grads)
         # the clip covers what the optimizer updates, log_alpha's group aside
-        clipped = [p.grad for grp in state.optimizer.param_groups
-                   if not grp.get("alpha", False) for p in grp["params"]]
-        norm = torch.nn.utils.get_total_norm(clipped)
-        clip = float(self.cfg.grad_clip_value)
-        scale = torch.where(norm < clip, 1.0, clip / norm)
-        for g in clipped:
-            g.mul_(scale)
-        state.optimizer.step()
-        state.lr_scheduler.step()
-        train_iter = state.train_iter + 1
-        if train_iter % int(self.cfg.target_update_freq) == 0:
-            state.target_model.load_state_dict(model.state_dict())
+        state, _ = self._update(state, [p.grad for grp in state.optimizer.param_groups
+                                        if not grp.get("alpha", False) for p in grp["params"]])
         logs["total_loss"] = task_loss.sum().detach()
         for t in range(self.task_num):
             logs[f"task{t}_loss"] = task_loss[t].detach()
             logs[f"task{t}_weight"] = tw[t].detach()
             logs[f"task{t}_cagrad_w"] = cag_w[t].detach()
-        return state._replace(train_iter=train_iter), logs, vp
+        return state, logs, vp
 
     # -------------------------------------------------------------- workers
     def task_view(self, task_id: int):

@@ -30,7 +30,7 @@ from __future__ import annotations
 import copy
 import functools
 import math
-from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple, Union
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple, Union
 
 import torch
 from torch import nn
@@ -99,6 +99,14 @@ def clip_by_global_norm_(grads, max_norm: float) -> torch.Tensor:
     for g in grads:
         g.mul_(scale)
     return norm
+
+
+def zero_missing_grads_(params) -> None:
+    """A zero gradient for each parameter the loss does not reach, as JAX
+    gives it; such a parameter still takes the weight decay's step."""
+    for p in params:
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
 
 
 class MuZeroPolicy:
@@ -427,23 +435,33 @@ class MuZeroPolicy:
         loss, (logs, value_priority) = self._loss_fn(model, batch)
         loss.backward()
         params = list(model.parameters())
-        for p in params:
-            # a parameter the loss does not reach has a zero gradient in JAX
-            # and still takes the weight decay's step
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
+        zero_missing_grads_(params)
         if self.grad_sync is not None:
             self.grad_sync(params, logs)
-        logs["grad_norm"] = clip_by_global_norm_(
-            [p.grad for p in params], float(self.cfg.grad_clip_value)
-        )
         logs["cur_lr"] = state.lr_scheduler.get_last_lr()[0]
-        state.optimizer.step()
-        state.lr_scheduler.step()
-        train_iter = state.train_iter + 1
-        if train_iter % int(self.cfg.target_update_freq) == 0:
-            state.target_model.load_state_dict(model.state_dict())
-        return state._replace(train_iter=train_iter), logs, value_priority
+        state, logs["grad_norm"] = self._update(state, [p.grad for p in params])
+        return state, logs, value_priority
+
+    def _update(self, state: TrainState, grads: Optional[List[torch.Tensor]],
+                after_step: Optional[Callable[[], None]] = None):
+        """The tail of a learn step: ``grads`` clipped by their global norm,
+        the optimizer's and the schedule's step, ``after_step()``, then the
+        target model's copy of the online one every ``target_update_freq``
+        steps. ``grads`` None skips the update (a non-finite step) and still
+        counts the step. Returns (the state, the norm of ``grads`` before
+        clipping, None where skipped)."""
+        norm = None
+        with profiling.span("learn.optimizer"):
+            if grads is not None:
+                norm = clip_by_global_norm_(grads, float(self.cfg.grad_clip_value))
+                state.optimizer.step()
+                state.lr_scheduler.step()
+                if after_step is not None:
+                    after_step()
+            train_iter = state.train_iter + 1
+            if train_iter % int(self.cfg.target_update_freq) == 0:
+                state.target_model.load_state_dict(state.model.state_dict())
+        return state._replace(train_iter=train_iter), norm
 
     # -------------------------------------------------------------- collect
     @torch.no_grad()

@@ -50,6 +50,7 @@ UniZero config sets one).
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any, Dict, Optional, Tuple
 
@@ -70,7 +71,12 @@ from lightzero_tpu_torch.ops import (
     scalar_transform,
 )
 from lightzero_tpu_torch.ops.lpips import LPIPS
-from lightzero_tpu_torch.policy.muzero import MuZeroPolicy, TrainBatch, TrainState
+from lightzero_tpu_torch.policy.muzero import (
+    MuZeroPolicy,
+    TrainBatch,
+    TrainState,
+    zero_missing_grads_,
+)
 from lightzero_tpu_torch.search.puct import batch_puct_search
 from lightzero_tpu_torch.search.types import RecurrentOutput, RootOutput
 from lightzero_tpu_torch.utils import profiling
@@ -471,9 +477,7 @@ class UniZeroPolicy(MuZeroPolicy):
                 loss, (lg, vp) = self._loss_fn(model, mb, state.train_iter)
             with profiling.span("learn.backward"):
                 (loss / len(micro)).backward()
-                for p in named.values():
-                    if p.grad is None:
-                        p.grad = torch.zeros_like(p)
+                zero_missing_grads_(named.values())
             logs_m.append(lg)
             prio_m.append(vp)
         logs = {k: torch.stack([lg[k] for lg in logs_m]).mean() for k in logs_m[0]}
@@ -493,23 +497,12 @@ class UniZeroPolicy(MuZeroPolicy):
             grad_norm = torch.zeros_like(grad_norm)
         logs["grad_norm"] = grad_norm
         logs["cur_lr"] = state.lr_scheduler.get_last_lr()[0]
-        with profiling.span("learn.optimizer"):
-            if finite:
-                # clip the model groups' gradients (not log_alpha's) as optax does
-                model_grads = [p.grad for grp in state.optimizer.param_groups
-                               if not grp.get("alpha", False) for p in grp["params"]]
-                norm = torch.nn.utils.get_total_norm(model_grads)
-                scale = torch.where(norm < float(cfg.grad_clip_value), 1.0,
-                                    float(cfg.grad_clip_value) / norm)
-                for g in model_grads:
-                    g.mul_(scale)
-                state.optimizer.step()
-                state.lr_scheduler.step()
-                self._after_step(model, logs, state.train_iter)
-            train_iter = state.train_iter + 1
-            if train_iter % int(cfg.target_update_freq) == 0:
-                state.target_model.load_state_dict(model.state_dict())
-        return state._replace(train_iter=train_iter), logs, value_priority
+        # clip the model groups' gradients (not log_alpha's) as optax does
+        model_grads = [p.grad for grp in state.optimizer.param_groups
+                       if not grp.get("alpha", False) for p in grp["params"]] if finite else None
+        state, _ = self._update(state, model_grads,
+                                functools.partial(self._after_step, model, logs, state.train_iter))
+        return state, logs, value_priority
 
     @torch.no_grad()
     def _after_step(self, model: nn.Module, logs: Dict[str, torch.Tensor], it: int) -> None:

@@ -21,7 +21,6 @@ either fact fails. About a minute on an H100.
 """
 from __future__ import annotations
 
-import ctypes
 import json
 import subprocess
 import sys
@@ -44,17 +43,12 @@ def main() -> int:
         capture_output=True, text=True, timeout=10, check=True,
     ).stdout.strip().splitlines()[0]
     print(card, flush=True)
-    fn = _build.load("fused_traverse").fused_traverse_check_div_all
-    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
     counts = torch.zeros(4, dtype=torch.int64, device="cuda")
     first_bad = torch.zeros(3, dtype=torch.int32, device="cuda")
-    stream = torch.cuda.current_stream().cuda_stream
     t0 = time.perf_counter()
     for begin in range(0, SIGNIFICANDS, B_PER_LAUNCH):
-        rc = fn(begin, B_PER_LAUNCH, counts.data_ptr(), first_bad.data_ptr(), stream)
-        if rc != 0:
-            raise RuntimeError(f"division check launch failed with CUDA error {rc}")
+        _build.launch("fused_traverse_check_div_all", counts.device, begin, B_PER_LAUNCH,
+                      counts.data_ptr(), first_bad.data_ptr())
         torch.cuda.synchronize()
     wrong, refused, pairs, rcp_bad = (int(x) for x in counts.tolist())
     rec = dict(check="fast_division_exhaustive", pairs=pairs, not_correctly_rounded=wrong,

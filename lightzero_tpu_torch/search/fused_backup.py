@@ -16,7 +16,8 @@ one tensor the kernel copies the new row; an embedding made of several
 tensors keeps the plain version's row write in PyTorch. It replaces no TPU
 kernel (``csrc/fused_backup.cu`` says why it exists).
 
-The kernel's launches are counted in ``fused_backup.launches``.
+The kernel's launches are counted in ``_build.launches`` under
+``fused_backup_launch``.
 """
 from __future__ import annotations
 
@@ -28,7 +29,6 @@ from typing import TYPE_CHECKING, Optional, Tuple
 import torch
 
 from lightzero_tpu_torch import _build
-from lightzero_tpu_torch.search.fused_traverse import _check
 from lightzero_tpu_torch.search.tree import Tree, map_embedding
 from lightzero_tpu_torch.search.types import RecurrentOutput, SearchConfig
 
@@ -187,23 +187,13 @@ class _Args(ctypes.Structure):
     ] + [("discount", ctypes.c_float), ("prior_is_logits", ctypes.c_int)]
 
 
-def _library() -> ctypes.CDLL:
-    lib = _build.load("fused_backup")
-    fn = lib.fused_backup_launch
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.POINTER(_Args), ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    return lib
-
-
 @functools.lru_cache(maxsize=None)
 def _limits() -> Tuple[int, int]:
     """The widest action space and the longest path a launch takes, as the
     library states them (csrc/fused_backup.cu: the widest row of the warp
     softmax whose order it follows, and the path whose two tables fit one
     warp's shared memory)."""
-    lib = _library()
-    return lib.fused_backup_max_actions(), lib.fused_backup_max_path()
+    return _build.entry("fused_backup_max_actions")(), _build.entry("fused_backup_max_path")()
 
 
 def kernel_takes(cfg: SearchConfig, tree: Tree) -> bool:
@@ -212,7 +202,7 @@ def kernel_takes(cfg: SearchConfig, tree: Tree) -> bool:
     searches take ``fused_backup_reference``."""
     if cfg.players != 1 or tree.value_sum.dtype != torch.float32:
         return False
-    return tree.value_sum.device.type != "cuda" or tree.num_actions <= _limits()[0]
+    return not _build.route("fused_backup", tree.value_sum) or tree.num_actions <= _limits()[0]
 
 
 def _row_copied(store, row, B: int) -> bool:
@@ -236,11 +226,8 @@ def fused_backup(
     """Expand and backup: the CUDA kernel for CUDA tensors, the plain version
     for CPU tensors. Launches on the current stream without synchronising,
     and raises on a search, type or shape the kernel does not take."""
-    dev = tree.value_sum.device
-    if dev.type == "cpu":
+    if not _build.route("fused_backup", tree.value_sum):
         return fused_backup_reference(cfg, tree, st, sim, out, prior_is_logits, value_override)
-    if dev.type != "cuda":
-        raise ValueError(f"fused_backup runs on cuda or cpu tensors, not {dev}")
     if cfg.players != 1:
         raise ValueError(f"the backup kernel backs up one-player searches, not players={cfg.players}")
     B, N, A = tree.num_trees, tree.num_nodes, tree.num_actions
@@ -255,45 +242,47 @@ def fused_backup(
     if value_override is not None and st.reuse_hit is None:
         raise ValueError("value_override is backed up where the descent's reuse_hit is set, "
                          "and this descent has none")
+    dev = tree.value_sum.device
     f32, i32, i64, flag = torch.float32, torch.int32, torch.int64, torch.bool
+    check = _build.check
     copied = _row_copied(tree.embedding, out.embedding, B)
     vmin = torch.empty((B,), dtype=f32, device=dev)
     vmax = torch.empty((B,), dtype=f32, device=dev)
     args = _Args(
-        visit_count=_check("tree.visit_count", tree.visit_count, (B, N), dev, i32),
-        value_sum=_check("tree.value_sum", tree.value_sum, (B, N), dev, f32),
-        reward=_check("tree.reward", tree.reward, (B, N), dev, f32),
-        raw_value=_check("tree.raw_value", tree.raw_value, (B, N), dev, f32),
-        prior=_check("tree.prior", tree.prior, (B, N, A), dev, f32),
-        children=_check("tree.children", tree.children, (B, N, A), dev, i32),
-        to_play=_check("tree.to_play", tree.to_play, (B, N), dev, i32),
-        terminal=_check("tree.terminal", tree.terminal, (B, N), dev, flag),
-        is_chance=_check("tree.is_chance", tree.is_chance, (B, N), dev, flag),
-        legal=_check("tree.legal", tree.legal, (B, N, A), dev, flag),
+        visit_count=check("tree.visit_count", tree.visit_count, (B, N), dev, i32),
+        value_sum=check("tree.value_sum", tree.value_sum, (B, N), dev, f32),
+        reward=check("tree.reward", tree.reward, (B, N), dev, f32),
+        raw_value=check("tree.raw_value", tree.raw_value, (B, N), dev, f32),
+        prior=check("tree.prior", tree.prior, (B, N, A), dev, f32),
+        children=check("tree.children", tree.children, (B, N, A), dev, i32),
+        to_play=check("tree.to_play", tree.to_play, (B, N), dev, i32),
+        terminal=check("tree.terminal", tree.terminal, (B, N), dev, flag),
+        is_chance=check("tree.is_chance", tree.is_chance, (B, N), dev, flag),
+        legal=check("tree.legal", tree.legal, (B, N, A), dev, flag),
         embedding=tree.embedding.data_ptr() if copied else None,
-        vmin=_check("tree.vmin", tree.vmin, (B,), dev, f32),
-        vmax=_check("tree.vmax", tree.vmax, (B,), dev, f32),
+        vmin=check("tree.vmin", tree.vmin, (B,), dev, f32),
+        vmax=check("tree.vmax", tree.vmax, (B,), dev, f32),
         vmin_out=vmin.data_ptr(),
         vmax_out=vmax.data_ptr(),
-        depth=_check("depth", st.depth, (B,), dev, i64),
-        path=_check("path", st.path, (B, P), dev, i64),
-        parent=_check("parent", st.parent, (B,), dev, i64),
-        last_action=_check("last_action", st.last_action, (B,), dev, i64),
-        virtual_to_play=_check("virtual_to_play", st.virtual_to_play, (B,), dev, i32),
-        leaf_is_terminal_node=_check("leaf_is_terminal_node", st.leaf_is_terminal_node, (B,),
-                                     dev, flag),
-        path_reward=_check("path_reward", st.path_reward, (B, P), dev, f32),
-        path_vsum=_check("path_vsum", st.path_vsum, (B, P), dev, f32),
-        path_visit=_check("path_visit", st.path_visit, (B, P), dev, f32),
-        reuse_hit=(_check("reuse_hit", st.reuse_hit, (B,), dev, flag)
+        depth=check("depth", st.depth, (B,), dev, i64),
+        path=check("path", st.path, (B, P), dev, i64),
+        parent=check("parent", st.parent, (B,), dev, i64),
+        last_action=check("last_action", st.last_action, (B,), dev, i64),
+        virtual_to_play=check("virtual_to_play", st.virtual_to_play, (B,), dev, i32),
+        leaf_is_terminal_node=check("leaf_is_terminal_node", st.leaf_is_terminal_node, (B,),
+                                    dev, flag),
+        path_reward=check("path_reward", st.path_reward, (B, P), dev, f32),
+        path_vsum=check("path_vsum", st.path_vsum, (B, P), dev, f32),
+        path_visit=check("path_visit", st.path_visit, (B, P), dev, f32),
+        reuse_hit=(check("reuse_hit", st.reuse_hit, (B,), dev, flag)
                    if value_override is not None else None),
-        leaf_reward=_check("out.reward", out.reward, (B,), dev, f32),
-        leaf_value=_check("out.value", out.value, (B,), dev, f32),
-        logits=_check("out.prior_logits", out.prior_logits, (B, A), dev, f32),
-        legal_mask=_check("out.legal_mask", out.legal_mask, (B, A), dev, flag),
-        leaf_terminal=_check("out.terminal", out.terminal, (B,), dev, flag),
-        leaf_is_chance=_check("out.is_chance", out.is_chance, (B,), dev, flag),
-        value_override=_check("value_override", value_override, (B,), dev, f32),
+        leaf_reward=check("out.reward", out.reward, (B,), dev, f32),
+        leaf_value=check("out.value", out.value, (B,), dev, f32),
+        logits=check("out.prior_logits", out.prior_logits, (B, A), dev, f32),
+        legal_mask=check("out.legal_mask", out.legal_mask, (B, A), dev, flag),
+        leaf_terminal=check("out.terminal", out.terminal, (B,), dev, flag),
+        leaf_is_chance=check("out.is_chance", out.is_chance, (B,), dev, flag),
+        value_override=check("value_override", value_override, (B,), dev, f32),
         leaf_embedding=out.embedding.data_ptr() if copied else None,
         embedding_bytes=(math.prod(tree.embedding.shape[2:]) * tree.embedding.element_size()
                          if copied else 0),
@@ -306,12 +295,5 @@ def fused_backup(
         # plain version's row write
         map_embedding(_row_writer(~st.leaf_is_terminal_node, sim + 1), tree.embedding,
                       out.embedding)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = _library().fused_backup_launch(ctypes.byref(args), stream)
-    if rc != 0:
-        raise RuntimeError(f"fused_backup kernel launch failed with CUDA error {rc}")
-    fused_backup.launches += 1
+    _build.launch("fused_backup_launch", dev, ctypes.byref(args))
     return tree._replace(vmin=vmin, vmax=vmax)
-
-
-fused_backup.launches = 0

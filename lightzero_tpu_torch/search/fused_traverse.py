@@ -9,11 +9,11 @@ scalars (B, 8) = leaf node, parent, last action, depth, leaf-is-terminal,
 then five batch-major (B, D) path tables (node, action, reward, pre-backup
 value sum, pre-backup visit count), all f32.
 
-The kernel's launches are counted in ``fused_traverse.launches``.
+The kernel's launches are counted in ``_build.launches`` under
+``fused_traverse_launch``.
 """
 from __future__ import annotations
 
-import ctypes
 from typing import Optional, Tuple
 
 import numpy as np
@@ -154,49 +154,12 @@ def fused_traverse_reference(
     return scal, path, paction, preward, pvsum, pvisit
 
 
-_VOID = ctypes.c_void_p
-_ARGTYPES = [_VOID] * 11 + [ctypes.c_int] * 4 + [ctypes.c_float] * 4 + [
-    ctypes.c_int,
-    ctypes.c_float,
-    _VOID,
-]
-
-
-def _library() -> ctypes.CDLL:
-    lib = _build.load("fused_traverse")
-    fn = lib.fused_traverse_launch
-    if fn.argtypes is None:
-        fn.argtypes = _ARGTYPES
-        fn.restype = ctypes.c_int
-    return lib
-
-
 def kernel_route(A: int) -> str:
     """The route the kernel takes for A actions, fixed at launch by A:
     'prefetch' (the rows of a node's children are copied on chip while the
     node is scored) or 'row read' (the next row is read after the pick).
     Builds the kernel if it is not built yet."""
-    fn = _library().fused_traverse_route
-    fn.argtypes = [ctypes.c_int]
-    fn.restype = ctypes.c_int
-    return "prefetch" if fn(A) else "row read"
-
-
-def _check(name: str, x: Optional[torch.Tensor], shape: Tuple[int, ...],
-           device: torch.device, dtype: torch.dtype = torch.float32) -> Optional[int]:
-    """The address of a kernel's input or output once it is on ``device``
-    with ``dtype`` and ``shape``, contiguous; None for an absent one."""
-    if x is None:
-        return None
-    if x.device != device:
-        raise ValueError(f"{name} is on {x.device}, expected {device}")
-    if x.dtype != dtype:
-        raise ValueError(f"{name} has dtype {x.dtype}, expected {dtype}")
-    if tuple(x.shape) != shape:
-        raise ValueError(f"{name} has shape {tuple(x.shape)}, expected {shape}")
-    if not x.is_contiguous():
-        raise ValueError(f"{name} is not contiguous")
-    return x.data_ptr()
+    return "prefetch" if _build.entry("fused_traverse_route")(A) else "row read"
 
 
 def fused_traverse(
@@ -218,44 +181,30 @@ def fused_traverse(
 ) -> Outputs:
     """The descent: the CUDA kernel for CUDA tensors, the plain version for
     CPU tensors. Launches on the current stream without synchronising."""
-    kwargs = dict(
-        A=A, N=N, max_depth=max_depth, discount=discount, pb_c_base=pb_c_base,
-        pb_c_init=pb_c_init, value_delta_max=value_delta_max,
-        tie_break_first=tie_break_first, tie_break_epsilon=tie_break_epsilon,
-    )
-    if packed.device.type == "cpu":
-        return fused_traverse_reference(packed, vmin, vmax, root_stats, noise_u, **kwargs)
-    if packed.device.type != "cuda":
-        raise ValueError(f"fused_traverse runs on cuda or cpu tensors, not {packed.device}")
+    if not _build.route("fused_traverse", packed):
+        return fused_traverse_reference(
+            packed, vmin, vmax, root_stats, noise_u, A=A, N=N, max_depth=max_depth,
+            discount=discount, pb_c_base=pb_c_base, pb_c_init=pb_c_init,
+            value_delta_max=value_delta_max, tie_break_first=tie_break_first,
+            tie_break_epsilon=tie_break_epsilon)
     B, D = packed.shape[0], max_depth
     dev = packed.device
-    _check("packed", packed, (B, N, 7 * A + 2), dev)
-    _check("vmin", vmin, (B,), dev)
-    _check("vmax", vmax, (B,), dev)
-    _check("root_stats", root_stats, (B, 4), dev)
-    _check("noise_u", noise_u, (D, B, A), dev)
+    check = _build.check
+    inputs = (check("packed", packed, (B, N, 7 * A + 2), dev), check("vmin", vmin, (B,), dev),
+              check("vmax", vmax, (B,), dev), check("root_stats", root_stats, (B, 4), dev),
+              check("noise_u", noise_u, (D, B, A), dev))
     if D < 1:
         raise ValueError(f"max_depth must be at least 1, got {D}")
-    lib = _library()
     scal = torch.empty((B, 8), dtype=torch.float32, device=dev)
     paths = [torch.empty((B, D), dtype=torch.float32, device=dev) for _ in range(5)]
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = lib.fused_traverse_launch(
-        packed.data_ptr(), vmin.data_ptr(), vmax.data_ptr(), root_stats.data_ptr(),
-        noise_u.data_ptr() if noise_u is not None else None,
-        scal.data_ptr(), *(p.data_ptr() for p in paths),
+    _build.launch(
+        "fused_traverse_launch", dev, *inputs, scal.data_ptr(), *(p.data_ptr() for p in paths),
         B, A, N, D,
         float(discount), float(pb_c_base), float(pb_c_init), float(value_delta_max),
         int(bool(tie_break_first)), float(tie_break_epsilon),
-        stream,
     )
-    if rc != 0:
-        raise RuntimeError(f"fused_traverse kernel launch failed with CUDA error {rc}")
-    fused_traverse.launches += 1
     return (scal, *paths)
 
-
-fused_traverse.launches = 0
 
 # The (B, A, N) of the check_inputs tables that chip_smoke.py holds the kernel
 # against its plain version on, case i from seed SYNTHETIC_SEED + i: the

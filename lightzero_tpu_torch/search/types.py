@@ -25,8 +25,10 @@ class SearchConfig:
     value_delta_max: float = 0.01
     root_dirichlet_alpha: float = 0.3
     root_noise_weight: float = 0.25
-    # 1 = single-player backup. 2 (two-player self-play) is not ported yet:
-    # the search raises NotImplementedError for it.
+    # 1 = single-player backup. 2 = two-player self-play: the generic
+    # descent, and a backup that flips signs by the path's players
+    # (search/puct.py); a tree whose root has no player (to_play -1, against
+    # the bot) searches as one player.
     players: int = 1
     # 'noise': random tie-break among epsilon-close maxima (reference
     # cselect_child, cnode.cpp:551). 'first': lowest-index argmax.

@@ -1,19 +1,22 @@
 """The conv stack's fused channel LayerNorm
 (lightzero_tpu_torch/models/channel_norm.py).
 
-On the CPU: the dispatch rule (CPU tensors take the plain version; a map
-on the card whose channels are not a multiple of 4 or above
-``MAX_CHANNELS``, or of another type or residual shape, is refused); the plain backward formula
+On the CPU (the route of CPU tensors and other devices is in
+tests/test_torch_native_boundary.py): the dispatch rule (a map on the card
+whose channels are not a multiple of 4 or above the library's 256, or of
+another type or residual shape, is refused); the plain backward formula
 ``channel_norm_backward_reference`` against autograd of the plain forward
 in float64; the conv stack's outputs and gradients bitwise those of the ops
 it ran before (``_before_*``, copies kept here) at every site that now goes
-through ``channel_norm``; the bytes counter only while a profile records.
+through ``channel_norm``; the bytes counter, one entry a kernel, only while a
+profile records.
 
 On the card (marked ``benchmark``, skipped without CUDA): the kernel pair
 ``csrc/channel_norm.cu`` against the plain version: the output, each row's
 mean and rstd bitwise aten's, and the backward (dx, dgamma, dbeta, the
 residual's gradient) against the plain formula in float64, at C in {16, 32,
-64, 96} and at the widest C the kernel takes, with and without the residual,
+64, 96} and at the widest C the kernel takes (256, which the library
+states), with and without the residual,
 at row counts that do not fill the last block and at the benchmark cells'
 shapes; two runs bitwise equal; one launch a site, counted, and the counted
 launches equal to the profiler's. tests/conftest.py imports JAX, which the card's machine
@@ -21,6 +24,7 @@ lacks, so run them there without it:
 ``python -m pytest --noconftest -p no:cacheprovider tests/test_torch_channel_norm.py``.
 This file imports no JAX."""
 import json
+from collections import defaultdict
 from types import SimpleNamespace
 
 import pytest
@@ -29,8 +33,8 @@ from torch import nn
 
 import lightzero_tpu_torch.models.channel_norm as cn
 from lightzero_tpu_torch.models.alphazero import AlphaZeroModel
+from lightzero_tpu_torch import _build
 from lightzero_tpu_torch.models.channel_norm import (
-    MAX_CHANNELS,
     channel_norm,
     channel_norm_backward_reference,
     channel_norm_reference,
@@ -87,17 +91,6 @@ def _inputs(shape, residual: bool, seed: int, dtype=torch.float32, device="cpu")
 
 # ------------------------------------------------------------------ CPU
 
-@pytest.mark.parametrize("residual", [False, True])
-@pytest.mark.parametrize("C", CHANNELS)
-def test_cpu_tensors_take_the_plain_version(C, residual):
-    x, res, _ = _inputs((3, 5, 4, C), residual, seed=C)
-    norm = _norm(C, seed=1)
-    before = cn.channel_norm.launches
-    got = channel_norm(x, norm, residual=res)
-    assert torch.equal(got, channel_norm_reference(x, norm, res))
-    assert cn.channel_norm.launches == before
-
-
 def _fake(shape, cuda=True, dtype=torch.float32):
     return SimpleNamespace(shape=torch.Size(shape), dim=lambda: len(shape), is_cuda=cuda,
                            dtype=dtype)
@@ -119,12 +112,14 @@ def _fake_norm(C, cuda=True, dtype=torch.float32):
     ("residual of another shape", "error"),
     ("norm over two axes", "error"),
 ])
-def test_the_dispatch_rule(case, route):
+def test_the_dispatch_rule(case, route, monkeypatch):
+    # the library's limit, which the card tests read from it
+    monkeypatch.setattr(cn, "_max_channels", lambda: 256)
     x, norm, res = _fake((2, 3, 3, 64)), _fake_norm(64), None
     if case == "cuda float32 C=16 with residual":
         x, norm, res = _fake((2, 3, 3, 16)), _fake_norm(16), _fake((2, 3, 3, 16))
     elif case == "cuda float32 C=256":
-        x, norm = _fake((2, 3, 3, MAX_CHANNELS)), _fake_norm(MAX_CHANNELS)
+        x, norm = _fake((2, 3, 3, 256)), _fake_norm(256)
     elif case == "cpu":
         x = _fake((2, 3, 3, 64), cuda=False)
     elif case == "C=6":
@@ -275,13 +270,13 @@ def test_conv_stack_outputs_and_gradients_bitwise_unchanged_on_the_cpu(name):
 
 
 def _counting_channel_norm(x, norm, residual=None):
-    """The plain version, counted as the kernel pair counts its launches:
-    one a forward, two more when the backward reaches the output."""
+    """The plain version, counted as the kernel pair counts its calls: one
+    of the forward, one of the backward when it reaches the output."""
     y = channel_norm_reference(x, norm, residual)
-    cn.channel_norm.launches += 1
+    _build.launches["channel_norm_forward"] += 1
     if y.requires_grad:
         def backward(_):
-            cn.channel_norm.launches += 2
+            _build.launches["channel_norm_backward"] += 1
         y.register_hook(backward)
     return y
 
@@ -296,7 +291,7 @@ def test_launches_equal_sites_times_network_calls(path, monkeypatch):
     from lightzero_tpu_torch.policy import MuZeroPolicy
 
     monkeypatch.setattr(common, "channel_norm", _counting_channel_norm)
-    launches = cn.channel_norm.launches
+    monkeypatch.setattr(_build, "launches", defaultdict(int))
     policy = MuZeroPolicy(main_config.policy, device="cpu", seed=0)
     model = policy.model
     # the stem and a res block; a res block and two heads; the transition,
@@ -318,23 +313,30 @@ def test_launches_equal_sites_times_network_calls(path, monkeypatch):
     if path == "inference":
         assert counts["expected"] == 3 + 4 + 4 + 4
     chip_smoke.check_norm_launches(counts, path)
-    cn.channel_norm.launches = launches
 
 
-def test_the_bytes_counter_records_only_while_a_profile_records(tmp_path):
+def test_the_bytes_counter_records_only_while_a_profile_records(tmp_path, monkeypatch):
+    """One entry a kernel: the forward's, then the backward's row kernel and
+    its parameters' reduction; each the bytes its launch must move. The
+    launches are stood in for, so the wrapper's own arithmetic runs here."""
+    calls = []
+    monkeypatch.setattr(_build, "launch", lambda name, device, *args: calls.append(name))
+    monkeypatch.setattr(cn, "_blocks", lambda rows, C, backward: 1)
     profiling.counters.clear()
-    launches = cn.channel_norm.launches
-    cn._launched(128)
+    x, res, dy = _inputs((2, 3, 4, 8), True, seed=0)
+    w, b = torch.ones(8), torch.zeros(8)
+    cn._forward(x, w, b, None, LAYER_NORM_EPS, save=False)
     assert "channel_norm.bytes" not in profiling.counters
     with profiling.torch_trace(str(tmp_path / "profile")):
-        cn._launched(256)
-        cn._launched(64)
-    assert profiling.counters["channel_norm.bytes"] == [256, 64]
-    assert cn.channel_norm.launches == launches + 3
+        y, x_in, stats = cn._forward(x, w, b, res, LAYER_NORM_EPS, save=True)
+        cn._backward(dy, x_in, y, stats, w, residual=True)
+    rows, C = 24, 8
+    want = [4 * (rows * C * 3 + 2 * C), 4 * (rows * C * 5 + C), 4 * 2 * C]
+    assert profiling.counters["channel_norm.bytes"] == want
+    assert calls == ["channel_norm_forward"] * 2 + ["channel_norm_backward"]
     with open(tmp_path / "profile" / "spans.json") as f:
-        assert json.load(f)["counters"]["channel_norm.bytes"] == [256, 64]
+        assert json.load(f)["counters"]["channel_norm.bytes"] == want
     profiling.counters.clear()
-    cn.channel_norm.launches = launches
 
 
 # ----------------------------------------------------------------- card
@@ -400,7 +402,7 @@ def _check_kernel(shape, residual: bool, seed: int):
 @pytest.mark.benchmark
 @pytest.mark.parametrize("rows", [1, 37, 4099])
 @pytest.mark.parametrize("residual", [False, True])
-@pytest.mark.parametrize("C", CHANNELS + (MAX_CHANNELS,))
+@pytest.mark.parametrize("C", CHANNELS + (256,))
 def test_kernel_matches_the_plain_version_and_float64(C, residual, rows):
     _check_kernel((rows, C), residual, seed=rows + C)
 
@@ -427,20 +429,27 @@ def test_one_launch_a_site_counted_as_the_profiler_counts_them():
     dev = _card()
     blk = ResBlock(64, torch.Generator().manual_seed(0)).to(dev)
     x = torch.randn(8, 6, 6, 64, device=dev)
-    before = cn.channel_norm.launches
+    fwd, bwd = (_build.launches[f"channel_norm_{d}"] for d in ("forward", "backward"))
     with torch.no_grad():
         blk(x)
-    assert cn.channel_norm.launches == before + 2  # two sites, one launch each
+    assert _build.launches["channel_norm_forward"] == fwd + 2  # two sites, one launch each
     profiling.counters.clear()
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
                                             torch.profiler.ProfilerActivity.CUDA]) as prof:
         blk(x.clone().requires_grad_()).sum().backward()
         torch.cuda.synchronize()
     counted = profiling.counters.pop("channel_norm.bytes")
-    # two forwards, two backwards of two launches each
-    assert cn.channel_norm.launches == before + 2 + 6 and len(counted) == 6
+    # two more forwards, and two backwards of two kernels each
+    assert _build.launches["channel_norm_forward"] == fwd + 4
+    assert _build.launches["channel_norm_backward"] == bwd + 2 and len(counted) == 6
     traced = sum(1 for e in prof.events()
                  if e.device_type == torch.autograd.DeviceType.CUDA and "channel_norm_" in e.name)
     assert traced == 6
     rows = 8 * 6 * 6
     assert counted[:2] == [4 * (rows * 64 * 2 + 128), 4 * (rows * 64 * 3 + 128)]
+
+
+@pytest.mark.benchmark
+def test_the_library_states_256_channels():
+    _card()
+    assert _build.entry("channel_norm_max_channels")() == 256

@@ -1,11 +1,10 @@
 """The fused expand and backup (lightzero_tpu_torch/search/fused_backup.py).
 
-On the CPU: the wrapper takes the plain version ``fused_backup_reference``
-for CPU tensors and raises for other devices; ``puct._expand_and_backup``
-sends two-player searches and float64 trees to the plain version, and
-one-player float32 searches to the wrapper; and the plain version gives
-bitwise the trees that the backup gave before its body moved
-(``_backup_before_the_move``, a copy kept here) on a seeded one-player
+On the CPU (the wrapper's route is in tests/test_torch_native_boundary.py):
+``puct._expand_and_backup`` sends two-player searches and float64 trees to
+the plain version, and one-player float32 searches to the wrapper; and the
+plain version gives bitwise the trees that the backup gave before its body
+moved (``_backup_before_the_move``, a copy kept here) on a seeded one-player
 float32 search and a float64 two-player search: the searches where the
 move's one change, how the discount reaches the device, could show.
 
@@ -26,6 +25,7 @@ import pytest
 import torch
 
 import lightzero_tpu_torch.search.puct as puct
+from lightzero_tpu_torch import _build
 from lightzero_tpu_torch.search.fused_backup import fused_backup, fused_backup_reference
 from lightzero_tpu_torch.search.fused_backup_checks import (
     CHECK_SEARCHES,
@@ -224,26 +224,6 @@ def captured_backup(name: str = "terminal_stops", sim: int = 5):
     return seen
 
 
-def test_cpu_tensors_take_the_plain_version():
-    c = captured_backup()
-    exp_tree = Tree(*(map_embedding(torch.clone, v) for v in c["tree"]))
-    before = fused_backup.launches
-    got = fused_backup(c["cfg"], c["tree"], c["st"], 5, c["out"])
-    exp = fused_backup_reference(c["cfg"], exp_tree, c["st"], 5, c["out"])
-    assert_trees_equal(got, exp)
-    assert fused_backup.launches == before  # only kernel launches count
-
-
-def test_other_devices_raise():
-    c = captured_backup()
-    meta = lambda x: x.to("meta") if isinstance(x, torch.Tensor) else x  # noqa: E731
-    tree = Tree(*(map_embedding(meta, v) for v in c["tree"]))
-    st = type(c["st"])(*(meta(v) for v in c["st"]))
-    out = type(c["out"])(*(map_embedding(meta, v) for v in c["out"]))
-    with pytest.raises(ValueError, match="cuda or cpu"):
-        fused_backup(c["cfg"], tree, st, 5, out)
-
-
 def test_routing(monkeypatch):
     """One-player float32 searches go through the wrapper, once a
     simulation; two-player searches and float64 trees take the plain
@@ -287,12 +267,12 @@ def test_kernel_matches_the_plain_version_on_the_card(name, monkeypatch):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: run on the card")
     sims = next(c[3] for c in CHECK_SEARCHES if c[0] == name)
-    before = fused_backup.launches
+    before = _build.launches["fused_backup_launch"]
     got = run(name, "cuda")
-    assert fused_backup.launches - before == sims
+    assert _build.launches["fused_backup_launch"] - before == sims
     monkeypatch.setattr(puct, "fused_backup", fused_backup_reference)
     exp = run(name, "cuda")
-    assert fused_backup.launches - before == sims
+    assert _build.launches["fused_backup_launch"] - before == sims
     assert_trees_equal(got.tree, exp.tree)
 
 

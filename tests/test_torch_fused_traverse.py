@@ -21,7 +21,6 @@ from lightzero_tpu_torch.search.fused_traverse import (
     SYNTHETIC_SEED,
     SYNTHETIC_SHAPES,
     check_inputs,
-    fused_traverse,
     fused_traverse_reference,
 )
 
@@ -93,21 +92,3 @@ def test_phase3_noise_tables_vary_after_the_stop(case):
     lo = torch.where(tail, paction, torch.inf).amin(dim=1)
     hi = torch.where(tail, paction, -torch.inf).amax(dim=1)
     assert int((hi > lo).sum()) > 0, "no tree's tail columns carry different actions"
-
-
-def test_wrapper_takes_plain_version_for_cpu_tensors():
-    B, A, N = 4, 2, 7
-    d = check_inputs(np.random.default_rng(3), B, A, N, with_noise=True)
-    before = fused_traverse.launches
-    got = fused_traverse(*_torch_inputs(d), **_kwargs(A, N, False))
-    exp = fused_traverse_reference(*_torch_inputs(d), **_kwargs(A, N, False))
-    for g, e in zip(got, exp):
-        assert torch.equal(g, e)
-    assert fused_traverse.launches == before  # only kernel launches count
-
-
-def test_wrapper_rejects_other_devices():
-    d = check_inputs(np.random.default_rng(4), 2, 2, 5, with_noise=False)
-    args = [None if x is None else x.to("meta") for x in _torch_inputs(d)]
-    with pytest.raises(ValueError, match="cuda or cpu"):
-        fused_traverse(*args, **_kwargs(2, 5, True))

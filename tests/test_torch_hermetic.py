@@ -413,15 +413,16 @@ def no_nvcc(monkeypatch, tmp_path):
     monkeypatch.setattr(_build, "DEFAULT_CUDA_HOME", str(tmp_path / "no_cuda"))
     monkeypatch.setattr(_build, "BUILD_DIR", str(tmp_path / "build"))
     monkeypatch.setattr(_build, "_loaded", {})
+    monkeypatch.setattr(_build, "_entries", {})
     return tmp_path
 
 
 def test_loader_raises_when_nvcc_is_absent(no_nvcc):
     with pytest.raises(_build.BuildError, match="nvcc not found"):
         _build.load("fused_traverse")
-    # the kernel module's loader raises too: no plain version comes back
+    # an entry point's binding raises too: no plain version comes back
     with pytest.raises(_build.BuildError, match="nvcc not found"):
-        fused_traverse_module._library()
+        _build.entry("fused_traverse_launch")
     assert not (no_nvcc / "build").exists()
 
 

@@ -18,10 +18,10 @@ import torch
 
 from lightzero_tpu.config.core import deep_merge as jax_deep_merge
 from lightzero_tpu.policy.muzero import MuZeroPolicy as JaxMuZeroPolicy
+from lightzero_tpu_torch import _build
 from lightzero_tpu_torch.configs.cartpole_muzero import main_config
 from lightzero_tpu_torch.envs import CartPoleEnv
 from lightzero_tpu_torch.policy import MuZeroPolicy
-from lightzero_tpu_torch.search.fused_traverse import fused_traverse
 from lightzero_tpu_torch.utils.params_import import flax_to_state_dict
 from lightzero_tpu_torch.workers import Evaluator
 from test_torch_model import perturbed_params
@@ -81,13 +81,13 @@ def test_evaluator_plays_episodes_on_cpu():
     cfg = dict(main_config.policy, num_simulations=4,
                model=dict(main_config.policy.model, latent_state_dim=16))
     policy = MuZeroPolicy(cfg, device="cpu")
-    before = fused_traverse.launches
+    before = _build.launches["fused_traverse_launch"]
     ev = Evaluator(CartPoleEnv(max_episode_steps=6), policy, num_envs=3, seed=0, device="cpu")
     out = ev.eval()
     # 6 steps from near upright cannot fail: every episode is truncated at 6
     assert out["episode_returns"] == [6.0, 6.0, 6.0]
     assert out["env_steps"] == 6 and out["new_best"]
-    assert fused_traverse.launches == before  # the CPU runs the plain version
+    assert _build.launches["fused_traverse_launch"] == before  # the CPU runs the plain version
 
 
 def _three_action_policies(seed):
@@ -114,9 +114,9 @@ def test_pure_policy_eval_matches_jax_with_an_illegal_action():
     legal = np.ones((16, 3), bool)
     legal[np.arange(16), rng.integers(0, 3, 16)] = False
     exp = jax_policy.forward_eval(params, jax.random.PRNGKey(0), jnp.asarray(obs), jnp.asarray(legal))
-    before = fused_traverse.launches
+    before = _build.launches["fused_traverse_launch"]
     got = port.forward_eval(torch.from_numpy(obs), torch.from_numpy(legal))
-    assert fused_traverse.launches == before  # no search in this mode
+    assert _build.launches["fused_traverse_launch"] == before  # no search in this mode
     np.testing.assert_array_equal(got["action"].numpy(), np.asarray(exp["action"]))
     assert legal[np.arange(16), got["action"].numpy()].all()
     np.testing.assert_allclose(got["visit_counts"].numpy(), np.asarray(exp["visit_counts"]),
