@@ -45,6 +45,7 @@ from lightzero_tpu_torch.ops import (
     scalar_transform,
 )
 from lightzero_tpu_torch.ops.action import sample_from_visit_counts
+from lightzero_tpu_torch.policy import learn_graph
 from lightzero_tpu_torch.search.puct import batch_puct_search
 from lightzero_tpu_torch.search.types import RecurrentOutput, RootOutput, SearchConfig
 from lightzero_tpu_torch.utils import profiling
@@ -124,6 +125,10 @@ class MuZeroPolicy:
     # (the model's parameters, the logs) between backward and the clip, it
     # averages the gradients and the logs over the ranks
     grad_sync: Optional[Callable] = None
+    # the captured learn step (``learn_graph.LearnGraph``) and the key of the
+    # last eager step (``_captured_step``)
+    _learn_graph = None
+    _eager_key = None
 
     def _task_ids(self, batch_size: int) -> Optional[torch.Tensor]:
         """(B,) task ids of the bound task, or None outside a task view."""
@@ -429,39 +434,111 @@ class MuZeroPolicy:
         """One optimizer step (the JAX policy's ``_forward_learn``, which it
         jits as ``forward_learn``): ``(state, logs, value_priority (B,))``.
         The logs are 0-d tensors on the policy's device (``cur_lr`` a
-        float)."""
-        model = state.model
+        float). Where ``_captured_step`` has one, the step is a replay of
+        the captured graph (``learn_graph.py``), which runs the kernels the
+        eager step below runs, in the same order."""
+        graph = self._captured_step(state, batch)
+        if graph is not None:
+            logs, value_priority, grad_norm = graph.replay(batch)
+            logs["cur_lr"] = state.lr_scheduler.get_last_lr()[0]
+            logs["grad_norm"] = grad_norm
+            with profiling.span("learn.optimizer"):
+                state = self._finish_step(state, updated=True)
+            return state, logs, value_priority
         state.optimizer.zero_grad(set_to_none=True)
-        loss, (logs, value_priority) = self._loss_fn(model, batch)
-        loss.backward()
-        params = list(model.parameters())
-        zero_missing_grads_(params)
+        logs, value_priority, params = self._loss_and_grads(state.model, batch)
         if self.grad_sync is not None:
             self.grad_sync(params, logs)
         logs["cur_lr"] = state.lr_scheduler.get_last_lr()[0]
         state, logs["grad_norm"] = self._update(state, [p.grad for p in params])
         return state, logs, value_priority
 
+    def _loss_and_grads(self, model: nn.Module, batch: TrainBatch):
+        """The loss and its backward: ``(logs, value_priority (B,), the
+        parameters)``, each parameter holding its gradient (zeros where the
+        loss does not reach it)."""
+        loss, (logs, value_priority) = self._loss_fn(model, batch)
+        loss.backward()
+        params = list(model.parameters())
+        zero_missing_grads_(params)
+        return logs, value_priority, params
+
+    def _graph_key(self, state: TrainState, batch: TrainBatch):
+        """What a captured learn step depends on: ``(owners, values)``, the
+        objects it holds (compared by identity) and the numbers it bakes in;
+        None where the step stays eager. It is captured only for MuZero's own
+        loss (the variants that replace it stay eager), on a batch on the
+        card, without ``grad_sync`` (the DDP step), and with SGD, whose step
+        keeps no count on the host (Adam's and AdamW's do unless built
+        ``capturable``). The values are each parameter group's settings
+        (the rate among them: a schedule that moves it recaptures) and the
+        batch's fields' shapes and types."""
+        opt = state.optimizer
+        if (self.grad_sync is not None or type(opt) is not torch.optim.SGD
+                or type(self)._loss_fn is not MuZeroPolicy._loss_fn
+                or type(self)._sample_losses is not MuZeroPolicy._sample_losses
+                or not all(x is None or x.is_cuda for x in batch)):
+            return None
+        return ((state.model, opt, opt.state),
+                (tuple(v for g in opt.param_groups for k, v in g.items() if k != "params"),
+                 type(batch),
+                 tuple(None if x is None else (x.shape, x.dtype, x.device) for x in batch)))
+
+    def _captured_step(self, state: TrainState, batch: TrainBatch):
+        """The captured learn step (``LearnGraph``) that performs this step,
+        or None for an eager one. A step whose key no captured graph has
+        runs eagerly, which warms its shapes and gives SGD its momentum
+        buffers; the next step with the same key captures the graph, which
+        then performs that step and the later ones."""
+        key = self._graph_key(state, batch)
+        if key is None:
+            return None
+        graph = self._learn_graph
+        if graph is not None and learn_graph.same_key(graph.key, key):
+            return graph
+        if self._eager_key is None or not learn_graph.same_key(self._eager_key, key):
+            self._eager_key = key
+            return None
+        self._learn_graph = None  # the old graph's memory goes before the new one's capture
+        self._learn_graph = learn_graph.LearnGraph(self, state, batch, key)
+        return self._learn_graph
+
+    def _clip_and_step(self, optimizer: torch.optim.Optimizer,
+                       grads: List[torch.Tensor]) -> torch.Tensor:
+        """``grads`` clipped by their global norm, then the optimizer's step;
+        returns the norm before clipping."""
+        norm = clip_by_global_norm_(grads, float(self.cfg.grad_clip_value))
+        optimizer.step()
+        return norm
+
     def _update(self, state: TrainState, grads: Optional[List[torch.Tensor]],
                 after_step: Optional[Callable[[], None]] = None):
-        """The tail of a learn step: ``grads`` clipped by their global norm,
-        the optimizer's and the schedule's step, ``after_step()``, then the
-        target model's copy of the online one every ``target_update_freq``
-        steps. ``grads`` None skips the update (a non-finite step) and still
-        counts the step. Returns (the state, the norm of ``grads`` before
-        clipping, None where skipped)."""
+        """The tail of a learn step: ``grads`` clipped and the optimizer's
+        step (``_clip_and_step``), then ``_finish_step``. ``grads`` None
+        skips the update (a non-finite step) and still counts the step.
+        Returns (the state, the norm of ``grads`` before clipping, None
+        where skipped)."""
         norm = None
         with profiling.span("learn.optimizer"):
             if grads is not None:
-                norm = clip_by_global_norm_(grads, float(self.cfg.grad_clip_value))
-                state.optimizer.step()
-                state.lr_scheduler.step()
-                if after_step is not None:
-                    after_step()
-            train_iter = state.train_iter + 1
-            if train_iter % int(self.cfg.target_update_freq) == 0:
-                state.target_model.load_state_dict(state.model.state_dict())
-        return state._replace(train_iter=train_iter), norm
+                norm = self._clip_and_step(state.optimizer, grads)
+            state = self._finish_step(state, grads is not None, after_step)
+        return state, norm
+
+    def _finish_step(self, state: TrainState, updated: bool,
+                     after_step: Optional[Callable[[], None]] = None) -> TrainState:
+        """The host's part of a learn step's tail: where the optimizer
+        stepped, the schedule's step and ``after_step()``; then the step
+        counted and the target model's copy of the online one every
+        ``target_update_freq`` steps."""
+        if updated:
+            state.lr_scheduler.step()
+            if after_step is not None:
+                after_step()
+        train_iter = state.train_iter + 1
+        if train_iter % int(self.cfg.target_update_freq) == 0:
+            state.target_model.load_state_dict(state.model.state_dict())
+        return state._replace(train_iter=train_iter)
 
     # -------------------------------------------------------------- collect
     @torch.no_grad()

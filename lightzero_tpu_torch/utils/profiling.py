@@ -16,9 +16,12 @@ the spans of one call a shared id. ``summary()`` sums the record by name.
 Counters. ``count(name, value)`` keeps a device tensor or a host number
 under ``name`` in ``counters`` while a profile is active (the MoE layers'
 per-expert token counts, ``moe.tokens_per_expert``; the bytes of each
-channel-norm launch, ``channel_norm.bytes``), as it is: no read-back, which
-is left to whoever reads ``counters`` after the profile. Outside a profile
-it is one check.
+channel-norm launch, ``channel_norm.bytes``; each replay of the captured
+learn step, ``learn_graph.replays``), as it is: no read-back, which is left
+to whoever reads ``counters`` after the profile. Outside a profile it is
+one check. Inside ``captured_counts()``, the capture of a CUDA graph, whose
+work runs only when the graph is replayed, the counts go to a list instead,
+and ``recount`` counts them again at each replay.
 
 ``torch_trace`` takes the place of the JAX module's ``jax_trace``: it
 records the host's ops and, where the work runs on the card, the device's
@@ -33,7 +36,7 @@ import json
 import os
 import threading
 import time
-from typing import Dict, List, NamedTuple, Optional, Union
+from typing import Dict, List, NamedTuple, Optional, Tuple, Union
 
 import torch
 
@@ -62,6 +65,8 @@ record: List[Span] = []
 # the counters' device tensors and host numbers recorded while a profile was
 # active, by name, in the order they were recorded
 counters: Dict[str, List[Union[torch.Tensor, float]]] = {}
+# the counts of the CUDA graph being captured (``captured_counts``), else None
+_captured: Optional[List[Tuple[str, Union[torch.Tensor, float]]]] = None
 _local = _Thread()
 _requests = itertools.count(1)
 _OFF = contextlib.nullcontext()
@@ -112,10 +117,34 @@ def span(name: str):
 
 def count(name: str, value: Union[torch.Tensor, float]) -> None:
     """Keep ``value`` under ``name`` in ``counters`` while a profile is
-    active (a no-op outside one)."""
-    if _on():
+    active (a no-op outside one); inside ``captured_counts()``, in its list
+    instead, profile or not."""
+    if _captured is not None:
+        _captured.append((name, value))
+    elif _on():
         counters.setdefault(name, []).append(
             value.detach() if isinstance(value, torch.Tensor) else value)
+
+
+@contextlib.contextmanager
+def captured_counts():
+    """Yield the list that the block's ``count`` calls go to: the capture of
+    a CUDA graph, whose kernels run, and so count, at each replay."""
+    global _captured
+    outer, _captured = _captured, []
+    try:
+        yield _captured
+    finally:
+        _captured = outer
+
+
+def recount(entries: List[Tuple[str, Union[torch.Tensor, float]]]) -> None:
+    """``count`` each of a captured graph's ``entries`` once more, after a
+    replay: a device tensor is the graph's output, which the next replay
+    overwrites, so a copy of it is kept."""
+    if _on():
+        for name, value in entries:
+            count(name, value.clone() if isinstance(value, torch.Tensor) else value)
 
 
 def summary(spans: Optional[List[Span]] = None) -> Dict[str, Dict[str, float]]:
